@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (tpu_snappy_torch) on one CUDA card.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing its results; any failure raises (non-zero exit):
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: every kernel compiled from ops/kernels/csrc/ with nvcc;
+3. kernel against plain: each kernel equals its plain PyTorch version
+   exactly (all integer) on random inputs and edge cases at the main
+   path's shapes;
+4. round trip: 16 MiB of seeded mixed data through api.compress and
+   api.decompress on the card, checked against the host goldens, with the
+   launch counters showing that the main path ran every kernel;
+5. times: compress / decompress throughput and peak device memory; then
+   a traced round trip with a synchronised host clock around each public
+   stage and kernel wrapper, which also captures every kernel's inputs;
+6. main path, kernel against plain: each kernel equals its plain version
+   exactly on the tensors captured from the main path (the wave shapes it
+   really runs at), and the time of both on them (CUDA events).
+
+The second-to-last lines are a JSON object of per-kernel results and the
+nvidia-smi name/power line; the last line is {"ok": true, "device": ...}.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 20261016
+ROUND_TRIP_BYTES = 16 << 20
+BATCH = 8  # rows for the kernel-against-plain checks
+N = 1 << 16
+
+
+def _card() -> tuple[str, str]:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return torch.cuda.get_device_name(0), smi.splitlines()[0]
+
+
+def make_data(size: int, seed: int = SEED) -> bytes:
+    """Seeded mix: Zipf-drawn words with numbers, random printable ASCII,
+    incompressible bytes (literal runs over 60 and over 256 bytes), runs
+    of one byte, and a partial last block."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    vocab = [bytes(letters[rng.integers(0, 26, rng.integers(2, 11))])
+             for _ in range(5000)]
+    target = size - 12345  # the last block stays partial
+    pieces, total = [], 0
+    while total < target:
+        kind = rng.choice(4, p=[0.55, 0.15, 0.15, 0.15])
+        if kind == 0:
+            words = [vocab[i % len(vocab)]
+                     for i in rng.zipf(1.3, rng.integers(200, 3000))]
+            for j in np.flatnonzero(rng.random(len(words)) < 0.08):
+                words[j] = str(int(rng.integers(0, 1_000_000))).encode()
+            piece = b" ".join(words) + b".\n"
+        elif kind == 1:
+            piece = rng.integers(32, 127, rng.integers(100, 20000),
+                                 dtype=np.uint8).tobytes()
+        elif kind == 2:
+            piece = rng.integers(0, 256, rng.integers(61, 5000),
+                                 dtype=np.uint8).tobytes()
+        else:
+            piece = bytes([int(rng.integers(0, 256))]) * int(
+                rng.integers(10, 30000))
+        pieces.append(piece)
+        total += len(piece)
+    return b"".join(pieces)[:target]
+
+
+def _exact(a, b) -> int:
+    """Largest |a - b| over two integer tensors of one shape."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def check_kernels(dev) -> None:
+    """Phase 3: every kernel against its plain version, exact equality, on
+    random inputs and the JAX tests' edge cases; raises on any
+    difference."""
+    from tpu_snappy_torch.ops.kernels import ffill, scatter, tiledres, windows
+
+    rng = np.random.default_rng(SEED)
+    report = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # window_keys: random rows, n at every edge the JAX tests use.
+    blocks = t(rng.integers(0, 256, (BATCH, N), dtype=np.uint8))
+    n = t(np.array([N, N - 1, 5000, 4, 3, 0, N, 1234], np.int32))
+    err = _exact(windows.window_keys(blocks, n),
+                 windows.window_keys_plain(blocks, n))
+    report["window_keys"] = err
+    print(f"kernel window_keys  B={BATCH} n edges: max_abs_err={err}")
+
+    # ffill: encode width and decode transport widths, 1-4 payloads,
+    # sparse masks, leading unmasked runs, empty and full masks.
+    errs = []
+    for m in (N, 8192, 32768):
+        mask = rng.random((BATCH, m)) < 0.03
+        mask[1, :500] = False
+        mask[2] = False
+        mask[3] = True
+        mask[4, :] = False
+        mask[4, m - 1] = True
+        for k in (1, 2, 3, 4):
+            vals = tuple(t(rng.integers(-(1 << 20), 1 << 20, (BATCH, m),
+                                        dtype=np.int32)) for _ in range(k))
+            got = ffill.ffill(t(mask), vals)
+            want = ffill.ffill_plain(t(mask), vals)
+            errs += [_exact(g, w) for g, w in zip(got, want)]
+        print(f"kernel ffill        B={BATCH} M={m} k=1..4: "
+              f"max_abs_err={max(errs)}")
+    report["ffill"] = max(errs)
+
+    # scatter_windowed: transport-shaped dests (nondecreasing, dropped
+    # writes, tag/payload cells summing in disjoint limbs), random dests
+    # that overflow the window, and one overflow of count 1.
+    errs = []
+    for m in (8192, 32768):
+        dest = np.minimum(np.cumsum(rng.integers(1, 3, (BATCH, m)), axis=1),
+                          N).astype(np.int32)
+        drop = rng.random((BATCH, m)) < 0.3
+        d = np.where(drop, N, dest).astype(np.int32)
+        vals = np.where(rng.random((BATCH, m)) < 0.5,
+                        rng.integers(0, 1 << 16, (BATCH, m)) << 8,
+                        rng.integers(0, 256, (BATCH, m))).astype(np.int32)
+        cases = [(d, vals),
+                 (rng.integers(0, N + 1, (BATCH, m), dtype=np.int32),
+                  rng.integers(0, 1 << 24, (BATCH, m), dtype=np.int32))]
+        for dd, vv in cases:
+            got, govf = scatter.scatter_windowed(t(dd), t(vv))
+            want, wovf = scatter.scatter_windowed_plain(t(dd), t(vv))
+            errs += [_exact(got, want), _exact(govf, wovf)]
+        print(f"kernel scatter_win  B={BATCH} M={m}: max_abs_err={max(errs)}"
+              f" (random-dest overflow counts {wovf.tolist()})")
+    d = np.full((BATCH, 1024), N, np.int32)
+    d[:, 0], d[:, 1023] = 0, 40000
+    got, govf = scatter.scatter_windowed(t(d), t(np.full_like(d, 5)))
+    want, wovf = scatter.scatter_windowed_plain(t(d), t(np.full_like(d, 5)))
+    errs += [_exact(got, want), _exact(govf, wovf)]
+    if govf.tolist() != [1] * BATCH or int(got[0, 40000]) != 0:
+        raise AssertionError(f"overflow not counted once: {govf.tolist()}")
+    report["scatter_windowed"] = max(errs)
+    print(f"kernel scatter_win  overflow case: counts {govf.tolist()}, "
+          f"max_abs_err={max(errs)}")
+
+    # resolve_tiled: random decreasing maps, identity, period-1 chain,
+    # tile-straddling hops.
+    lit = t(rng.integers(0, 256, (BATCH, N), dtype=np.int32))
+    ident = np.arange(N, dtype=np.int32)
+    srcs = [np.minimum(ident, rng.integers(0, N, N)),
+            ident,
+            np.maximum(ident - 1, 0),
+            np.maximum(ident - ident % tiledres.TILE - 1, 0),
+            np.maximum(ident - rng.integers(1, 300, N), 0),
+            np.where(rng.random(N) < 0.5, ident, np.maximum(ident - 7, 0)),
+            np.maximum(ident - tiledres.TILE, 0),
+            np.minimum(ident, rng.integers(0, 64, N))]
+    src = t(np.stack(srcs).astype(np.int32))
+    err = _exact(tiledres.resolve_tiled(lit, src),
+                 tiledres.resolve_tiled_plain(lit, src))
+    report["resolve_tiled"] = err
+    print(f"kernel resolve_tiled B={BATCH} (identity, chain, straddle, "
+          f"random): max_abs_err={err}")
+    if any(report.values()):
+        raise AssertionError(f"kernel disagrees with plain: {report}")
+
+
+def _kernel_modules() -> dict:
+    from tpu_snappy_torch.ops.kernels import ffill, scatter, tiledres, windows
+    return {"window_keys": windows, "ffill": ffill,
+            "scatter_windowed": scatter, "resolve_tiled": tiledres}
+
+
+def _public_stages() -> dict:
+    """The package's public stages on the main path: name -> (module,
+    attribute). Each is reached through a module attribute at call time,
+    so wrapping the attribute observes the real main path."""
+    from tpu_snappy_torch.ops import decode, encode, scan
+    return {"encode_blocks": (encode, "encode_blocks"),
+            "commit_bounded": (scan, "commit_bounded"),
+            "compact_blocks": (encode, "compact_blocks"),
+            "decode_fragments": (decode, "decode_fragments"),
+            "parse_transport": (decode, "parse_transport"),
+            "commit_general": (scan, "commit_general")}
+
+
+def _tensors(x) -> list:
+    """The tensors in a kernel's arguments or results, flattened."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x for t in _tensors(item)]
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return tuple(_clone(item) for item in x)
+
+
+def traced_round_trip(dev, data: bytes, card: str):
+    """Phase 5: one more round trip through the public API, with every
+    public stage and every kernel wrapper wrapped in place. Each wrapped
+    call is timed on the host clock between two synchronises, and the
+    first call of each kernel per calling stage and input shape is cloned,
+    so that phase 6 holds the kernel against its plain version on exactly
+    the tensors the main path gives it. Returns those captured calls."""
+    import functools
+
+    from tpu_snappy_torch import api
+
+    kernels = _kernel_modules()
+    targets = dict(_public_stages())
+    targets.update({k: (mod, k) for k, mod in kernels.items()})
+    clock = dict.fromkeys(targets, 0.0)
+    calls = dict.fromkeys(targets, 0)
+    stack, captured = [], {}
+
+    def wrap(name, fn):
+        # functools.wraps copies the `launches` attribute, which a wrapper
+        # increments through its module global while it is replaced; the
+        # counts of the main-path run were read before this phase.
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if name in kernels:
+                key = (name, stack[-1] if stack else "-",
+                       tuple((tuple(t.shape), str(t.dtype))
+                             for t in _tensors(args)))
+                captured.setdefault(key, _clone(args))
+            stack.append(name)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize(dev)
+                clock[name] += (time.perf_counter() - t0) * 1e3
+                calls[name] += 1
+                stack.pop()
+        return run
+
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+    try:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, wrap(name, saved[name]))
+        t0 = time.perf_counter()
+        comp = api.compress(data, device="cuda")
+        t1 = time.perf_counter()
+        back = api.decompress(comp, device="cuda")
+        t2 = time.perf_counter()
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[name])
+    if back != data:
+        raise AssertionError("the traced round trip changed the data")
+    print(f"traced round trip (synchronised around every wrapped call), "
+          f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms; "
+          f"host-clock ms per stage over all waves [{card}]:")
+    for name in targets:
+        print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
+    return captured
+
+
+def _timed(fn, dev, reps: int) -> float:
+    """Milliseconds per call: CUDA events over `reps` calls after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
+
+
+def check_main_path_calls(dev, captured: dict, card: str) -> dict:
+    """Phase 6: each kernel against its plain version, exact equality (ovf
+    counts included), on the calls captured from the main path; then the
+    time of both on those tensors (CUDA events). Returns, per kernel, the
+    largest absolute difference over its captured calls and the times of
+    its largest call."""
+    kernels = _kernel_modules()
+    report = {}
+    for (name, stage, shapes), args in captured.items():
+        mod = kernels[name]
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        got, want = _tensors(kern(*args)), _tensors(plain(*args))
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} results against "
+                                 f"{len(want)}")
+        err = max(_exact(g, w) for g, w in zip(got, want))
+        ms = _timed(lambda: kern(*args), dev, 20)
+        plain_ms = _timed(lambda: plain(*args), dev, 5)
+        print(f"main path {name} in {stage} {shapes}: max_abs_err={err}; "
+              f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
+        size = sum(t.numel() for t in _tensors(args))
+        prev = report.get(name)
+        if prev is None or size > prev["size"]:
+            report[name] = {"size": size, "ms": ms, "plain_ms": plain_ms,
+                            "err": max(err, prev["err"] if prev else 0)}
+        else:
+            prev["err"] = max(prev["err"], err)
+    missing = set(kernels) - set(report)
+    if missing:
+        raise AssertionError(f"no main-path call captured for {missing}")
+    if any(r["err"] for r in report.values()):
+        raise AssertionError(f"kernel disagrees with plain on the main "
+                             f"path's tensors: {report}")
+
+    # resolve_tiled's worst case: the period-1 chain, 65535 hops deep.
+    tiledres = kernels["resolve_tiled"]
+    rng = np.random.default_rng(SEED + 1)
+    batch = next(args[1].shape[0] for (name, _, _), args in captured.items()
+                 if name == "resolve_tiled")
+    chain = torch.from_numpy(np.tile(
+        np.maximum(np.arange(N, dtype=np.int32) - 1, 0), (batch, 1))).to(dev)
+    lit = torch.from_numpy(
+        rng.integers(0, 256, (batch, N), dtype=np.int32)).to(dev)
+    ms = _timed(lambda: tiledres.resolve_tiled(lit, chain), dev, 20)
+    plain_ms = _timed(lambda: tiledres.resolve_tiled_plain(lit, chain), dev, 5)
+    print(f"time resolve_tiled ({batch}, {N}) src=max(i-1,0), depth 65535: "
+          f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
+    return report
+
+
+def round_trip(dev, wrappers: dict):
+    """Phase 4: 16 MiB through the port's API on the card, with the launch
+    counters read around exactly that run."""
+    from tpu_snappy_torch import api
+
+    data = make_data(ROUND_TRIP_BYTES)
+    print(f"round trip input: {len(data)} bytes, "
+          f"{-(-len(data) // N)} blocks (last partial)")
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    comp = api.compress(data, device="cuda")
+    back, stats = api.decompress_with_stats(comp, device="cuda")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"main path launches: {launches}")
+    if back != data:
+        raise AssertionError("round trip on the card changed the data")
+    if stats.path != "device" or stats.spliced:
+        raise AssertionError(f"decode left the device: {stats}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel did not run on the main path: "
+                             f"{launches}")
+    print(f"round trip ok: {len(data)} -> {len(comp)} bytes (ratio "
+          f"{len(comp) / len(data)}), {stats.fragments} fragments, "
+          f"{stats.spliced} spliced on the host")
+    return data, comp, launches, peak
+
+
+def check_goldens(data: bytes, comp: bytes) -> None:
+    """Phase 4, continued: the host codecs decode the port's stream, the
+    card decodes theirs, and the CUDA stream equals the CPU stream."""
+    from tpu_snappy import reference_codec
+    from tpu_snappy.native import realsnappy
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import decode as ops_decode
+
+    goldens = ["reference_codec"]
+    if reference_codec.decompress(comp) != data:
+        raise AssertionError("reference_codec decodes the port's stream "
+                             "differently")
+    golden = ops_decode.native_golden()
+    if golden is not None:
+        goldens.append("native golden (C++)")
+        if golden.uncompress(comp) != data:
+            raise AssertionError("native golden disagrees")
+    if realsnappy.available():
+        goldens.append("system libsnappy")
+        if realsnappy.uncompress(comp) != data:
+            raise AssertionError("libsnappy disagrees")
+    print(f"goldens that decoded the port's stream: {', '.join(goldens)}"
+          f" (system libsnappy loads: {realsnappy.available()})")
+
+    foreign = {"reference_codec (first 2 MiB)":
+               (data[:2 << 20], reference_codec.compress(data[:2 << 20]))}
+    if golden is not None:
+        foreign["native golden"] = (data, golden.compress(data))
+    if realsnappy.available():
+        foreign["system libsnappy"] = (data, realsnappy.compress(data))
+    for label, (plain, stream) in foreign.items():
+        got, st = api.decompress_with_stats(stream, device="cuda")
+        if got != plain:
+            raise AssertionError(f"the card mis-decodes a {label} stream")
+        print(f"decoded on the card: {label} stream of {len(stream)} bytes "
+              f"({st.fragments} fragments, {st.spliced} spliced)")
+
+    head = data[:4 * N]
+    cpu_stream = api.compress(head, device="cpu", small_fastpath=False)
+    gpu_stream = api.compress(head, device="cuda", small_fastpath=False)
+    if cpu_stream != gpu_stream:
+        raise AssertionError("CUDA and CPU streams differ on 4 blocks")
+    print(f"first 4 blocks: CUDA stream == CPU stream ({len(gpu_stream)} "
+          f"bytes)")
+
+
+def main() -> None:
+    name, smi = _card()
+    print(f"device: {name} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}); nvidia-smi: {smi}")
+    dev = torch.device("cuda", 0)
+
+    # Phase 2: build every kernel from the sources, from scratch.
+    from tpu_snappy_torch.ops.kernels import _build
+    _build.lib(force_build=True)
+    info = _build.build_info
+    print(f"build: nvcc {info['seconds']} s -> {info['path']}")
+    for line in info["ptxas"]:
+        print(f"  {line}")
+
+    check_kernels(dev)
+
+    from tpu_snappy_torch import api
+    modules = _kernel_modules()
+    wrappers = {k: getattr(mod, k) for k, mod in modules.items()}
+    data, comp, launches, peak = round_trip(dev, wrappers)
+    check_goldens(data, comp)
+
+    # Times on the card (the round trip above was the warm-up).
+    card = smi
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    comp2 = api.compress(data, device="cuda")
+    t1 = time.perf_counter()
+    back2 = api.decompress(comp2, device="cuda")
+    t2 = time.perf_counter()
+    if comp2 != comp or back2 != data:
+        raise AssertionError("second round trip differs from the first")
+    print(f"compress: {t1 - t0} s, {len(data) / (t1 - t0) / 1e9} GB/s "
+          f"[{card}]")
+    print(f"decompress: {t2 - t1} s, {len(data) / (t2 - t1) / 1e9} GB/s "
+          f"[{card}]")
+    print(f"peak device memory over the round trip: {peak} bytes "
+          f"(wave {api.API_WAVE}) [{card}]")
+    captured = traced_round_trip(dev, data, card)
+    report = check_main_path_calls(dev, captured, card)
+
+    kernels = []
+    for k, mod in modules.items():
+        r = report[k]
+        kernels.append({"name": k, "route": "cuda", "source": mod.SOURCE,
+                        "replaces": mod.REPLACES, "launches": launches[k],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"]})
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,190 @@
+"""The port's decoder (tpu_snappy_torch/ops/decode.py) against the JAX one.
+
+Fragments of the port's own streams, reference_codec streams, and the
+copy4 / exotic / corrupt streams of tests/test_exotic_streams.py decode in
+one batch through the port and through JAX decode_fragments_jit at
+resolve="tiled" (the mirrored mode). Bytes and ok flags must be equal.
+The JAX CPU path scatters without the TPU window and so cannot count a
+window overflow; where the port counts one, it must report ok=False and
+the API must still give the reference bytes (or raise the same error).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_snappy import format as fmt
+from tpu_snappy import reference_codec
+from tpu_snappy.ops import decode as D
+from tpu_snappy.utils import corpus
+
+from tpu_snappy_torch import api
+from tpu_snappy_torch.ops import decode as TD
+from tpu_snappy_torch.ops.kernels import scatter as KS
+
+
+def _build(total, elements):
+    return fmt.varint_encode(total) + b"".join(elements)
+
+
+def _periodic(period, runlen):
+    head = bytes(range(max(4, period)))[:max(4, period)]
+    nfull, rest = divmod(runlen, 64)
+    els = [fmt.literal_header(len(head)), head]
+    els += [fmt.copy_element(period, 64)] * nfull
+    if rest >= 4:
+        els.append(fmt.copy_element(period, rest))
+    else:
+        runlen -= rest
+    return _build(len(head) + runlen, els)
+
+
+@functools.cache
+def _streams():
+    """name -> Snappy stream (built once per process)."""
+    rng = np.random.default_rng(5)
+    text = b"The quick brown fox jumps over the lazy dog. " * 1600
+    out = {}
+    for name, data in (("port-text", text),
+                       ("port-random", bytes(rng.integers(0, 256, 20000,
+                                                          "u1"))),
+                       ("port-rle", b"ab" * 8000)):
+        out[name] = api.compress(data, device="cpu", small_fastpath=False)
+    for name, data in (("ref-abcd", b"abcd" * 5000), ("ref-x", b"x" * 30000),
+                       ("ref-random", bytes(rng.integers(0, 256, 3000,
+                                                         "u1"))),
+                       ("ref-ascii", corpus.synth("random", 20000))):
+        out[name] = reference_codec.compress(data)
+    a = rng.integers(0, 256, fmt.BLOCK_SIZE, dtype=np.uint8).tobytes()
+    out["cross-fragment-copy"] = _build(
+        fmt.BLOCK_SIZE + 64 + 10,
+        [fmt.literal_header(fmt.BLOCK_SIZE), a, fmt.copy_element(1000, 64),
+         fmt.literal_header(10), b"0123456789"])
+    x = b"x" * 70000
+    out["copy4"] = _build(70000 + 64, [
+        fmt.literal_header(65536), x[:65536],
+        fmt.literal_header(70000 - 65536), x[65536:],
+        bytes([(63 << 2) | 3, 0x10, 0x27, 0, 0])])
+    out["corrupt-offset"] = _build(100, [fmt.literal_header(4), b"abcd",
+                                         fmt.copy_element(5000, 64)])
+    out["tiny-copy"] = _build(7, [fmt.literal_header(4), b"abcd",
+                                  bytes([(2 << 2) | 2, 3, 0])])
+    for period, runlen in ((1, 5000), (3, 4997), (64, 6400), (61, 6100)):
+        out[f"periodic-{period}"] = _periodic(period, runlen)
+    out["same-offset-split"] = _build(8 + 16 + 4 + 16, [
+        fmt.literal_header(8), b"abcdefgh", fmt.copy_element(4, 16),
+        fmt.literal_header(4), b"WXYZ", fmt.copy_element(4, 16)])
+    out["offset-change"] = _build(16 + 9 + 21 + 8 + 64, [
+        fmt.literal_header(16), b"0123456789abcdef",
+        fmt.copy_element(3, 9), fmt.copy_element(7, 21),
+        fmt.copy_element(2, 8), fmt.copy_element(2, 64)])
+    out["chain-into-run"] = _build(5 + 60 + 4 + 24, [
+        fmt.literal_header(5), b"hello", fmt.copy_element(5, 60),
+        fmt.literal_header(4), b"####", fmt.copy_element(40, 24)])
+    return out
+
+
+@pytest.fixture(scope="module")
+def batch():
+    """All fragments of all streams, at one width, decoded by both."""
+    frags, clens, ulens, names = [], [], [], []
+    for name, comp in _streams().items():
+        total, start = fmt.varint_decode(comp)
+        try:
+            f, c, u = TD.fragment_table(comp, start, total)
+        except ValueError:  # malformed before any fragment decodes
+            with pytest.raises(ValueError):
+                D.fragment_table(comp, start, total)
+            continue
+        jf, jc, ju = D.fragment_table(comp, start, total)
+        assert (f == np.asarray(jf)).all() and (c == jc).all() \
+            and (u == ju).all(), name
+        frags.append(f)
+        clens += c.tolist()
+        ulens += u.tolist()
+        names += [f"{name}#{i}" for i in range(len(u))]
+    # Two fragments of random garbage: parse and ok must agree there too.
+    rng = np.random.default_rng(99)
+    garbage = np.zeros((2, TD.FRAG_CAP), np.uint8)
+    garbage[:, :3000] = rng.integers(0, 256, (2, 3000))
+    frags.append(garbage)
+    clens += [3000, 3000]
+    ulens += [5000, 65536]
+    names += ["garbage#0", "garbage#1"]
+
+    clens = np.asarray(clens, np.int32)
+    ulens = np.asarray(ulens, np.int32)
+    width = TD.frag_width(clens)
+    assert width == D.frag_width(clens)
+    frags = np.concatenate(frags)[:, :width]
+    j_out, j_ok = D.decode_fragments_jit(
+        jnp.asarray(frags), jnp.asarray(clens), jnp.asarray(ulens),
+        resolve="tiled")
+    ft, ct, ut = (torch.from_numpy(np.ascontiguousarray(a))
+                  for a in (frags, clens, ulens))
+    t_out, t_ok = TD.decode_fragments(ft, ct, ut)
+    mdst, mval, _ = TD.transport_cells(ft, ct, ut)
+    _, ovf = KS.scatter_windowed(mdst, mval)
+    return dict(names=names, ulens=ulens, j_out=np.asarray(j_out),
+                j_ok=np.asarray(j_ok), t_out=t_out.numpy(),
+                t_ok=t_ok.numpy(), ovf=ovf.numpy(), inputs=(ft, ct, ut))
+
+
+def test_ok_flags_match_jax(batch):
+    for i, name in enumerate(batch["names"]):
+        if batch["ovf"][i]:
+            assert not batch["t_ok"][i], name
+        else:
+            assert batch["t_ok"][i] == batch["j_ok"][i], name
+    # Fragment-local streams all decode on the device; copies reaching
+    # into an earlier fragment (cross-fragment-copy, the copy4 case) and
+    # garbage do not.
+    local = [n not in ("cross-fragment-copy#1", "copy4#1")
+             and not n.startswith("garbage") for n in batch["names"]]
+    assert batch["t_ok"][local].all()
+    assert not batch["t_ok"][[not v for v in local]].any()
+
+
+def test_bytes_match_jax(batch):
+    both = batch["t_ok"] & batch["j_ok"]
+    assert (batch["t_out"][both] == batch["j_out"][both]).all()
+    # Zero past each fragment's length, as in JAX.
+    for i, n in enumerate(batch["ulens"]):
+        assert not batch["t_out"][i, n:].any(), batch["names"][i]
+
+
+@pytest.mark.parametrize("name", sorted(_streams()))
+def test_api_decompress_matches_reference(name):
+    comp = _streams()[name]
+    try:
+        want = reference_codec.decompress(comp)
+    except ValueError:
+        with pytest.raises(ValueError):
+            api.decompress(comp, device="cpu", small_fastpath=False)
+        return
+    got, stats = api.decompress_with_stats(comp, device="cpu",
+                                           small_fastpath=False)
+    assert got == want
+    if name == "cross-fragment-copy":
+        assert stats.spliced == 1  # re-decoded on the host with context
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_decode_on_the_card_matches_cpu(batch, cuda):
+    """The same fragments on the card: bytes and ok equal the CPU port's
+    (which the tests above hold against JAX), overflow counts included."""
+    ft, ct, ut = (t.to(cuda) for t in batch["inputs"])
+    out, ok = TD.decode_fragments(ft, ct, ut)
+    assert (ok.cpu().numpy() == batch["t_ok"]).all()
+    assert (out.cpu().numpy() == batch["t_out"]).all()

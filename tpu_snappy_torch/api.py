@@ -1,0 +1,178 @@
+"""Host-facing codec API of the PyTorch port: bytes in, bytes out.
+
+Port of tpu_snappy/api.py at DEFAULT_CONFIG (the presets are later
+slices). The caller names the device ("cuda" or "cpu"); there is no
+implicit choice. Multi-block inputs run in waves of `wave`
+blocks (or fragments) per batched device call; the wave width bounds
+device memory and never changes the output bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_snappy import format as fmt
+from tpu_snappy import reference_codec
+
+from .ops import decode as ops_decode
+from .ops import encode as ops_encode
+
+#: Blocks (or fragments) per batched device call, chosen for device
+#: memory. Peak memory grows linearly with the wave (the encoder's sticky
+#: membership test holds (B, 65536, 14, 14) booleans): a 16 MiB round trip
+#: peaked at 2.80 GB with 64 and 5.60 GB with 128 (NVIDIA H100 80GB HBM3,
+#: 700 W), about 44 MB per block. 128 blocks (8 MiB of input) halve the
+#: decoder's per-wave parse-scan cost against 64 and leave most of an
+#: 80 GB card, or of a CPU host's memory, free.
+API_WAVE = 128
+
+#: Inputs below one block take the host codec (tpu_snappy/api.py:50), so
+#: the port's API bytes match the JAX API's.
+SMALL_INPUT_BYTES = fmt.BLOCK_SIZE
+
+
+@dataclasses.dataclass
+class DecodeStats:
+    """What api.decompress did with one stream."""
+    path: str = "device"  # "device", "host-small" or "host-fallback"
+    fragments: int = 0    # fragments decoded on the device
+    spliced: int = 0      # of those, re-decoded on the host (ok=False)
+
+
+def _to_blocks(data: bytes):
+    """Split + zero-pad input into (B, 65536) blocks with a length vector."""
+    size = fmt.BLOCK_SIZE
+    n = len(data)
+    nblocks = max(1, -(-n // size))
+    arr = np.zeros((nblocks, size), dtype=np.uint8)
+    flat = np.frombuffer(data, dtype=np.uint8)
+    arr.reshape(-1)[:n] = flat
+    lengths = np.minimum(
+        np.maximum(n - np.arange(nblocks) * size, 0), size).astype(np.int32)
+    return arr, lengths
+
+
+def _host_compress(data: bytes) -> bytes:
+    golden = ops_decode.native_golden()
+    if golden is not None:
+        return golden.compress(data)
+    return reference_codec.compress(data)
+
+
+def _host_decompress(comp: bytes) -> bytes:
+    golden = ops_decode.native_golden()
+    if golden is not None:
+        try:
+            return golden.uncompress(comp)
+        except ValueError:
+            # The Python decoder re-raises with a precise message (or
+            # succeeds on streams the native capacity checks refuse).
+            pass
+    return reference_codec.decompress(comp)
+
+
+def compress(data: bytes, *, device, small_fastpath: bool = True,
+             wave: int | None = None) -> bytes:
+    """Compress to a standard Snappy stream (varint preamble + elements)
+    on `device`. small_fastpath=False forces the device pipeline below one
+    block."""
+    if small_fastpath and len(data) < SMALL_INPUT_BYTES:
+        return _host_compress(data)
+    w = wave or API_WAVE
+    blocks, lengths = _to_blocks(data)
+    parts = [fmt.varint_encode(len(data))]
+    for s in range(0, len(lengths), w):
+        bt = torch.from_numpy(blocks[s:s + w]).to(device)
+        lt = torch.from_numpy(lengths[s:s + w]).to(device)
+        out, out_lens = ops_encode.encode_blocks(bt, lt)
+        dense, total = ops_encode.compact_blocks(out, out_lens)
+        parts.append(dense[:total].cpu().numpy().tobytes())
+    return b"".join(parts)
+
+
+def decompress(comp: bytes, *, device, small_fastpath: bool = True,
+               wave: int | None = None) -> bytes:
+    """Decompress a standard Snappy stream (ours or any other encoder's)
+    on `device`. Fragments that fail device validation (corrupt, or valid
+    but exotic) re-decode on the host; corrupt streams raise ValueError."""
+    return decompress_with_stats(comp, device=device,
+                                 small_fastpath=small_fastpath,
+                                 wave=wave)[0]
+
+
+def decompress_with_stats(comp: bytes, *, device, small_fastpath: bool = True,
+                          wave: int | None = None):
+    """api.decompress, also returning a DecodeStats of the path taken."""
+    stats = DecodeStats()
+    total, start = fmt.varint_decode(comp)
+    if total == 0:
+        if len(comp) != start:
+            raise ValueError("trailing bytes after empty stream")
+        return b"", stats
+    if small_fastpath and total < SMALL_INPUT_BYTES:
+        stats.path = "host-small"
+        return _host_decompress(comp), stats
+    try:
+        frags, clens, ulens = ops_decode.fragment_table(comp, start, total)
+    except ops_decode.FragmentFallback:
+        stats.path = "host-fallback"
+        return reference_codec.decompress(comp), stats
+    nf = len(ulens)
+    width = ops_decode.frag_width(clens)
+    w = wave or API_WAVE
+    outs, oks = [], []
+    for s in range(0, nf, w):
+        ft = torch.from_numpy(
+            np.ascontiguousarray(frags[s:s + w, :width])).to(device)
+        ct = torch.from_numpy(clens[s:s + w]).to(device)
+        ut = torch.from_numpy(ulens[s:s + w]).to(device)
+        out, ok = ops_decode.decode_fragments(ft, ct, ut)
+        outs.append(out.cpu().numpy())
+        oks.append(ok.cpu().numpy())
+    out = np.concatenate(outs)
+    ok = np.concatenate(oks)
+    stats.fragments = nf
+    stats.spliced = int((~ok).sum())
+    if stats.spliced:
+        result = _splice_failed_fragments(frags, clens, ulens, out, ok)
+    else:
+        result = b"".join(out[i, : ulens[i]].tobytes() for i in range(nf))
+    if len(result) != total:
+        raise ValueError("length mismatch vs preamble")
+    return result, stats
+
+
+def _splice_failed_fragments(frags, clens, ulens, out: np.ndarray,
+                             ok: np.ndarray) -> bytes:
+    """Re-decode only the failed fragments on the host, with the decoded
+    prefix as copy context (tpu_snappy/api.py:164)."""
+    parts = [out[i, : ulens[i]].tobytes() if ok[i] else None
+             for i in range(len(ulens))]
+    return _splice_parts(frags, clens, ulens, parts, ok)
+
+
+def _splice_parts(frags, clens, ulens, parts, ok) -> bytes:
+    """Join per-fragment device bytes; failed fragments re-decode
+    sequentially after the spliced prefix. Corrupt fragments raise with
+    their index."""
+    ctx = bytearray()
+    for i in range(len(ulens)):
+        if ok[i]:
+            ctx += parts[i]
+            continue
+        before = len(ctx)
+        try:
+            reference_codec.decompress_elements(
+                frags[i].tobytes(), 0, int(clens[i]), ctx)
+        except (ValueError, IndexError) as host_err:
+            raise ValueError(
+                f"invalid Snappy stream: fragment {i} of {len(ulens)} "
+                f"failed validation ({host_err})") from host_err
+        if len(ctx) - before != ulens[i]:
+            raise ValueError(
+                f"invalid Snappy stream: fragment {i} of {len(ulens)} "
+                f"decoded {len(ctx) - before} bytes, expected {ulens[i]}")
+    return bytes(ctx)

@@ -1,0 +1,253 @@
+"""Fragment-parallel Snappy decoder in PyTorch (port of
+tpu_snappy/ops/decode.py).
+
+The JAX decoder at resolve="tiled": per fragment, speculative element
+fields for every compressed byte, the tag-chain parse (commit_general),
+forward fills, the windowed transport scatter, the periodic-run collapse,
+and the tile-sequential resolve. The forward fills, the transport scatter
+and the resolve run through the hand-written kernels (ops/kernels/).
+
+As on the TPU, a transport write outside its window marks the fragment
+not-ok (the JAX CPU path scatters without a window and cannot see one);
+api.decompress then re-decodes that fragment on the host.
+
+The host helpers (fragment split, widths) are reimplemented here because
+tpu_snappy.ops.decode imports JAX.
+"""
+
+from __future__ import annotations
+
+import functools
+import subprocess
+
+import numpy as np
+import torch
+
+from tpu_snappy import format as fmt
+
+from . import scan
+from .kernels import scatter as _scatter
+from .kernels import tiledres as _tiledres
+
+#: Per-fragment compressed capacity (decode.py:79); larger fragments take
+#: the sequential host path.
+FRAG_CAP = 68 * 1024
+#: Output cells of one fragment (decode.py:86).
+OUT = fmt.BLOCK_SIZE
+
+
+def _elem_fields(c: torch.Tensor):
+    """Speculative per-byte element decode, as if every byte were a tag.
+    c: (B, M) uint8. Returns (size, outbytes, is_lit, hdr, offset), each
+    (B, M) int32 (is_lit bool); int32 arithmetic wraps as in JAX (whose
+    `length` output equals `outbytes`)."""
+    t = c.to(torch.int32)
+    b1, b2, b3, b4 = (torch.roll(t, -s, dims=-1) for s in (1, 2, 3, 4))
+    kind = t & 3
+    code = t >> 2
+
+    extra = torch.clamp(code - 59, 0, 4)
+    ext_val = torch.where(
+        extra == 0, code,
+        torch.where(extra == 1, b1,
+                    torch.where(extra == 2, b1 | (b2 << 8),
+                                torch.where(extra == 3,
+                                            b1 | (b2 << 8) | (b3 << 16),
+                                            b1 | (b2 << 8) | (b3 << 16)
+                                            | (b4 << 24)))))
+    lit_len = ext_val + 1
+    lit_hdr = 1 + extra
+    lit_size = lit_hdr + lit_len
+
+    copy_len = torch.where(kind == 1, ((t >> 2) & 7) + 4, code + 1)
+    copy_size = torch.where(kind == 1, 2, torch.where(kind == 2, 3, 5))
+    copy_off = torch.where(
+        kind == 1, ((t >> 5) << 8) | b1,
+        torch.where(kind == 2, b1 | (b2 << 8),
+                    b1 | (b2 << 8) | (b3 << 16) | (b4 << 24)))
+
+    is_lit = kind == 0
+    size = torch.where(is_lit, lit_size, copy_size).to(torch.int32)
+    outbytes = torch.where(is_lit, lit_len, copy_len)
+    hdr = torch.where(is_lit, lit_hdr, copy_size).to(torch.int32)
+    return size, outbytes, is_lit, hdr, copy_off
+
+
+def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
+    """PARSE, and the transport's scatter inputs (decode.py:183-244), for
+    (B, M) uint8 fragments. Returns (dest (B, M) int32 output cell or OUT
+    to drop, value (B, M) int32, ok (B,) bool): payload bytes ride bits
+    0-7, the element descriptor (1 for a literal, offset + 1 for a copy)
+    bits 8-24 at the element's output start."""
+    b, m = c.shape
+    dev = c.device
+    iota = torch.arange(m, dtype=torch.int32, device=dev)
+    clen = clen.to(torch.int32)[:, None]
+    size, outbytes, is_lit, hdr, off = _elem_fields(c)
+
+    # --- PARSE: the true tag chain ---
+    jump = torch.clamp(size, min=1)
+    tags = scan.commit_general(jump) & (iota < clen)
+    emitted = torch.where(tags, outbytes, 0)
+    opos = scan.exclusive_cumsum(emitted)
+    total_out = emitted.sum(dim=-1, dtype=torch.int32)
+    last_end = torch.where(tags, iota + size, -1).amax(dim=-1)
+    ok = (total_out == ulen.to(torch.int32)) & (
+        (last_end == clen[:, 0]) | (clen[:, 0] == 0))
+    # Copies must stay inside the fragment and behind the write head.
+    bad_copy = tags & ~is_lit & ((off < 1) | (off > opos))
+    ok &= ~bad_copy.any(dim=-1)
+
+    # --- TRANSPORT inputs: each element's fields spread over its bytes ---
+    estart, eopos, ehdr, eislit = scan.ffill_many(
+        tags, (iota.expand(b, m).contiguous(), opos, hdr,
+               is_lit.to(torch.int32)))
+    is_payload = (eislit == 1) & (iota >= estart + ehdr) & (iota < clen)
+    out_q = eopos + iota - estart - ehdr
+    desc = torch.where(is_lit, 1, torch.clamp(off, 0, OUT - 1) + 1)
+    mdst = torch.where(tags, torch.clamp(opos, max=OUT),
+                       torch.where(is_payload, torch.clamp(out_q, 0, OUT),
+                                   OUT)).to(torch.int32)
+    mval = torch.where(tags, desc << 8, c.to(torch.int32)).to(torch.int32)
+    return mdst, mval, ok
+
+
+def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
+    """PARSE + TRANSPORT + run collapse (decode.py:183) for (B, M) uint8
+    fragments, M a multiple of 1024. Returns (lit_out (B, 65536) int32
+    bytes, src (B, 65536) int32 one-step source map with src[p] <= p,
+    ok (B,) bool)."""
+    b = c.shape[0]
+    dev = c.device
+    mdst, mval, ok = transport_cells(c, clen, ulen)
+    # One windowed scatter carries payload bytes and descriptors; they
+    # share cells only in disjoint bit ranges, so the sums compose.
+    merged, sovf = _scatter.scatter_windowed(mdst, mval)
+    ok &= sovf == 0
+    lit_out = merged & 0xFF
+    o_desc = merged >> 8
+
+    # --- copy chains over output space, with the periodic-run collapse ---
+    oiota = torch.arange(OUT, dtype=torch.int32, device=dev)
+    desc_f = scan.ffill(o_desc != 0, o_desc)
+    lit_f = desc_f == 1
+    off_f = torch.clamp(desc_f - 1, min=0)
+    src_plain = oiota - off_f
+    is_start = o_desc != 0
+    off_prev = torch.roll(off_f, 1, dims=-1)
+    lit_prev = torch.roll(lit_f, 1, dims=-1)
+    run_head = is_start & ~lit_f & (lit_prev | (off_prev != off_f)
+                                    | (oiota == 0))
+    rs_f = scan.ffill(run_head, oiota.expand(b, OUT).contiguous())
+    base = rs_f - off_f
+    offc = torch.clamp(off_f, min=1)
+    src_mod = torch.remainder(oiota - base, offc) + base
+    src = torch.where(lit_f, oiota,
+                      torch.where(src_plain >= rs_f, src_mod, src_plain))
+    return lit_out, torch.clamp(src, 0, OUT - 1).to(torch.int32), ok
+
+
+def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
+                     ulens: torch.Tensor):
+    """Decode a batch of fragments (decode.py:292 at resolve="tiled").
+    frags (B, M) uint8 zero-padded, M a multiple of 1024 (frag_width
+    gives one); clens, ulens (B,) int32. Returns (out (B, 65536) uint8,
+    zero past ulen; ok (B,) bool)."""
+    lit_out, src, ok = parse_transport(frags, clens, ulens)
+    out = _tiledres.resolve_tiled(lit_out, src).to(torch.uint8)
+    oiota = torch.arange(OUT, dtype=torch.int32, device=frags.device)
+    keep = oiota < ulens.to(torch.int32)[:, None]
+    return torch.where(keep, out, 0), ok
+
+
+class FragmentFallback(Exception):
+    """Stream is valid but not fragment-parallel decodable; use host path."""
+
+
+@functools.cache
+def native_golden():
+    """The clean-room C++ codec (tpu_snappy.native.golden) if it builds and
+    loads here, else None. It builds with cmake at first use; a machine
+    without cmake or Ninja gets None, and callers use the Python codec."""
+    try:
+        from tpu_snappy.native import golden
+        golden._load()
+    except (ImportError, OSError, RuntimeError,
+            subprocess.CalledProcessError):
+        return None
+    return golden
+
+
+def fragment_table(comp: bytes, start: int, total: int):
+    """Host-side fragment split (decode.py:665): native scan when the
+    golden library loads, else the Python walk. Returns (frags (F,
+    FRAG_CAP) uint8, clens (F,) int32, ulens (F,) int32). Raises
+    ValueError for malformed streams and FragmentFallback for valid but
+    exotic ones."""
+    buf = np.frombuffer(comp, dtype=np.uint8)
+    max_frags = total // fmt.BLOCK_SIZE + 2
+    golden = native_golden()
+    try:
+        if golden is None:
+            raise RuntimeError("native codec unavailable")
+        offs, ulens, nfrag = golden.scan_index(comp, start, total, max_frags)
+    except RuntimeError:
+        offs, ulens, nfrag = _scan_index_py(buf, start, total, max_frags)
+    offs = np.concatenate([offs[:nfrag], [len(comp)]]).astype(np.int64)
+    clens = (offs[1:] - offs[:-1]).astype(np.int32)
+    if nfrag == 0 or clens.max(initial=0) > FRAG_CAP:
+        raise FragmentFallback("fragment exceeds parallel-decode capacity")
+    frags = np.zeros((nfrag, FRAG_CAP), dtype=np.uint8)
+    for i in range(nfrag):
+        frags[i, : clens[i]] = buf[offs[i]: offs[i + 1]]
+    return frags, clens, np.asarray(ulens[:nfrag], dtype=np.int32)
+
+
+def _scan_index_py(buf: np.ndarray, start: int, total: int, max_frags: int):
+    """Element walk in Python (decode.py:693): fragment starts and output
+    lengths at every 64 KB output boundary."""
+    ip, op = start, 0
+    n = len(buf)
+    offs, ulens = [], []
+    frag_ip, frag_op = ip, 0
+    while ip < n:
+        tag = int(buf[ip])
+        kind = tag & 3
+        if kind == 0:
+            code = tag >> 2
+            if code < 60:
+                outb = code + 1
+                esize = 1 + outb
+            else:
+                extra = code - 59
+                if ip + 1 + extra > n:
+                    raise ValueError("truncated")
+                outb = int.from_bytes(buf[ip + 1: ip + 1 + extra].tobytes(),
+                                      "little") + 1
+                esize = 1 + extra + outb
+        else:
+            esize = 2 if kind == 1 else 3 if kind == 2 else 5
+            outb = (((tag >> 2) & 7) + 4) if kind == 1 else (tag >> 2) + 1
+        if ip + esize > n:
+            raise ValueError("truncated")
+        ip += esize
+        op += outb
+        if op % fmt.BLOCK_SIZE == 0 or ip >= n:
+            if op - frag_op > fmt.BLOCK_SIZE or len(offs) >= max_frags:
+                raise FragmentFallback("exotic stream")
+            offs.append(frag_ip)
+            ulens.append(op - frag_op)
+            frag_ip, frag_op = ip, op
+        elif op // fmt.BLOCK_SIZE != (op - outb) // fmt.BLOCK_SIZE:
+            raise FragmentFallback("element straddles fragment boundary")
+    if op != total:
+        raise ValueError("length mismatch vs preamble")
+    return np.asarray(offs, np.int64), np.asarray(ulens, np.int64), len(offs)
+
+
+def frag_width(clens) -> int:
+    """Fragment width to decode at: the largest compressed length rounded
+    up to 8 KB (decode.py:733), at most FRAG_CAP."""
+    m = int(np.max(clens)) if len(clens) else 0
+    b = 8192
+    return int(min(max(b, -(-m // b) * b), FRAG_CAP))

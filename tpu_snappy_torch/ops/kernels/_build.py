@@ -1,0 +1,154 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by one `nvcc` call into one shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so the build takes seconds). The library lands in `_build/`, keyed by a
+hash of the sources and flags, so a fresh checkout builds at first use and
+an edited source rebuilds. Nothing here runs at import time.
+
+Each C entry point returns `cudaGetLastError()` after its launches;
+`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = pathlib.Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+#: C entry points and their argument types (pointers and the stream as
+#: c_void_p, so ctypes never truncates them to 32 bits).
+SIGNATURES = {
+    "snk_window_keys": [P, P, P, I, P],
+    "snk_ffill": [P, P, P, P, P, P, P, P, P, I, I, I, P],
+    "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, P],
+    "snk_resolve_tiled": [P, P, P, I, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+#: What the last build or load did: library path, whether nvcc ran, its
+#: wall time, and the `-Xptxas -v` lines (registers, shared memory, spills).
+build_info: dict = {}
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(force: bool = False) -> pathlib.Path:
+    """Compile csrc/*.cu into one shared library (skipped when a library
+    for the same sources exists, unless force). Returns its path."""
+    so = BUILD_DIR / f"libsnappy_kernels_{_digest()}.so"
+    if so.exists() and not force:
+        build_info.update(path=str(so), compiled=False, seconds=0.0,
+                          ptxas=[])
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+    build_info.update(path=str(so), compiled=True, seconds=seconds,
+                      ptxas=ptxas)
+    return so
+
+
+def lib(force_build: bool = False):
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None or force_build:
+            so = build(force=force_build)
+            handle = ctypes.CDLL(str(so))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.snk_error_string.argtypes = [ctypes.c_int]
+            handle.snk_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib().snk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the integer the C side takes."""
+    import torch
+    return torch.cuda.current_stream().cuda_stream
+
+
+def on_cpu(*tensors) -> bool:
+    """Dispatch rule of every kernel wrapper: True when all tensors lie on
+    the CPU (use the plain version), False when all lie on one CUDA device
+    (launch the kernel). Anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError("tensors on several devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def require(t, dtype, shape: tuple, name: str) -> None:
+    """Raise unless t has the dtype and shape a kernel takes and is
+    contiguous (the kernels index raw row-major memory)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,28 @@
+// Shared helpers for the tpu_snappy_torch kernels.
+//
+// Every entry point is `extern "C"`, takes raw device pointers, the batch
+// size and the CUDA stream from the Python wrapper, launches on that
+// stream, allocates nothing, and returns cudaGetLastError().
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define SNK_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace snk {
+
+constexpr int kBlock = 1 << 16;  // 64 KB Snappy block / fragment output
+
+// Inclusive max-scan over one warp.
+__device__ __forceinline__ int warp_scan_max(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int o = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = max(v, o);
+  }
+  return v;
+}
+
+}  // namespace snk
