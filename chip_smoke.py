@@ -8,10 +8,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each printing its results; any failure raises (non-zero exit):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every kernel compiled from ops/kernels/csrc/ with nvcc;
-3. kernel against plain: each kernel equals its plain PyTorch version
-   exactly (all integer) on random inputs and edge cases at the main
-   path's shapes;
+2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
+   process per source file, all started together);
+3. kernel against plain: each of the eight kernels equals its plain
+   PyTorch version exactly (all integer, drop counts included) on random
+   inputs and edge cases at the main path's shapes;
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress on the card, checked against the host goldens, with the
    launch counters showing that the main path ran every kernel;
@@ -20,11 +21,14 @@ Phases, each printing its results; any failure raises (non-zero exit):
    stage and kernel wrapper, which also captures every kernel's inputs;
 6. main path, kernel against plain: each kernel equals its plain version
    exactly on the tensors captured from the main path (the wave shapes it
-   really runs at), and the time of both on them (CUDA events).
+   really runs at), the time of both on them (CUDA events), the least
+   time the card could take for the same work, and the time of one
+   PyTorch call computing the same function where there is one.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 nvidia-smi name/power line; the last line is {"ok": true, "device": ...}.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package (checked at the
+end of the run).
 """
 
 from __future__ import annotations
@@ -41,6 +45,12 @@ SEED = 20261016
 ROUND_TRIP_BYTES = 16 << 20
 BATCH = 8  # rows for the kernel-against-plain checks
 N = 1 << 16
+
+#: Device memory rate and integer rate of one H100 SXM at its full power
+#: limit: 3.35 TB/s (NVIDIA's data sheet) and 64 INT32 lanes per SM x 132
+#: SMs x 1.98 GHz boost clock (the Hopper architecture white paper).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def _card() -> tuple[str, str]:
@@ -182,14 +192,151 @@ def check_kernels(dev) -> None:
     report["resolve_tiled"] = err
     print(f"kernel resolve_tiled B={BATCH} (identity, chain, straddle, "
           f"random): max_abs_err={err}")
+    check_encode_kernels(dev, rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
 
 
+def _matcher_rows(rng):
+    """Phase 3's encoder rows: a full row whose last 68 bytes repeat its
+    first 68 (the matcher's wrap), period-17 text, an `ab` ladder with
+    random bytes, random bytes and seeded word text, at n = N, N-1, 5000,
+    4, 3, 0, N, N. Returns (blocks (8, N) uint8, n (8,) int32)."""
+    rand = rng.integers(0, 256, N, dtype=np.uint8)
+    wrap = rng.integers(0, 256, N, dtype=np.uint8)
+    wrap[-68:] = wrap[:68]
+    text17 = np.frombuffer((b"abcdefghijklmnopq" * (N // 17 + 1))[:N],
+                           np.uint8)
+    ab = np.frombuffer(b"ab" * 8000 + bytes(N - 16000), np.uint8).copy()
+    ab[16000:20000] = rng.integers(0, 256, 4000, dtype=np.uint8)
+    words = np.frombuffer(make_data(2 * N, SEED + 2)[:N], np.uint8)
+    rows = [(wrap, N), (text17, N - 1), (ab, 5000), (rand, 4), (text17, 3),
+            (ab, 0), (words, N), (rand, N)]
+    blocks = np.zeros((len(rows), N), np.uint8)
+    for i, (row, n) in enumerate(rows):
+        blocks[i, :n] = row[:n]
+    return blocks, np.array([n for _, n in rows], np.int32)
+
+
+def _synthetic_parse(rng, n: int):
+    """A committed parse (cj, off) of n positions with literal runs over 60
+    and over 256 bytes, copies of every length 4-64 with near and far
+    offsets, and a block-opening literal."""
+    cj = np.full(N, -1, np.int32)
+    off = rng.integers(0, N, N).astype(np.int32)
+    pos, lit = 0, True
+    while pos < n:
+        if lit:
+            run = int(rng.choice([1, 5, 61, 70, 257, 300]))
+            cj[pos:min(pos + run, n)] = 1
+            pos += run
+        else:
+            j = int(rng.integers(4, 65))
+            if pos + j > n:
+                cj[pos:n] = 1
+                break
+            cj[pos] = j
+            off[pos] = int(rng.choice([1, 3, 2047, 2048, 40000]))
+            pos += j
+        lit = not lit
+    return cj, off
+
+
+def check_encode_kernels(dev, rng, t, report: dict) -> None:
+    """Phase 3, the encoder's TPU-default route: matcher, emission,
+    placement and overflow scatter against their plain versions."""
+    from tpu_snappy_torch.ops import encode, scan
+    from tpu_snappy_torch.ops.kernels import emit, matcher, place, scatter
+
+    # matcher: the port's packed tables of the edge rows, and random packed
+    # tables of small offsets (sticky memberships hit often), K 14 and 8,
+    # lazy 2 and 0.
+    blocks_np, n_np = _matcher_rows(rng)
+    blocks, n = t(blocks_np), t(n_np)
+    pref, words = encode._candidate_offsets(encode._window_keys(blocks, n), n)
+    errs = []
+    cases = [(pref, words, encode.K, encode.LAZY)]
+    for k, lazy in ((14, 2), (14, 0), (8, 2)):
+        rp = rng.integers(0, 40, (BATCH, N)).astype(np.int32)
+        lo = rng.integers(0, 40, (BATCH, k // 2, N))
+        hi = rng.integers(0, 40, (BATCH, k // 2, N))
+        cases.append((t(rp), t((lo | hi << 16).astype(np.int32)), k, lazy))
+    for pr, wd, k, lazy in cases:
+        got = matcher.matcher_block_packed(pr, wd, n, k, lazy)
+        want = matcher.matcher_block_packed_plain(pr, wd, n, k, lazy)
+        errs += [_exact(g, w) for g, w in zip(got, want)]
+    report["matcher_block_packed"] = max(errs)
+    print(f"kernel matcher      B={BATCH} (wrap row, period 17, ab ladder, "
+          f"random, text; n edges; random tables K 14/8, lazy 2/0): "
+          f"max_abs_err={max(errs)}")
+
+    # emit: the committed parses of those rows, and synthetic parses with
+    # long literal runs, far copies and a block-opening literal.
+    jump, off = matcher.matcher_block_packed(pref, words, n, encode.K,
+                                             encode.LAZY)
+    iota = torch.arange(N, device=dev)
+    cj = torch.where(scan.commit_bounded(jump) & (iota < n[:, None]),
+                     jump, -1)
+    syn_n = [N, N - 1, 1000, 300]
+    syn = [_synthetic_parse(rng, m) for m in syn_n]
+    cj_s = t(np.stack([c for c, _ in syn]))
+    off_s = t(np.stack([o for _, o in syn]))
+    blk_s = t(rng.integers(0, 256, (len(syn), N), dtype=np.uint8))
+    errs = []
+    for args in ((cj, off, blocks, n),
+                 (cj_s, off_s, blk_s, t(np.array(syn_n, np.int32)))):
+        got = emit.emit_block_single(*args)
+        want = emit.emit_block_single_plain(*args)
+        errs += [_exact(g, w) for g, w in zip(got, want)]
+    report["emit_block_single"] = max(errs)
+    print(f"kernel emit         B={BATCH}+{len(syn)} (real and synthetic "
+          f"parses, runs > 60 and > 256): max_abs_err={max(errs)}")
+
+    # place: the encoder's main lanes, plus one tile that breaks the window
+    # contract (counted once and dropped).
+    pm = emit.emit_block_single(cj, off, blocks, n)[0]
+    dest, vals = (pm >> 8).contiguous(), (pm & 0xFF).contiguous()
+    dest[-1] = emit.SENT
+    dest[-1, 0], dest[-1, 1023] = 0, 40000
+    rows = encode.CAPACITY // 128
+    got, govf = place.place_block(dest, vals, rows)
+    want, wovf = place.place_block_plain(dest, vals, rows)
+    err = max(_exact(got, want), _exact(govf, wovf))
+    if govf.tolist() != [0] * (BATCH - 1) + [1] or int(got[-1, 40000]):
+        raise AssertionError(f"place_block window count {govf.tolist()}")
+    report["place_block"] = err
+    print(f"kernel place        B={BATCH} (encoder lanes, one broken tile): "
+          f"max_abs_err={err}, ovf {govf.tolist()}")
+
+    # scatter_block: drops at out_cells and below 0, summed duplicates.
+    errs = []
+    for limbs, cells in ((1, encode.CAPACITY), (2, N), (3, N)):
+        d = rng.integers(-50, cells + 50, (BATCH, 2048)).astype(np.int32)
+        d[:, :64] = cells
+        d[:, 64:128] = -1
+        d[:, 128:512] = rng.integers(0, 16, (BATCH, 384))  # duplicates
+        v = rng.integers(0, 1 << (8 * limbs), (BATCH, 2048)).astype(np.int32)
+        got = scatter.scatter_block(t(d), t(v), limbs, cells)
+        want = scatter.scatter_block_plain(t(d), t(v), limbs, cells)
+        errs.append(_exact(got, want))
+    report["scatter_block"] = max(errs)
+    print(f"kernel scatter_block B={BATCH} M=2048 limbs 1/2/3 (drops, "
+          f"duplicates): max_abs_err={max(errs)}")
+
+
 def _kernel_modules() -> dict:
-    from tpu_snappy_torch.ops.kernels import ffill, scatter, tiledres, windows
+    """Every kernel of the main path: wrapper name -> module."""
+    from tpu_snappy_torch.ops.kernels import (emit, ffill, matcher, place,
+                                              scatter, tiledres, windows)
     return {"window_keys": windows, "ffill": ffill,
-            "scatter_windowed": scatter, "resolve_tiled": tiledres}
+            "scatter_windowed": scatter, "resolve_tiled": tiledres,
+            "matcher_block_packed": matcher, "emit_block_single": emit,
+            "place_block": place, "scatter_block": scatter}
+
+
+def _replaces(mod, name: str) -> str:
+    return mod.REPLACES[name] if isinstance(mod.REPLACES, dict) \
+        else mod.REPLACES
 
 
 def _public_stages() -> dict:
@@ -198,7 +345,9 @@ def _public_stages() -> dict:
     so wrapping the attribute observes the real main path."""
     from tpu_snappy_torch.ops import decode, encode, scan
     return {"encode_blocks": (encode, "encode_blocks"),
+            "_candidate_offsets": (encode, "_candidate_offsets"),
             "commit_bounded": (scan, "commit_bounded"),
+            "_emit_winplace": (encode, "_emit_winplace"),
             "compact_blocks": (encode, "compact_blocks"),
             "decode_fragments": (decode, "decode_fragments"),
             "parse_transport": (decode, "parse_transport"),
@@ -206,16 +355,21 @@ def _public_stages() -> dict:
 
 
 def _tensors(x) -> list:
-    """The tensors in a kernel's arguments or results, flattened."""
+    """The tensors in a kernel's arguments or results, flattened (scalar
+    arguments such as K or lazy are skipped)."""
     if isinstance(x, torch.Tensor):
         return [x]
-    return [t for item in x for t in _tensors(item)]
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in _tensors(item)]
+    return []
 
 
 def _clone(x):
     if isinstance(x, torch.Tensor):
         return x.clone()
-    return tuple(_clone(item) for item in x)
+    if isinstance(x, (tuple, list)):
+        return tuple(_clone(item) for item in x)
+    return x
 
 
 def traced_round_trip(dev, data: bytes, card: str):
@@ -296,30 +450,88 @@ def _timed(fn, dev, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+#: Integer operations per element that the function needs, for the
+#: bound (elements: positions, or sources for the scatters). The matcher
+#: tests each of K+1 shifted offsets against K own offsets per sticky
+#: level (4 levels, 840 compares at K=14), then about 72 more per position
+#: (16 link compares, 3 phases, the 16-wide filter, 7 propagation levels,
+#: lazy, jump). The others do a few per element and are bound by bytes.
+_OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
+        "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
+        "scatter_block": 8}
+
+
+def _bound(name: str, args, outs) -> tuple:
+    """Least time on the card for one call: the larger of the bytes the
+    function must move (each input tensor read once, each output written
+    once) over the memory rate and its integer operations over the
+    integer rate. Returns (ms, "bytes" or "operations")."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(args)
+                 + _tensors(outs))
+    elems = _tensors(args)[0].numel()
+    if name == "matcher_block_packed":
+        k = args[3]
+        ops = elems * (4 * (k + 1) * k + 72)
+    else:
+        ops = elems * _OPS[name]
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / INT_OPS_PER_S * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def _library_ms(name: str, args, dev):
+    """Time of one PyTorch call computing the same function, where there
+    is one: `scatter_add_` for the three scatters, on the captured inputs
+    (it counts no window drops and sums instead of joining limbs). None
+    for the others: no single PyTorch call computes the matcher's chain,
+    the emission packs, the window keys, a forward fill or the resolve."""
+    if name not in ("scatter_windowed", "place_block", "scatter_block"):
+        return None
+    dest, values = args[0], args[1]
+    if name == "place_block":
+        cells = args[2] * 128  # out_rows
+    elif name == "scatter_block":
+        cells = args[3]  # out_cells
+    else:
+        cells = N
+    keep = (dest >= 0) & (dest < cells)
+    idx = torch.where(keep, dest, cells).to(torch.int64)
+    out = torch.zeros((dest.shape[0], cells + 1), dtype=torch.int32,
+                      device=dev)
+    return _timed(lambda: out.scatter_add_(1, idx, values), dev, 20)
+
+
 def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     """Phase 6: each kernel against its plain version, exact equality (ovf
     counts included), on the calls captured from the main path; then the
-    time of both on those tensors (CUDA events). Returns, per kernel, the
-    largest absolute difference over its captured calls and the times of
-    its largest call."""
+    time of both on those tensors (CUDA events), the bound, and the
+    library call's time. Returns, per kernel, the largest absolute
+    difference over its captured calls and the numbers of its largest
+    call."""
     kernels = _kernel_modules()
     report = {}
     for (name, stage, shapes), args in captured.items():
         mod = kernels[name]
         kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
-        got, want = _tensors(kern(*args)), _tensors(plain(*args))
+        outs = kern(*args)
+        got, want = _tensors(outs), _tensors(plain(*args))
         if len(got) != len(want):
             raise AssertionError(f"{name}: {len(got)} results against "
                                  f"{len(want)}")
         err = max(_exact(g, w) for g, w in zip(got, want))
         ms = _timed(lambda: kern(*args), dev, 20)
         plain_ms = _timed(lambda: plain(*args), dev, 5)
+        bound_ms, bound_by = _bound(name, args, outs)
+        library_ms = _library_ms(name, args, dev)
         print(f"main path {name} in {stage} {shapes}: max_abs_err={err}; "
-              f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
+              f"kernel {ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
+              f"({bound_by}), library {library_ms} ms [{card}]")
         size = sum(t.numel() for t in _tensors(args))
         prev = report.get(name)
         if prev is None or size > prev["size"]:
             report[name] = {"size": size, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms,
                             "err": max(err, prev["err"] if prev else 0)}
         else:
             prev["err"] = max(prev["err"], err)
@@ -378,9 +590,8 @@ def round_trip(dev, wrappers: dict):
 def check_goldens(data: bytes, comp: bytes) -> None:
     """Phase 4, continued: the host codecs decode the port's stream, the
     card decodes theirs, and the CUDA stream equals the CPU stream."""
-    from tpu_snappy import reference_codec
-    from tpu_snappy.native import realsnappy
-    from tpu_snappy_torch import api
+    from tpu_snappy_torch import api, reference_codec
+    from tpu_snappy_torch.native import realsnappy
     from tpu_snappy_torch.ops import decode as ops_decode
 
     goldens = ["reference_codec"]
@@ -466,11 +677,15 @@ def main() -> None:
     for k, mod in modules.items():
         r = report[k]
         kernels.append({"name": k, "route": "cuda", "source": mod.SOURCE,
-                        "replaces": mod.REPLACES, "launches": launches[k],
-                        "max_abs_err": r["err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+                        "replaces": _replaces(mod, k),
+                        "launches": launches[k], "max_abs_err": r["err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_snappy"))
+    if foreign:
+        raise AssertionError(f"the port imported {foreign}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
 """The port's encoder (tpu_snappy_torch/ops/encode.py) against the JAX one.
 
 At DEFAULT_CONFIG on the CPU the JAX encoder runs the XLA matcher and the
-"sort" placement, the configuration the port mirrors; its output and
-lengths, and the intermediate candidate table and (jump, offset), must
+"sort" placement, which the JAX suite proves byte-identical to its TPU
+default route. The port runs that TPU-default route on every device (on
+the CPU through its kernels' plain versions), and keeps "sort"
+selectable; the output and lengths of both, and the intermediate
+candidate table (unpacked from the packed form) and (jump, offset), must
 be byte-identical. The JAX oracle runs once per module.
 """
 
@@ -19,6 +22,7 @@ from tpu_snappy.config import DEFAULT_CONFIG
 from tpu_snappy.ops import encode as E
 
 from tpu_snappy_torch.ops import encode as TE
+from tpu_snappy_torch.ops.kernels import matcher as KM
 
 N = fmt.BLOCK_SIZE
 
@@ -71,12 +75,15 @@ def port():
     blocks, lens = _inputs()
     b, n = torch.from_numpy(blocks), torch.from_numpy(lens)
     key = TE._window_keys(b, n)
-    cands = TE._candidate_offsets(key, n)
+    pref, words = TE._candidate_offsets(key, n)
+    cands = KM.unpack_table(pref, words, TE.K)
     jump, off = TE._matcher_xla(cands, n)
     out, out_lens = TE.encode_blocks(b, n)
+    sort_out, sort_lens = TE.encode_blocks(b, n, placement="sort")
     dense, total = TE.compact_blocks(out, out_lens)
     return dict(cands=cands.numpy(), jump=jump.numpy(), off=off.numpy(),
                 out=out.numpy(), out_lens=out_lens.numpy(),
+                sort_out=sort_out.numpy(), sort_lens=sort_lens.numpy(),
                 dense=dense.numpy(), total=total)
 
 
@@ -90,6 +97,18 @@ def test_encode_blocks_matches_jax(jax_oracle, port):
     assert (port["out_lens"] == jax_oracle["out_lens"]).all()
     assert port["out"].shape == jax_oracle["out"].shape
     assert (port["out"] == jax_oracle["out"]).all()
+
+
+def test_sort_placement_matches_jax(jax_oracle, port):
+    """placement="sort" (XLA lanes + 2N sort) stays selectable, same bytes."""
+    assert (port["sort_lens"] == jax_oracle["out_lens"]).all()
+    assert (port["sort_out"] == jax_oracle["out"]).all()
+
+
+def test_unknown_placement_raises():
+    b = torch.zeros((1, N), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        TE.encode_blocks(b, torch.ones(1, dtype=torch.int32), "emit")
 
 
 def test_compact_blocks_matches_jax(jax_oracle, port):

@@ -1,0 +1,166 @@
+"""The port's encoder placements (ops/kernels/place.py, scatter.py's
+scatter_block) against the Pallas kernels in interpret mode.
+
+place_block's plain version (the CPU path) must equal the Pallas
+place_block on emission-shaped destinations, on the encoder's own main
+lane, and on a tile that breaks the window contract (counted once and
+dropped), as tests/test_pallas.py:97-126 runs it. scatter_block's plain
+version must equal the Pallas scatter_block on permutations with dropped
+writes, at limbs 1-3, on a sparse scatter, on summed duplicates, and on
+the encoder's 2048 overflow entries. All comparisons are exact. The `gpu`
+tests hold the CUDA kernels against their plain versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tpu_snappy.ops.pallas import place as PP
+from tpu_snappy.ops.pallas import scatter as PS
+
+from tpu_snappy_torch.ops import encode as TE
+from tpu_snappy_torch.ops.kernels import emit as KE
+from tpu_snappy_torch.ops.kernels import place as KP
+from tpu_snappy_torch.ops.kernels import scatter as KS
+
+from test_torch_emit import parse  # noqa: F401 (fixture)
+
+N = 1 << 16
+OUT_ROWS = TE.CAPACITY // 128
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_place_constants():
+    assert KP.W == PP.W and KP.TILE == PP.TR * PP.TC and KP.LO == PP.LO
+    assert KS.LO == PS.LO and KS.TILE == PS.TR * PS.TC
+    assert OUT_ROWS == 528
+
+
+def _place_cases():
+    """Emission-shaped rows (monotone, +1/+2 steps, 20% inactive) and one
+    tile whose destinations span far more than the window."""
+    rng = np.random.default_rng(11)
+    m = 8 * 1024
+    dest = np.cumsum(rng.integers(1, 3, m)).astype(np.int32) - 1
+    active = rng.random(m) < 0.8
+    mono = np.where(active, dest, PP.SENT).astype(np.int32)
+    broken = np.full(m, PP.SENT, np.int32)
+    broken[0], broken[1023] = 0, 10000
+    vals = rng.integers(0, 256, (2, m)).astype(np.int32)
+    return np.stack([mono, broken]), vals
+
+
+def test_place_plain_matches_pallas():
+    dest, vals = _place_cases()
+    out, ovf = KP.place_block(_t(dest), _t(vals), 136)
+    for row in range(2):
+        want, wovf = PP.place_block(jnp.asarray(dest[row]),
+                                    jnp.asarray(vals[row]), 136)
+        assert (out[row].numpy() == np.asarray(want)).all(), row
+        assert int(ovf[row]) == int(wovf), row
+    assert ovf.tolist() == [0, 1]
+    assert int(out[1, 0]) == vals[1, 0] and int(out[1, 10000]) == 0
+
+
+def _encoder_lanes(parse):
+    """The main lane and the 2048 overflow entries of the parsed rows."""
+    pm, pa, pb, head, _ = KE.emit_block_single(*parse)
+    return pm, TE._overflow_entries(pa, pb, head)
+
+
+def test_place_plain_matches_pallas_on_encoder_lane(parse):  # noqa: F811
+    pm, _ = _encoder_lanes(parse)
+    row = 3  # far copies and long literals
+    dest, vals = (pm[row:row + 1] >> 8), (pm[row:row + 1] & 0xFF)
+    out, ovf = KP.place_block(dest, vals, OUT_ROWS)
+    want, wovf = PP.place_block(jnp.asarray(dest[0].numpy()),
+                                jnp.asarray(vals[0].numpy()), OUT_ROWS)
+    assert (out[0].numpy() == np.asarray(want)).all()
+    assert int(ovf[0]) == int(wovf) == 0
+
+
+def _scatter_cases():
+    """(dest, values, limbs, out_cells): a permutation with dropped writes
+    (test_pallas.py:40), full permutations at limbs 1-3, a sparse scatter,
+    duplicates that sum and negative destinations."""
+    rng = np.random.default_rng(2)
+    m = 68 * 1024
+    perm = np.concatenate([rng.permutation(N).astype(np.int32),
+                           np.full(m - N, N, np.int32)])
+    rng.shuffle(perm)
+    cases = [(perm, rng.integers(0, 1 << 16, m).astype(np.int32), 2, N)]
+    for limbs, bits in ((1, 8), (2, 16), (3, 19)):
+        cases.append((rng.permutation(N).astype(np.int32),
+                      rng.integers(0, 1 << bits, N).astype(np.int32),
+                      limbs, N))
+    sparse = np.full(N, N, np.int32)
+    picks = rng.choice(N, 1000, replace=False)
+    sparse[picks] = rng.choice(N, 1000, replace=False)
+    cases.append((sparse, rng.integers(0, 1 << 16, N).astype(np.int32), 2,
+                  N))
+    dup = rng.integers(-8, 64, 2048).astype(np.int32)
+    cases.append((dup, rng.integers(0, 256, 2048).astype(np.int32), 1,
+                  TE.CAPACITY))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_scatter_block_plain_matches_pallas(case):
+    dest, vals, limbs, cells = _scatter_cases()[case]
+    got = KS.scatter_block(_t(dest[None]), _t(vals[None]), limbs, cells)
+    # The Pallas kernel's contract is dest in [0, cells]: give it the
+    # port's drop rule (negative destinations drop) explicitly.
+    d = np.where(dest < 0, cells, dest)
+    want = PS.scatter_block(jnp.asarray(d), jnp.asarray(vals), limbs, cells)
+    assert (got[0].numpy() == np.asarray(want)).all()
+
+
+def test_scatter_block_plain_matches_pallas_on_overflow(parse):  # noqa: F811
+    _, ovf = _encoder_lanes(parse)
+    got = KS.scatter_block(ovf >> 8, ovf & 0xFF, 1, TE.CAPACITY)
+    for row in (1, 3):
+        o = jnp.asarray(ovf[row].numpy())
+        want = PS.scatter_block(o >> 8, o & 0xFF, 1, TE.CAPACITY)
+        assert (got[row].numpy() == np.asarray(want)).all(), row
+    assert (got > 0).sum() > 0
+
+
+def test_scatter_block_refuses_bad_shapes():
+    x = torch.zeros((1, 1000), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        KS.scatter_block(x, x, 1, N)
+    y = torch.zeros((1, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        KS.scatter_block(y, y, 4, N)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_place_kernel_matches_plain(parse, cuda):  # noqa: F811
+    dest, vals = (_t(x).to(cuda) for x in _place_cases())
+    got, govf = KP.place_block(dest, vals, 136)
+    want, wovf = KP.place_block_plain(dest, vals, 136)
+    assert torch.equal(got, want) and torch.equal(govf, wovf)
+    pm = _encoder_lanes(parse)[0].to(cuda)
+    got, govf = KP.place_block(pm >> 8, pm & 0xFF, OUT_ROWS)
+    want, wovf = KP.place_block_plain(pm >> 8, pm & 0xFF, OUT_ROWS)
+    assert torch.equal(got, want) and torch.equal(govf, wovf)
+
+
+@pytest.mark.gpu
+def test_scatter_block_kernel_matches_plain(cuda):
+    for dest, vals, limbs, cells in _scatter_cases():
+        d, v = _t(dest[None]).to(cuda), _t(vals[None]).to(cuda)
+        assert torch.equal(KS.scatter_block(d, v, limbs, cells),
+                           KS.scatter_block_plain(d, v, limbs, cells))

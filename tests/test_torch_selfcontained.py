@@ -1,0 +1,129 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package.
+
+A fresh interpreter imports every module of tpu_snappy_torch and must find
+no `jax` and no `tpu_snappy` module loaded. The port's own copies of the
+framework-free modules must equal the JAX package's: every `format`
+constant and helper, every field of the four `config` presets, and the
+`reference_codec` bytes on seeded inputs. The C++ golden binding builds
+into the port's own directory. The API runs on the card by default and,
+with no CUDA device visible, raises instead of running on the CPU.
+"""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_snappy import config as jax_config
+from tpu_snappy import format as jax_fmt
+from tpu_snappy import reference_codec as jax_codec
+from tpu_snappy.native import golden as jax_golden
+from tpu_snappy.utils import corpus
+
+from tpu_snappy_torch import api
+from tpu_snappy_torch import config
+from tpu_snappy_torch import format as fmt
+from tpu_snappy_torch import reference_codec
+from tpu_snappy_torch.native import golden, realsnappy
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    mods = sorted("tpu_snappy_torch." + str(p.relative_to(
+        ROOT / "tpu_snappy_torch").with_suffix("")).replace("/", ".")
+        for p in (ROOT / "tpu_snappy_torch").rglob("*.py")
+        if p.name != "__init__.py" and "_build" not in p.parts)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+            "             in ('jax', 'jaxlib', 'tpu_snappy'))\n"
+            "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    assert "tpu_snappy_torch.ops.kernels.matcher" in mods
+
+
+def _public(mod) -> dict:
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("_") and not isinstance(v, type(sys))
+            and k != "annotations"}
+
+
+def test_format_constants_match_jax():
+    mine, theirs = _public(fmt), _public(jax_fmt)
+    assert mine.keys() == theirs.keys()
+    for name, value in mine.items():
+        if callable(value):
+            continue
+        assert value == theirs[name], name
+    for n in (0, 1, 127, 128, 65536, 1 << 31):
+        assert fmt.varint_encode(n) == jax_fmt.varint_encode(n)
+        assert fmt.max_compressed_size(n) == jax_fmt.max_compressed_size(n)
+    for length in (1, 60, 61, 256, 257, 65536):
+        assert fmt.literal_header(length) == jax_fmt.literal_header(length)
+    for off, length in ((1, 4), (2047, 11), (2048, 64), (65535, 12)):
+        assert (fmt.copy_element(off, length)
+                == jax_fmt.copy_element(off, length))
+
+
+@pytest.mark.parametrize("preset", ["DEFAULT_CONFIG", "FAST_CONFIG",
+                                    "TURBO_CONFIG", "ULTRA_CONFIG"])
+def test_config_presets_match_jax(preset):
+    mine, theirs = getattr(config, preset), getattr(jax_config, preset)
+    assert ([f.name for f in dataclasses.fields(mine)]
+            == [f.name for f in dataclasses.fields(theirs)])
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+
+
+def test_reference_codec_bytes_match_jax():
+    rng = np.random.default_rng(41)
+    datas = [b"", b"a", b"abcd" * 5000, bytes(rng.integers(0, 256, 3000,
+                                                            "u1")),
+             corpus.synth("random", 20000),
+             b"The quick brown fox jumps over the lazy dog. " * 2000]
+    for data in datas:
+        comp = reference_codec.compress(data)
+        assert comp == jax_codec.compress(data)
+        assert reference_codec.decompress(comp) == data
+        assert (reference_codec.compress(data, dense_table=False)
+                == jax_codec.compress(data, dense_table=False))
+
+
+def test_golden_builds_in_its_own_directory():
+    assert golden.BUILD_DIR.parent == ROOT / "tpu_snappy_torch" / "native"
+    assert golden.BUILD_DIR != jax_golden._BUILD
+    if not golden.available():
+        pytest.skip("cmake / Ninja missing: the golden cannot build here")
+    # (The JAX package's golden is not called: it would build native/build
+    # beside the JAX tests that build it in other test processes.)
+    data = b"snappy " * 3000
+    comp = golden.compress(data)
+    assert golden.uncompress(comp) == data
+    assert reference_codec.decompress(comp) == data
+    if realsnappy.available():
+        assert realsnappy.uncompress(golden.compress(data)) == data
+
+
+def test_api_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    """With no CUDA device visible, the default device raises, for small
+    and large inputs alike, instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = b"x" * 100
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.compress(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.compress(data * 1000, small_fastpath=False)
+    comp = api.compress(data, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.decompress(comp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.decompress_with_stats(comp)
+    assert api.decompress(comp, device="cpu") == data

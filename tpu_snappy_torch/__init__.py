@@ -3,8 +3,10 @@
 The JAX package `tpu_snappy` stays the reference; this package produces
 byte-identical Snappy streams on an NVIDIA H100 through hand-written CUDA
 kernels (ops/kernels/csrc/), with plain PyTorch versions of each kernel
-for the CPU. It imports `torch`, never `jax`; the framework-free modules
-of `tpu_snappy` (format, config, reference_codec, native) are shared.
+for the CPU. It imports `torch`, never `jax`, and nothing of `tpu_snappy`:
+it keeps its own copies of the framework-free modules (format, config,
+reference_codec, native).
 
-Entry points: `tpu_snappy_torch.api.compress` / `decompress`.
+Entry points: `tpu_snappy_torch.api.compress` / `decompress`, on the CUDA
+card unless the caller passes `device="cpu"`.
 """

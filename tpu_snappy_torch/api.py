@@ -1,10 +1,11 @@
 """Host-facing codec API of the PyTorch port: bytes in, bytes out.
 
 Port of tpu_snappy/api.py at DEFAULT_CONFIG (the presets are later
-slices). The caller names the device ("cuda" or "cpu"); there is no
-implicit choice. Multi-block inputs run in waves of `wave`
-blocks (or fragments) per batched device call; the wave width bounds
-device memory and never changes the output bytes.
+slices). The entry points run on the CUDA card (`device="cuda"`) unless
+the caller passes `device="cpu"`; with no CUDA device visible, the
+default raises instead of falling back to the CPU. Multi-block inputs run
+in waves of `wave` blocks (or fragments) per batched device call; the
+wave width bounds device memory and never changes the output bytes.
 """
 
 from __future__ import annotations
@@ -14,18 +15,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_snappy import format as fmt
-from tpu_snappy import reference_codec
-
+from . import format as fmt
+from . import reference_codec
 from .ops import decode as ops_decode
 from .ops import encode as ops_encode
 
 #: Blocks (or fragments) per batched device call, chosen for device
-#: memory. Peak memory grows linearly with the wave (the encoder's sticky
-#: membership test holds (B, 65536, 14, 14) booleans): a 16 MiB round trip
-#: peaked at 2.80 GB with 64 and 5.60 GB with 128 (NVIDIA H100 80GB HBM3,
-#: 700 W), about 44 MB per block. 128 blocks (8 MiB of input) halve the
-#: decoder's per-wave parse-scan cost against 64 and leave most of an
+#: memory. Peak memory grows linearly with the wave: a 16 MiB round trip
+#: at 128 peaked at 1.69 GB (1687159808 bytes, NVIDIA H100 80GB HBM3,
+#: 700 W), about 13 MB per block, most of it the pair sort and the packed
+#: candidate table (it was 5.6 GB while the encoder's XLA-form matcher
+#: held (B, 65536, 14, 14) booleans). 128 blocks (8 MiB of input) halve
+#: the decoder's per-wave parse-scan cost against 64 and leave most of an
 #: 80 GB card, or of a CPU host's memory, free.
 API_WAVE = 128
 
@@ -55,6 +56,16 @@ def _to_blocks(data: bytes):
     return arr, lengths
 
 
+def _device(device) -> torch.device:
+    """The device to run on; raises for CUDA when no CUDA device is
+    visible (the API never falls back to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
 def _host_compress(data: bytes) -> bytes:
     golden = ops_decode.native_golden()
     if golden is not None:
@@ -74,11 +85,12 @@ def _host_decompress(comp: bytes) -> bytes:
     return reference_codec.decompress(comp)
 
 
-def compress(data: bytes, *, device, small_fastpath: bool = True,
+def compress(data: bytes, *, device="cuda", small_fastpath: bool = True,
              wave: int | None = None) -> bytes:
     """Compress to a standard Snappy stream (varint preamble + elements)
     on `device`. small_fastpath=False forces the device pipeline below one
     block."""
+    device = _device(device)
     if small_fastpath and len(data) < SMALL_INPUT_BYTES:
         return _host_compress(data)
     w = wave or API_WAVE
@@ -93,7 +105,7 @@ def compress(data: bytes, *, device, small_fastpath: bool = True,
     return b"".join(parts)
 
 
-def decompress(comp: bytes, *, device, small_fastpath: bool = True,
+def decompress(comp: bytes, *, device="cuda", small_fastpath: bool = True,
                wave: int | None = None) -> bytes:
     """Decompress a standard Snappy stream (ours or any other encoder's)
     on `device`. Fragments that fail device validation (corrupt, or valid
@@ -103,9 +115,11 @@ def decompress(comp: bytes, *, device, small_fastpath: bool = True,
                                  wave=wave)[0]
 
 
-def decompress_with_stats(comp: bytes, *, device, small_fastpath: bool = True,
+def decompress_with_stats(comp: bytes, *, device="cuda",
+                          small_fastpath: bool = True,
                           wave: int | None = None):
     """api.decompress, also returning a DecodeStats of the path taken."""
+    device = _device(device)
     stats = DecodeStats()
     total, start = fmt.varint_decode(comp)
     if total == 0:

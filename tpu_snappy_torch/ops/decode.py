@@ -11,20 +11,18 @@ As on the TPU, a transport write outside its window marks the fragment
 not-ok (the JAX CPU path scatters without a window and cannot see one);
 api.decompress then re-decodes that fragment on the host.
 
-The host helpers (fragment split, widths) are reimplemented here because
-tpu_snappy.ops.decode imports JAX.
+The host helpers (fragment split, widths) are the port's own: it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import functools
-import subprocess
 
 import numpy as np
 import torch
 
-from tpu_snappy import format as fmt
-
+from .. import format as fmt
 from . import scan
 from .kernels import scatter as _scatter
 from .kernels import tiledres as _tiledres
@@ -166,16 +164,12 @@ class FragmentFallback(Exception):
 
 @functools.cache
 def native_golden():
-    """The clean-room C++ codec (tpu_snappy.native.golden) if it builds and
-    loads here, else None. It builds with cmake at first use; a machine
-    without cmake or Ninja gets None, and callers use the Python codec."""
-    try:
-        from tpu_snappy.native import golden
-        golden._load()
-    except (ImportError, OSError, RuntimeError,
-            subprocess.CalledProcessError):
-        return None
-    return golden
+    """The clean-room C++ codec (the port's native.golden binding) if it
+    builds and loads here, else None. It builds with cmake at first use; a
+    machine without cmake or Ninja gets None, and callers use the Python
+    codec."""
+    from ..native import golden
+    return golden if golden.available() else None
 
 
 def fragment_table(comp: bytes, start: int, total: int):

@@ -1,16 +1,18 @@
 """Batched Snappy block encoder in PyTorch (port of tpu_snappy/ops/encode.py).
 
 This is the JAX encoder at DEFAULT_CONFIG (K=14 point candidates, probes
-== K, flatten "class", lazy 2, sticky "exact", stride 1) in the
-configuration whose bytes the JAX suite proves equal to its TPU default:
-the XLA matcher (`_matcher_xla`, the FORCE_XLA_MATCHER route) and the XLA
-emission lanes with placement "sort". Window keys and forward fills run
-through the hand-written kernels (ops/kernels/); the rest is plain tensor
-code. Every per-position array is (B, 65536); u32 values live in int64.
+== K, flatten "class", lazy 2, sticky "exact", stride 1) on its TPU
+default route (encode.py:750-821): the packed candidate form feeds the
+fused matcher kernel, then the commit scan, single-lane emission,
+windowed placement and the overflow scatter. Every kernel runs through
+ops/kernels/ (hand-written CUDA on the card, the plain version on the
+CPU); the rest is plain tensor code. Every per-position array is
+(B, 65536).
 
 Stages: window keys, pair sort of (key, position), rank-space candidate
-table, restore to position space, matcher, commit scan, emission, and
-the placement sort.
+table, restore to position space (packed words), matcher, commit scan,
+emission, placement. `placement="sort"` keeps the XLA emission lanes and
+the 2N placement sort (the JAX package's CPU route; same bytes).
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ import functools
 
 import torch
 
-from tpu_snappy import format as fmt
-from tpu_snappy.config import DEFAULT_CONFIG
-
+from .. import format as fmt
+from ..config import DEFAULT_CONFIG
 from . import scan
+from .kernels import emit as _emit
+from .kernels import matcher as _matcher
+from .kernels import place as _place
+from .kernels import scatter as _scatter
 from .kernels import windows as _windows
 
 N = fmt.BLOCK_SIZE  # 65536 lanes per block
@@ -32,7 +37,7 @@ STICKY_LEVELS = 4
 
 #: Placement sentinel destination: sorts after every real output byte
 #: (pallas/place.py:38).
-SENT = 1 << 20
+SENT = _emit.SENT
 
 #: The DEFAULT_CONFIG knobs this slice implements (presets are later
 #: slices): K point candidates (probes == K), lazy threshold, capacity.
@@ -59,12 +64,14 @@ def _window_keys(blocks: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return _windows.window_keys(blocks, n)
 
 
-def _candidate_offsets(key: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+def _candidate_offsets(key: torch.Tensor, n: torch.Tensor):
     """Rank-space candidate table (encode.py:134) at even K, probes == K,
-    flatten "class", unpacked. Returns (B, N, K) int32: column 0 the gated
-    flattening default, columns 1..K-1 the K-1 nearest earlier positions
-    with the same 4-byte window, as offsets (0 = none)."""
-    b = key.shape[0]
+    flatten "class", in the packed form the matcher kernel takes
+    (encode.py:359-376, packed=True). Returns (pref (B, N) int32, the gated
+    flattening default; words (B, K/2, N) int32, the restore payload: word
+    j holds offsets 2j and 2j+1 of the K-1 nearest earlier positions with
+    the same 4-byte window (0 = none) as two 16-bit halves, low first, and
+    the last word carries the flattening offset in its high half)."""
     dev = key.device
     iota = _iota(dev)
     nn = n.to(torch.int32)[:, None]
@@ -94,15 +101,20 @@ def _candidate_offsets(key: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     f1 = (first > 0) & (first < _C1)
     flat = torch.where(c0 < _C1, torch.where(f1, first, m1),
                        torch.where(first > 0, first, m2))
-    ranked = torch.stack(offs[:K - 1] + [flat], dim=-1)  # (B, N, K)
+    slots = offs[:K - 1] + [flat]
+    # Two 16-bit offsets per int32 word (the u32 bit pattern; unpack with
+    # >> 16 then & 0xFFFF).
+    ranked = torch.stack([slots[2 * j] | (slots[2 * j + 1] << 16)
+                          for j in range(K // 2)], dim=1)  # (B, K/2, N)
 
     # Back to position space: positions are a permutation, so the JAX
     # restore sort is an inverse-permutation scatter.
-    table = torch.empty_like(ranked)
-    table.scatter_(1, pos_s.to(torch.int64)[..., None].expand(b, N, K),
+    words = torch.empty_like(ranked)
+    words.scatter_(2, pos_s.to(torch.int64)[:, None].expand_as(ranked),
                    ranked)
-    pref = _flat_gate(table[..., K - 1], table[..., 0])
-    return torch.cat([pref[..., None], table[..., :K - 1]], dim=-1)
+    pref = _flat_gate((words[:, K // 2 - 1] >> 16) & 0xFFFF,
+                      words[:, 0] & 0xFFFF)
+    return pref, words
 
 
 def _flat_gate(flat: torch.Tensor, c0: torch.Tensor) -> torch.Tensor:
@@ -185,8 +197,9 @@ def _jump(mlp: torch.Tensor) -> torch.Tensor:
         mlp <= 64, mlp, torch.where(mlp < 68, 60, 64))).to(torch.int32)
 
 
-def _matcher_xla(cands: torch.Tensor, n: torch.Tensor):
-    """Candidate table -> (jump, offset) (encode.py:680, sticky "exact")."""
+def _matcher_xla(cands: torch.Tensor, n: torch.Tensor, lazy: int = LAZY):
+    """Candidate table (B, N, K) -> (jump, offset) (encode.py:680, sticky
+    "exact"): the plain body of the matcher kernel."""
     iota = _iota(cands.device)
     off_s = _sticky_offsets(cands)
     ml = _match_lengths(off_s, n)
@@ -202,11 +215,13 @@ def _matcher_xla(cands: torch.Tensor, n: torch.Tensor):
     ml = torch.where(keep, ml, 0)
     mlp, off = _propagate(ml, off_s)
     # Lazy deferral: a match becomes a literal when the next position's
-    # match is at least LAZY bytes longer (never inside the 64/68 split).
+    # match is at least `lazy` bytes longer (never inside the 64/68 split).
     nxt = torch.roll(mlp, -1, dims=-1)
     nxt[..., -1] = 0
-    defer = (mlp >= 4) & (mlp < 64) & (nxt >= mlp + LAZY)
-    return _jump(torch.where(defer, 0, mlp)), off
+    if lazy:
+        defer = (mlp >= 4) & (mlp < 64) & (nxt >= mlp + lazy)
+        mlp = torch.where(defer, 0, mlp)
+    return _jump(mlp), off
 
 
 def _emit_sort(blocks, n, jump, off, committed):
@@ -266,18 +281,58 @@ def _emit_sort(blocks, n, jump, off, committed):
     return torch.where(keep, out, 0), total
 
 
-def encode_blocks(blocks: torch.Tensor, lengths: torch.Tensor):
+def _overflow_entries(pa, pb, head) -> torch.Tensor:
+    """The 2048 overflow entries of a row (encode.py:797-805): `pa` max-
+    compacted to 256 slots, `pb` to 1024, `head`, then 640 sentinels.
+    Nonzero overflow packs sit > 64 (pa: > 256) positions apart, so one
+    per slot survives the max; empty slots become sentinel packs."""
+    b = pa.shape[0]
+    sentp = SENT << 8
+    ovf_a = pa.reshape(b, 256, N // 256).amax(dim=-1)
+    ovf_b = pb.reshape(b, 1024, N // 1024).amax(dim=-1)
+    return torch.cat([torch.where(ovf_a == 0, sentp, ovf_a),
+                      torch.where(ovf_b == 0, sentp, ovf_b), head,
+                      torch.full((b, 640), sentp, dtype=torch.int32,
+                                 device=pa.device)], dim=-1)
+
+
+def _emit_winplace(blocks, n, jump, off, committed):
+    """Single-lane emission, windowed placement and the overflow scatter
+    (encode.py:793-821): each output byte rides one position of the main
+    lane, placed by the windowed kernel; literal headers' 2nd and 3rd
+    bytes and a block-opening tag ride 2048 overflow entries, compacted by
+    reshape-max and placed by the full-height scatter. The two placements
+    write disjoint cells, so their sum is the stream."""
+    cj = torch.where(committed, jump, -1)
+    pm, pa, pb, head, total = _emit.emit_block_single(cj, off, blocks, n)
+    ovf = _overflow_entries(pa, pb, head)
+    main, _ = _place.place_block(pm >> 8, pm & 0xFF, CAPACITY // 128)
+    extra = _scatter.scatter_block(ovf >> 8, ovf & 0xFF, 1, CAPACITY)
+    out = (main + extra).to(torch.uint8)
+    keep = torch.arange(CAPACITY, device=blocks.device) < total[:, None]
+    return torch.where(keep, out, 0), total
+
+
+def encode_blocks(blocks: torch.Tensor, lengths: torch.Tensor,
+                  placement: str = "auto"):
     """Batched block encode at DEFAULT_CONFIG. blocks (B, 65536) uint8
-    zero-padded past each length; lengths (B,) int32. Returns (out
-    (B, CAPACITY) uint8 raw Snappy elements, zero past out_lens; out_lens
-    (B,) int32)."""
+    zero-padded past each length; lengths (B,) int32. placement: "auto"
+    (single-lane emission + windowed placement + overflow scatter, the
+    TPU default) or "sort" (XLA emission lanes + the 2N placement sort);
+    both give the same bytes. Returns (out (B, CAPACITY) uint8 raw Snappy
+    elements, zero past out_lens; out_lens (B,) int32)."""
+    if placement not in ("auto", "sort"):
+        raise ValueError(f"placement {placement!r}: 'auto' or 'sort'")
     n = lengths.to(torch.int32)
     key = _window_keys(blocks, n)
-    cands = _candidate_offsets(key, n)
-    jump, off = _matcher_xla(cands, n)
+    pref, words = _candidate_offsets(key, n)
+    jump, off = _matcher.matcher_block_packed(pref, words, n, K, LAZY,
+                                              DEFAULT_CONFIG.sticky)
     committed = scan.commit_bounded(jump) & (_iota(blocks.device)
                                              < n[:, None])
-    return _emit_sort(blocks, n, jump, off, committed)
+    if placement == "sort":
+        return _emit_sort(blocks, n, jump, off, committed)
+    return _emit_winplace(blocks, n, jump, off, committed)
 
 
 def compact_blocks(out: torch.Tensor, out_lens: torch.Tensor):

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by one `nvcc` call into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so the build takes seconds). The library lands in `_build/`, keyed by a
-hash of the sources and flags, so a fresh checkout builds at first use and
-an edited source rebuilds. Nothing here runs at import time.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library lands in `_build/`, keyed by a hash of the sources
+and flags, so a fresh checkout builds at first use and an edited source
+rebuilds. Nothing here runs at import time.
 
 Each C entry point returns `cudaGetLastError()` after its launches;
 `check` raises when that is not 0.
@@ -26,7 +27,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -38,6 +39,10 @@ SIGNATURES = {
     "snk_ffill": [P, P, P, P, P, P, P, P, P, I, I, I, P],
     "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, P],
     "snk_resolve_tiled": [P, P, P, I, P],
+    "snk_matcher_packed": [P, P, P, P, P, I, I, I, P],
+    "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
+    "snk_place": [P, P, P, P, I, I, I, P],
+    "snk_scatter_block": [P, P, P, P, I, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -72,26 +77,49 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds: list) -> list:
+    """Run the commands side by side; raise if any fails. Returns their
+    (stdout, stderr) pairs."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}\n{err}")
+    return outs
+
+
 def build(force: bool = False) -> pathlib.Path:
-    """Compile csrc/*.cu into one shared library (skipped when a library
-    for the same sources exists, unless force). Returns its path."""
+    """Compile csrc/*.cu (one nvcc process per file, in parallel) and link
+    one shared library (skipped when a library for the same sources
+    exists, unless force). Returns its path."""
     so = BUILD_DIR / f"libsnappy_kernels_{_digest()}.so"
     if so.exists() and not force:
         build_info.update(path=str(so), compiled=False, seconds=0.0,
                           ptxas=[])
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{_digest()}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, cmds = [], []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    outs = _run(cmds)
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, so)
-    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    for obj in objs:
+        obj.unlink()
+    ptxas = [ln.strip() for out, err in outs
+             for ln in (out + err).splitlines()
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     build_info.update(path=str(so), compiled=True, seconds=seconds,
                       ptxas=ptxas)

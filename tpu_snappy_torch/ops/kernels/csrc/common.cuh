@@ -25,4 +25,26 @@ __device__ __forceinline__ int warp_scan_max(int v) {
   return v;
 }
 
+// Inclusive min-scan over one warp.
+__device__ __forceinline__ int warp_scan_min(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int o = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v = min(v, o);
+  }
+  return v;
+}
+
+// Inclusive sum-scan over one warp.
+__device__ __forceinline__ int warp_scan_sum(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int o = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += o;
+  }
+  return v;
+}
+
 }  // namespace snk

@@ -1,12 +1,14 @@
-"""Windowed additive scatter of the decode transport (three 8-bit limbs).
+"""Additive scatters: the decode transport's windowed one and the
+full-height one of the encoder's overflow entries.
 
-Port of tpu_snappy/ops/pallas/scatter.py:scatter_windowed at limbs=3,
-out_cells=65536, wrows=192: the decode transport (the sidecar's smaller
-`wrows` waits for the framed slice).
-The CUDA kernel is csrc/scatter.cu (integer atomics per limb inside each
-1024-source tile's window, then a shift-OR join, see its note). The plain
-version below reproduces the window drop and the drop count exactly, so
-kernel and plain agree bit for bit, counts included.
+`scatter_windowed` ports tpu_snappy/ops/pallas/scatter.py:scatter_windowed
+at limbs=3, out_cells=65536, wrows=192: the decode transport (the
+sidecar's smaller `wrows` waits for the framed slice). `scatter_block`
+ports scatter.py:scatter_block at limbs 1-3 and any out_cells that is a
+multiple of 128. The CUDA kernels are in csrc/scatter.cu (integer atomics
+per limb, then a shift-OR join, see its note). The plain versions
+reproduce the window drop and the drop count exactly, so kernel and plain
+agree bit for bit, counts included.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from . import _build
 
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/scatter.cu"
-REPLACES = "tpu_snappy/ops/pallas/scatter.py:176"
+REPLACES = {"scatter_windowed": "tpu_snappy/ops/pallas/scatter.py:176",
+            "scatter_block": "tpu_snappy/ops/pallas/scatter.py:74"}
 
 #: Window rows of 128 cells per 1024-source tile (scatter.py:116).
 WROWS = 192
@@ -28,9 +31,20 @@ LO = 128
 _NONE = 1 << 30  # min of a tile with no active destination
 
 
-def _limbs(values: torch.Tensor) -> tuple:
-    # The top limb is not masked: the transport's cells reach 2^24.
-    return values >> 16, (values >> 8) & 0xFF, values & 0xFF
+def _limbs(values: torch.Tensor, limbs: int = 3) -> list:
+    """8-bit limbs, most significant first. The top limb is not masked
+    (scatter.py:95): the transport's cells reach 2^24."""
+    return [values >> (8 * (limbs - 1)) if j == 0
+            else (values >> (8 * (limbs - 1 - j))) & 0xFF
+            for j in range(limbs)]
+
+
+def _join(acc: list) -> torch.Tensor:
+    """Per-limb sums joined by shift-OR (scatter.py:61-64), not addition."""
+    res = acc[0]
+    for a in acc[1:]:
+        res = (res << 8) | a
+    return res
 
 
 def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor):
@@ -49,7 +63,7 @@ def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor):
         cell = torch.zeros((batch, N + 1), dtype=torch.int32,
                            device=dest.device)
         acc.append(cell.scatter_add_(1, idx, limb)[:, :N])
-    return (acc[0] << 16) | (acc[1] << 8) | acc[2], ovf
+    return _join(acc), ovf
 
 
 def scatter_windowed(dest: torch.Tensor, values: torch.Tensor):
@@ -84,3 +98,56 @@ def scatter_windowed(dest: torch.Tensor, values: torch.Tensor):
 
 
 scatter_windowed.launches = 0
+
+
+#: Limb counts scatter_block takes (the encoder's 1, the default 2, the
+#: decoder's 3).
+MAX_LIMBS = 3
+
+
+def scatter_block_plain(dest: torch.Tensor, values: torch.Tensor,
+                        limbs: int = 2, out_cells: int = N) -> torch.Tensor:
+    """Plain PyTorch form: out (B, out_cells) int32."""
+    batch = dest.shape[0]
+    keep = (dest >= 0) & (dest < out_cells)
+    idx = torch.where(keep, dest, out_cells).to(torch.int64)
+    acc = []
+    for limb in _limbs(values, limbs):
+        cell = torch.zeros((batch, out_cells + 1), dtype=torch.int32,
+                           device=dest.device)
+        acc.append(cell.scatter_add_(1, idx, limb)[:, :out_cells])
+    return _join(acc)
+
+
+def scatter_block(dest: torch.Tensor, values: torch.Tensor, limbs: int = 2,
+                  out_cells: int = N) -> torch.Tensor:
+    """Full-height additive scatter of (B, M) int32 `values` to (B, M)
+    int32 `dest` cells (M a multiple of 1024; a destination outside
+    [0, out_cells) drops; duplicates sum per limb). Returns out
+    (B, out_cells) int32, unwritten cells 0. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    batch, m = dest.shape
+    if m % TILE or out_cells % LO or not 1 <= limbs <= MAX_LIMBS:
+        raise ValueError(f"scatter_block: width {m} (a multiple of {TILE}),"
+                         f" out_cells {out_cells} (of {LO}), limbs {limbs} "
+                         f"(1 to {MAX_LIMBS})")
+    if _build.on_cpu(dest, values):
+        return scatter_block_plain(dest, values, limbs, out_cells)
+    _build.require(dest, torch.int32, (batch, m), "dest")
+    _build.require(values, torch.int32, (batch, m), "values")
+    dev = dest.device
+    out = torch.zeros((batch, out_cells), dtype=torch.int32, device=dev)
+    # One limb adds straight into the output; more need per-limb sums.
+    acc = (out if limbs == 1 else
+           torch.zeros((batch, limbs, out_cells), dtype=torch.int32,
+                       device=dev))
+    if batch and m:
+        rc = _build.lib().snk_scatter_block(
+            dest.data_ptr(), values.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), m, out_cells, limbs, batch, _build.stream())
+        _build.check(rc, "scatter_block")
+        scatter_block.launches += 1
+    return out
+
+
+scatter_block.launches = 0
