@@ -10,23 +10,33 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the eight kernels equals its plain
+3. kernel against plain: each of the ten kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes;
 4. round trip: 16 MiB of seeded mixed data through api.compress and
-   api.decompress on the card, checked against the host goldens, with the
-   launch counters showing that the main path ran every kernel;
-5. times: compress / decompress throughput and peak device memory; then
-   a traced round trip with a synchronised host clock around each public
-   stage and kernel wrapper, which also captures every kernel's inputs;
-6. main path, kernel against plain: each kernel equals its plain version
-   exactly on the tensors captured from the main path (the wave shapes it
-   really runs at), the time of both on them (CUDA events), the least
+   api.decompress (resolve "tiledtail") on the card, checked against the
+   host goldens, with the launch counters showing that the raw path ran
+   every kernel it has (gather_block in at least one dense round a wave);
+5. framed: the same 16 MiB through framing.compress with sidecar "off",
+   "auto" and "always", each stream decoded by the C++ golden and by
+   framing.decompress with and without its sidecars, with the chunks each
+   decode path took, no hinted chunk re-decoded after a CRC miss, and the
+   launch counters showing resolve_tiled_depth and the sidecar's 1-limb
+   gather; compress / decompress GB/s per policy;
+6. times: raw compress / decompress throughput and peak device memory;
+   then traced raw and framed round trips with a synchronised host clock
+   around each public stage and kernel wrapper, which also capture every
+   kernel's inputs;
+7. main path, kernel against plain: each kernel equals its plain version
+   exactly on the calls captured from the main paths (the wave shapes they
+   really run at), the time of both on them (CUDA events), the least
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one.
 
-The second-to-last lines are a JSON object of per-kernel results and the
-nvidia-smi name/power line; the last line is {"ok": true, "device": ...}.
+The second-to-last lines are a JSON object of per-kernel results (its
+`launches` count phases 4 and 5, each run with the counters set to 0 just
+before it) and the nvidia-smi name/power line; the last line is
+{"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (checked at the
 end of the run).
 """
@@ -106,7 +116,8 @@ def check_kernels(dev) -> None:
     """Phase 3: every kernel against its plain version, exact equality, on
     random inputs and the JAX tests' edge cases; raises on any
     difference."""
-    from tpu_snappy_torch.ops.kernels import ffill, scatter, tiledres, windows
+    from tpu_snappy_torch.ops.kernels import (ffill, gather, scatter,
+                                              tiledres, windows)
 
     rng = np.random.default_rng(SEED)
     report = {}
@@ -186,12 +197,48 @@ def check_kernels(dev) -> None:
             np.where(rng.random(N) < 0.5, ident, np.maximum(ident - 7, 0)),
             np.maximum(ident - tiledres.TILE, 0),
             np.minimum(ident, rng.integers(0, 64, N))]
-    src = t(np.stack(srcs).astype(np.int32))
-    err = _exact(tiledres.resolve_tiled(lit, src),
-                 tiledres.resolve_tiled_plain(lit, src))
-    report["resolve_tiled"] = err
+    src_np = np.stack(srcs).astype(np.int32)
+    src = t(src_np)
+    errs = []
+    for flags in (None, [False] * BATCH, [True] * BATCH,
+                  [True, False] * (BATCH // 2)):
+        res = None if flags is None else t(np.array(flags))
+        errs.append(_exact(tiledres.resolve_tiled(lit, src, res),
+                           tiledres.resolve_tiled_plain(lit, src, res)))
+    report["resolve_tiled"] = max(errs)
     print(f"kernel resolve_tiled B={BATCH} (identity, chain, straddle, "
-          f"random): max_abs_err={err}")
+          f"random; resolved none/false/true/mixed): max_abs_err={max(errs)}")
+
+    # resolve_tiled_depth: exact, over- and under-declared depths, on the
+    # maps above (the period-1 chain among them: depth 10 in every tile).
+    exact = tiledres.tile_depths_plain(torch.from_numpy(src_np)).numpy()
+    if exact[2].tolist() != [10] * (N // tiledres.DEPTH_TILE):
+        raise AssertionError(f"chain depths {exact[2].tolist()}")
+    errs = []
+    for deps in (exact, exact + rng.integers(1, 5, exact.shape),
+                 np.maximum(exact - rng.integers(1, 4, exact.shape), 0)):
+        d = t(deps.astype(np.int32))
+        errs.append(_exact(tiledres.resolve_tiled_depth(lit, src, d),
+                           tiledres.resolve_tiled_depth_plain(lit, src, d)))
+    report["resolve_tiled_depth"] = max(errs)
+    print(f"kernel resolve_depth B={BATCH} (same maps; depths exact, over, "
+          f"under): max_abs_err={max(errs)}")
+
+    # gather_block: (8, 65536) targets from tables of 65536 and 8192, limbs
+    # 1 and 2, indices 0 and S-1 at both ends.
+    errs = []
+    for s in (N, 8192):
+        for limbs in (1, 2):
+            x = t(rng.integers(0, 1 << (8 * limbs), (BATCH, s),
+                               dtype=np.int32))
+            idx = rng.integers(0, s, (BATCH, N)).astype(np.int32)
+            idx[:, :2], idx[:, -2:] = (0, s - 1), (s - 1, 0)
+            idx = t(idx)
+            errs.append(_exact(gather.gather_block(x, idx, limbs),
+                               gather.gather_block_plain(x, idx, limbs)))
+    report["gather_block"] = max(errs)
+    print(f"kernel gather_block B={BATCH} T={N} S 65536/8192 limbs 1/2: "
+          f"max_abs_err={max(errs)}")
     check_encode_kernels(dev, rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
@@ -325,13 +372,19 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
 
 
 def _kernel_modules() -> dict:
-    """Every kernel of the main path: wrapper name -> module."""
-    from tpu_snappy_torch.ops.kernels import (emit, ffill, matcher, place,
-                                              scatter, tiledres, windows)
+    """Every kernel of the main paths: wrapper name -> module."""
+    from tpu_snappy_torch.ops.kernels import (emit, ffill, gather, matcher,
+                                              place, scatter, tiledres,
+                                              windows)
     return {"window_keys": windows, "ffill": ffill,
             "scatter_windowed": scatter, "resolve_tiled": tiledres,
             "matcher_block_packed": matcher, "emit_block_single": emit,
-            "place_block": place, "scatter_block": scatter}
+            "place_block": place, "scatter_block": scatter,
+            "gather_block": gather, "resolve_tiled_depth": tiledres}
+
+
+#: Kernels only the framed container's sidecar decodes run.
+FRAMED_ONLY = ("resolve_tiled_depth",)
 
 
 def _replaces(mod, name: str) -> str:
@@ -343,6 +396,7 @@ def _public_stages() -> dict:
     """The package's public stages on the main path: name -> (module,
     attribute). Each is reached through a module attribute at call time,
     so wrapping the attribute observes the real main path."""
+    from tpu_snappy_torch import sidecar
     from tpu_snappy_torch.ops import decode, encode, scan
     return {"encode_blocks": (encode, "encode_blocks"),
             "_candidate_offsets": (encode, "_candidate_offsets"),
@@ -350,8 +404,11 @@ def _public_stages() -> dict:
             "_emit_winplace": (encode, "_emit_winplace"),
             "compact_blocks": (encode, "compact_blocks"),
             "decode_fragments": (decode, "decode_fragments"),
+            "decode_fragments_depth": (decode, "decode_fragments_depth"),
             "parse_transport": (decode, "parse_transport"),
-            "commit_general": (scan, "commit_general")}
+            "commit_general": (scan, "commit_general"),
+            "dense_rounds": (decode, "dense_rounds"),
+            "decode_chunks": (sidecar, "decode_chunks")}
 
 
 def _tensors(x) -> list:
@@ -359,29 +416,50 @@ def _tensors(x) -> list:
     arguments such as K or lazy are skipped)."""
     if isinstance(x, torch.Tensor):
         return [x]
+    if isinstance(x, dict):
+        return _tensors(tuple(x.values()))
     if isinstance(x, (tuple, list)):
         return [t for item in x for t in _tensors(item)]
     return []
 
 
-def _clone(x):
+def _distinct(tensors: list) -> list:
+    """The tensors with each storage once: the main path passes one tensor
+    as two arguments (the dense rounds gather src from src)."""
+    seen = {}
+    for t in tensors:
+        seen.setdefault((t.data_ptr(), t.numel() * t.element_size()), t)
+    return list(seen.values())
+
+
+def _clone(x, memo: dict | None = None):
+    """A copy of a call's arguments that keeps their aliasing: a tensor
+    passed twice is cloned once and passed twice."""
+    memo = {} if memo is None else memo
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        key = (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+        if key not in memo:
+            memo[key] = x.clone()
+        return memo[key]
+    if isinstance(x, dict):
+        return {k: _clone(v, memo) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
-        return tuple(_clone(item) for item in x)
+        return tuple(_clone(item, memo) for item in x)
     return x
 
 
-def traced_round_trip(dev, data: bytes, card: str):
-    """Phase 5: one more round trip through the public API, with every
-    public stage and every kernel wrapper wrapped in place. Each wrapped
-    call is timed on the host clock between two synchronises, and the
-    first call of each kernel per calling stage and input shape is cloned,
-    so that phase 6 holds the kernel against its plain version on exactly
-    the tensors the main path gives it. Returns those captured calls."""
+def traced_round_trip(dev, data: bytes, framed: dict, card: str):
+    """Phase 6: one more raw round trip through the public API, and the
+    framed decodes of the "auto" and "always" streams, with every public
+    stage and every kernel wrapper wrapped in place. Each wrapped call is
+    timed on the host clock between two synchronises, and the first call
+    of each kernel per calling stage, input shape and scalar argument is
+    cloned, so that phase 7 holds the kernel against its plain version on
+    exactly the calls the main paths make. Returns those captured calls,
+    each as (args, kwargs)."""
     import functools
 
-    from tpu_snappy_torch import api
+    from tpu_snappy_torch import api, framing
 
     kernels = _kernel_modules()
     targets = dict(_public_stages())
@@ -397,10 +475,13 @@ def traced_round_trip(dev, data: bytes, card: str):
         @functools.wraps(fn)
         def run(*args, **kwargs):
             if name in kernels:
+                scalars = tuple(a for a in (*args, *kwargs.values())
+                                if isinstance(a, (int, str)))
                 key = (name, stack[-1] if stack else "-",
                        tuple((tuple(t.shape), str(t.dtype))
-                             for t in _tensors(args)))
-                captured.setdefault(key, _clone(args))
+                             for t in _tensors((args, kwargs))), scalars)
+                if key not in captured:
+                    captured[key] = _clone((args, kwargs))
             stack.append(name)
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -422,13 +503,17 @@ def traced_round_trip(dev, data: bytes, card: str):
         t1 = time.perf_counter()
         back = api.decompress(comp, device="cuda")
         t2 = time.perf_counter()
+        backs = [framing.decompress(framed[p], device="cuda")
+                 for p in ("auto", "always")]
+        t3 = time.perf_counter()
     finally:
         for name, (mod, attr) in targets.items():
             setattr(mod, attr, saved[name])
-    if back != data:
+    if back != data or any(b != data for b in backs):
         raise AssertionError("the traced round trip changed the data")
     print(f"traced round trip (synchronised around every wrapped call), "
-          f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms; "
+          f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
+          f" framed decompress auto + always {(t3 - t2) * 1e3} ms; "
           f"host-clock ms per stage over all waves [{card}]:")
     for name in targets:
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
@@ -458,17 +543,18 @@ def _timed(fn, dev, reps: int) -> float:
 #: lazy, jump). The others do a few per element and are bound by bytes.
 _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
-        "scatter_block": 8}
+        "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2}
 
 
 def _bound(name: str, args, outs) -> tuple:
     """Least time on the card for one call: the larger of the bytes the
-    function must move (each input tensor read once, each output written
-    once) over the memory rate and its integer operations over the
+    function must move (each distinct input tensor read once, each output
+    written once) over the memory rate and its integer operations over the
     integer rate. Returns (ms, "bytes" or "operations")."""
-    nbytes = sum(t.numel() * t.element_size() for t in _tensors(args)
-                 + _tensors(outs))
-    elems = _tensors(args)[0].numel()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in _distinct(_tensors(args) + _tensors(outs)))
+    # Elements: positions, sources, or (gather_block) targets.
+    elems = _tensors(args)[1 if name == "gather_block" else 0].numel()
     if name == "matcher_block_packed":
         k = args[3]
         ops = elems * (4 * (k + 1) * k + 72)
@@ -482,9 +568,15 @@ def _bound(name: str, args, outs) -> tuple:
 def _library_ms(name: str, args, dev):
     """Time of one PyTorch call computing the same function, where there
     is one: `scatter_add_` for the three scatters, on the captured inputs
-    (it counts no window drops and sums instead of joining limbs). None
-    for the others: no single PyTorch call computes the matcher's chain,
-    the emission packs, the window keys, a forward fill or the resolve."""
+    (it counts no window drops and sums instead of joining limbs), and
+    `torch.gather` for gather_block, with its int64 index made beforehand.
+    None for the others: no single PyTorch call computes the matcher's
+    chain, the emission packs, the window keys, a forward fill or a
+    resolve."""
+    if name == "gather_block":
+        x, idx = args[0], args[1]
+        ix = torch.clamp(idx, 0, x.shape[-1] - 1).to(torch.int64)
+        return _timed(lambda: torch.gather(x, -1, ix), dev, 20)
     if name not in ("scatter_windowed", "place_block", "scatter_block"):
         return None
     dest, values = args[0], args[1]
@@ -507,26 +599,28 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     time of both on those tensors (CUDA events), the bound, and the
     library call's time. Returns, per kernel, the largest absolute
     difference over its captured calls and the numbers of its largest
-    call."""
+    call (by the distinct bytes its arguments hold)."""
     kernels = _kernel_modules()
     report = {}
-    for (name, stage, shapes), args in captured.items():
+    for (name, stage, shapes, scalars), (args, kw) in captured.items():
         mod = kernels[name]
         kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
-        outs = kern(*args)
-        got, want = _tensors(outs), _tensors(plain(*args))
+        outs = kern(*args, **kw)
+        got, want = _tensors(outs), _tensors(plain(*args, **kw))
         if len(got) != len(want):
             raise AssertionError(f"{name}: {len(got)} results against "
                                  f"{len(want)}")
         err = max(_exact(g, w) for g, w in zip(got, want))
-        ms = _timed(lambda: kern(*args), dev, 20)
-        plain_ms = _timed(lambda: plain(*args), dev, 5)
-        bound_ms, bound_by = _bound(name, args, outs)
+        ms = _timed(lambda: kern(*args, **kw), dev, 20)
+        plain_ms = _timed(lambda: plain(*args, **kw), dev, 5)
+        bound_ms, bound_by = _bound(name, (*args, *kw.values()), outs)
         library_ms = _library_ms(name, args, dev)
-        print(f"main path {name} in {stage} {shapes}: max_abs_err={err}; "
-              f"kernel {ms} ms, plain {plain_ms} ms, bound {bound_ms} ms "
-              f"({bound_by}), library {library_ms} ms [{card}]")
-        size = sum(t.numel() for t in _tensors(args))
+        print(f"main path {name} in {stage} {shapes} {scalars}: "
+              f"max_abs_err={err}; kernel {ms} ms, plain {plain_ms} ms, "
+              f"bound {bound_ms} ms ({bound_by}), library {library_ms} ms "
+              f"[{card}]")
+        size = sum(t.numel() * t.element_size()
+                   for t in _distinct(_tensors((args, kw))))
         prev = report.get(name)
         if prev is None or size > prev["size"]:
             report[name] = {"size": size, "ms": ms, "plain_ms": plain_ms,
@@ -545,7 +639,8 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     # resolve_tiled's worst case: the period-1 chain, 65535 hops deep.
     tiledres = kernels["resolve_tiled"]
     rng = np.random.default_rng(SEED + 1)
-    batch = next(args[1].shape[0] for (name, _, _), args in captured.items()
+    batch = next(args[1].shape[0]
+                 for (name, *_), (args, _) in captured.items()
                  if name == "resolve_tiled")
     chain = torch.from_numpy(np.tile(
         np.maximum(np.arange(N, dtype=np.int32) - 1, 0), (batch, 1))).to(dev)
@@ -555,6 +650,12 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     plain_ms = _timed(lambda: tiledres.resolve_tiled_plain(lit, chain), dev, 5)
     print(f"time resolve_tiled ({batch}, {N}) src=max(i-1,0), depth 65535: "
           f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
+    deps = torch.full((batch, N // tiledres.DEPTH_TILE), 10,
+                      dtype=torch.int32, device=dev)
+    ms = _timed(lambda: tiledres.resolve_tiled_depth(lit, chain, deps), dev,
+                20)
+    print(f"time resolve_tiled_depth ({batch}, {N}) on the same chain, "
+          f"depth 10 a tile: kernel {ms} ms [{card}]")
     return report
 
 
@@ -573,18 +674,85 @@ def round_trip(dev, wrappers: dict):
     back, stats = api.decompress_with_stats(comp, device="cuda")
     launches = {k: w.launches for k, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"main path launches: {launches}")
+    print(f"raw path launches: {launches}")
     if back != data:
         raise AssertionError("round trip on the card changed the data")
     if stats.path != "device" or stats.spliced:
         raise AssertionError(f"decode left the device: {stats}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel did not run on the main path: "
-                             f"{launches}")
+    missing = [k for k, n in launches.items()
+               if not n and k not in FRAMED_ONLY]
+    if missing:
+        raise AssertionError(f"kernels the raw path did not run: {missing}")
+    waves = len(stats.dense_rounds)
+    if min(stats.dense_rounds) < 1 or launches["gather_block"] < waves:
+        raise AssertionError(f"dense rounds {stats.dense_rounds}")
     print(f"round trip ok: {len(data)} -> {len(comp)} bytes (ratio "
           f"{len(comp) / len(data)}), {stats.fragments} fragments, "
-          f"{stats.spliced} spliced on the host")
+          f"{stats.spliced} spliced on the host, dense rounds per wave "
+          f"{stats.dense_rounds}")
     return data, comp, launches, peak
+
+
+def framed_round_trips(data: bytes, wrappers: dict, card: str):
+    """Phase 5: the 16 MiB through the framed container under each sidecar
+    policy, with the launch counters set to 0 just before and read just
+    after. Returns (streams by policy, launches)."""
+    from tpu_snappy_torch import framing
+    from tpu_snappy_torch.ops import decode as ops_decode
+
+    golden = ops_decode.native_golden()
+    if golden is None:
+        raise AssertionError("the C++ golden (hints, framed decoder) does "
+                             "not build here")
+    streams, stats = {}, {}
+    for w in wrappers.values():
+        w.launches = 0
+    for policy in ("off", "auto", "always"):
+        t0 = time.perf_counter()
+        fr = framing.compress(data, policy, device="cuda")
+        t1 = time.perf_counter()
+        streams[policy] = fr
+        if golden.uncompress_framed(fr, max_out=len(data) + 16) != data:
+            raise AssertionError(f"golden mis-decodes the {policy} stream")
+        kinds = {name: sum(1 for typ in _chunk_types(fr) if typ == code)
+                 for name, code in (("0x00", 0), ("0x01", 1),
+                                    ("0x80", 0x80), ("0x81", 0x81))}
+        print(f"framed {policy}: {len(fr)} bytes, chunks {kinds}; compress "
+              f"{t1 - t0} s, {len(data) / (t1 - t0) / 1e9} GB/s [{card}]")
+        for use in (True, False):
+            gathers = wrappers["gather_block"].launches
+            t0 = time.perf_counter()
+            back, st = framing.decompress_with_stats(fr, use, device="cuda")
+            t1 = time.perf_counter()
+            if back != data:
+                raise AssertionError(f"framed {policy} decode differs")
+            stats[policy, use] = (st, wrappers["gather_block"].launches
+                                  - gathers)
+            print(f"  decompress use_sidecar={use}: {t1 - t0} s, "
+                  f"{len(data) / (t1 - t0) / 1e9} GB/s; {st} [{card}]")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"framed path launches: {launches}")
+    auto, always = stats["auto", True][0], stats["always", True]
+    if not auto.hinted or not always[0].root_map:
+        raise AssertionError("no hinted chunk under auto or no root-map "
+                             "chunk under always")
+    if any(st.redecoded_hinted for st, _ in stats.values()):
+        raise AssertionError("a hinted chunk was re-decoded after a CRC "
+                             "miss")
+    # The always decode's gathers beyond its dense rounds are the sidecar's
+    # 1-limb byte gathers, one a root-map wave.
+    sidecar_gathers = always[1] - sum(always[0].dense_rounds)
+    if not launches["resolve_tiled_depth"] or sidecar_gathers < 1:
+        raise AssertionError(f"framed kernels did not run: {launches}, "
+                             f"sidecar gathers {sidecar_gathers}")
+    return streams, launches
+
+
+def _chunk_types(fr: bytes):
+    ip = 10  # past the stream identifier
+    while ip < len(fr):
+        yield fr[ip]
+        ip += 4 + int.from_bytes(fr[ip + 1: ip + 4], "little")
 
 
 def check_goldens(data: bytes, comp: bytes) -> None:
@@ -653,9 +821,11 @@ def main() -> None:
     wrappers = {k: getattr(mod, k) for k, mod in modules.items()}
     data, comp, launches, peak = round_trip(dev, wrappers)
     check_goldens(data, comp)
+    card = smi
+    framed, framed_launches = framed_round_trips(data, wrappers, card)
+    launches = {k: n + framed_launches[k] for k, n in launches.items()}
 
     # Times on the card (the round trip above was the warm-up).
-    card = smi
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     comp2 = api.compress(data, device="cuda")
@@ -670,7 +840,7 @@ def main() -> None:
           f"[{card}]")
     print(f"peak device memory over the round trip: {peak} bytes "
           f"(wave {api.API_WAVE}) [{card}]")
-    captured = traced_round_trip(dev, data, card)
+    captured = traced_round_trip(dev, data, framed, card)
     report = check_main_path_calls(dev, captured, card)
 
     kernels = []

@@ -2,11 +2,17 @@
 
 Fragments of the port's own streams, reference_codec streams, and the
 copy4 / exotic / corrupt streams of tests/test_exotic_streams.py decode in
-one batch through the port and through JAX decode_fragments_jit at
-resolve="tiled" (the mirrored mode). Bytes and ok flags must be equal.
-The JAX CPU path scatters without the TPU window and so cannot count a
-window overflow; where the port counts one, it must report ok=False and
-the API must still give the reference bytes (or raise the same error).
+one batch through the port and through JAX decode_fragments_jit, at
+resolve="tiled" and at the TPU default resolve="tiledtail" (dense rounds,
+then the resolve kernel with each fragment's `resolved` flag), and through
+the depth-hinted decode_fragments_depth against decode_fragments_depth_jit
+with the C++ golden's hints. Bytes and ok flags must be equal. A stream of
+alternating-offset copies needs seven dense rounds while the others stop
+after one, so the per-fragment loop (a fragment whose moved count fell to
+TAIL_CAP is frozen) is exercised. The JAX CPU path scatters without the
+TPU window and so cannot count a window overflow; where the port counts
+one, it must report ok=False and the API must still give the reference
+bytes (or raise the same error).
 """
 
 import functools
@@ -85,6 +91,10 @@ def _streams():
     out["chain-into-run"] = _build(5 + 60 + 4 + 24, [
         fmt.literal_header(5), b"hello", fmt.copy_element(5, 60),
         fmt.literal_header(4), b"####", fmt.copy_element(40, 24)])
+    head = bytes(rng.integers(0, 256, 128, "u1"))
+    out["deep-chains"] = _build(fmt.BLOCK_SIZE, [
+        fmt.literal_header(128), head,
+        *[fmt.copy_element(64 << (i & 1), 64) for i in range(1022)]])
     return out
 
 
@@ -126,12 +136,13 @@ def batch():
         resolve="tiled")
     ft, ct, ut = (torch.from_numpy(np.ascontiguousarray(a))
                   for a in (frags, clens, ulens))
-    t_out, t_ok = TD.decode_fragments(ft, ct, ut)
+    t_out, t_ok, _ = TD.decode_fragments(ft, ct, ut, resolve="tiled")
     mdst, mval, _ = TD.transport_cells(ft, ct, ut)
     _, ovf = KS.scatter_windowed(mdst, mval)
     return dict(names=names, ulens=ulens, j_out=np.asarray(j_out),
                 j_ok=np.asarray(j_ok), t_out=t_out.numpy(),
-                t_ok=t_ok.numpy(), ovf=ovf.numpy(), inputs=(ft, ct, ut))
+                t_ok=t_ok.numpy(), ovf=ovf.numpy(), inputs=(ft, ct, ut),
+                np_inputs=(frags, clens, ulens))
 
 
 def test_ok_flags_match_jax(batch):
@@ -155,6 +166,89 @@ def test_bytes_match_jax(batch):
     # Zero past each fragment's length, as in JAX.
     for i, n in enumerate(batch["ulens"]):
         assert not batch["t_out"][i, n:].any(), batch["names"][i]
+
+
+def _hints(frags, clens, ulens):
+    """The C++ golden's depth hints per fragment (zeros where its element
+    stream is not self-contained), or None where the golden does not
+    build."""
+    golden = TD.native_golden()
+    if golden is None:
+        return None
+    deps = np.zeros((len(clens), TD.OUT // TD.HINT_TILE), np.int32)
+    for i, (c, u) in enumerate(zip(clens, ulens)):
+        try:
+            deps[i] = golden.depth_hints(frags[i, :c].tobytes(), int(u),
+                                         TD.TAIL_CAP, TD.HINT_TILE)
+        except RuntimeError:
+            pass
+    return deps
+
+
+@pytest.fixture(scope="module")
+def tail(batch):
+    """The same batch at resolve="tiledtail" and depth-hinted, both
+    packages."""
+    frags, clens, ulens = batch["np_inputs"]
+    ft, ct, ut = batch["inputs"]
+    j_out, _ = D.decode_fragments_jit(
+        jnp.asarray(frags), jnp.asarray(clens), jnp.asarray(ulens),
+        resolve="tiledtail")
+    t_out, t_ok, rounds = TD.decode_fragments(ft, ct, ut)
+    res = dict(j_out=np.asarray(j_out), t_out=t_out.numpy(),
+               t_ok=t_ok.numpy(), rounds=rounds,
+               src=TD.dense_rounds(TD.parse_transport(ft, ct, ut)[1]))
+    deps = _hints(frags, clens, ulens)
+    if deps is not None:
+        jd_out, jd_ok = D.decode_fragments_depth_jit(
+            jnp.asarray(frags), jnp.asarray(clens), jnp.asarray(ulens),
+            jnp.asarray(deps))
+        td_out, td_ok, _ = TD.decode_fragments_depth(
+            ft, ct, ut, torch.from_numpy(deps))
+        res.update(jd_out=np.asarray(jd_out), jd_ok=np.asarray(jd_ok),
+                   td_out=td_out.numpy(), td_ok=td_ok.numpy())
+    return res
+
+
+def test_tiledtail_matches_jax(batch, tail):
+    assert (tail["t_ok"] == batch["t_ok"]).all()
+    ok = tail["t_ok"] & batch["j_ok"]
+    assert (tail["t_out"][ok] == tail["j_out"][ok]).all()
+    assert (tail["t_out"][ok] == batch["t_out"][ok]).all()
+    for i, n in enumerate(batch["ulens"]):
+        assert not tail["t_out"][i, n:].any(), batch["names"][i]
+
+
+def test_dense_rounds_run_per_fragment(batch, tail):
+    """decode.py:349-359 per fragment: the deep-chain fragment runs seven
+    rounds, the others freeze once at most TAIL_CAP lanes moved, and a
+    fragment's `resolved` flag is its own count reaching 0."""
+    src, cnt, rounds = tail["src"]
+    assert rounds == tail["rounds"] == 7
+    names = batch["names"]
+    deep = names.index("deep-chains#0")
+    assert int(cnt[deep]) <= TD.TAIL_CAP
+    assert (cnt <= TD.TAIL_CAP).all()
+    # Replay in numpy, one fragment at a time, as the vmapped while_loop.
+    _, src0, _ = TD.parse_transport(*batch["inputs"])
+    for i in (deep, names.index("port-text#0"), names.index("ref-x#0")):
+        s, c, it = src0[i].numpy(), TD.OUT + 1, 0
+        while c > TD.TAIL_CAP and it < 16:
+            s2 = s[s]
+            c, s, it = int((s2 != s).sum()), s2, it + 1
+        assert (src[i].numpy() == s).all() and int(cnt[i]) == c, names[i]
+
+
+def test_depth_hinted_decode_matches_jax(batch, tail):
+    if "jd_out" not in tail:
+        pytest.skip("cmake / Ninja missing: the golden cannot build here")
+    assert (tail["td_ok"] == tail["jd_ok"]).all()
+    assert (tail["td_ok"] == tail["t_ok"]).all()
+    ok = tail["td_ok"]
+    assert (tail["td_out"][ok] == tail["jd_out"][ok]).all()
+    # The golden's hints are exact for this pipeline: the hinted bytes are
+    # the normal decode's, the deep-chain fragment included.
+    assert (tail["td_out"][ok] == tail["t_out"][ok]).all()
 
 
 @pytest.mark.parametrize("name", sorted(_streams()))
@@ -185,6 +279,21 @@ def test_decode_on_the_card_matches_cpu(batch, cuda):
     """The same fragments on the card: bytes and ok equal the CPU port's
     (which the tests above hold against JAX), overflow counts included."""
     ft, ct, ut = (t.to(cuda) for t in batch["inputs"])
-    out, ok = TD.decode_fragments(ft, ct, ut)
+    out, ok, _ = TD.decode_fragments(ft, ct, ut, resolve="tiled")
     assert (ok.cpu().numpy() == batch["t_ok"]).all()
     assert (out.cpu().numpy() == batch["t_out"]).all()
+
+
+@pytest.mark.gpu
+def test_tiledtail_and_depth_on_the_card_match_cpu(batch, tail, cuda):
+    ft, ct, ut = (t.to(cuda) for t in batch["inputs"])
+    out, ok, rounds = TD.decode_fragments(ft, ct, ut)
+    assert rounds == tail["rounds"]
+    assert (ok.cpu().numpy() == tail["t_ok"]).all()
+    assert (out.cpu().numpy() == tail["t_out"]).all()
+    if "td_out" in tail:
+        deps = _hints(*batch["np_inputs"])
+        out, ok, _ = TD.decode_fragments_depth(
+            ft, ct, ut, torch.from_numpy(deps).to(cuda))
+        assert (ok.cpu().numpy() == tail["td_ok"]).all()
+        assert (out.cpu().numpy() == tail["td_out"]).all()

@@ -3,8 +3,10 @@
 A fresh interpreter imports every module of tpu_snappy_torch and must find
 no `jax` and no `tpu_snappy` module loaded. The port's own copies of the
 framework-free modules must equal the JAX package's: every `format`
-constant and helper, every field of the four `config` presets, and the
-`reference_codec` bytes on seeded inputs. The C++ golden binding builds
+constant and helper, every field of the four `config` presets, the
+`reference_codec` bytes on seeded inputs, the framing CRC tables and the
+decoder and sidecar constants the framed container's sidecars are built
+for. The C++ golden binding builds
 into the port's own directory. The API runs on the card by default and,
 with no CUDA device visible, raises instead of running on the CPU.
 """
@@ -20,15 +22,21 @@ import torch
 
 from tpu_snappy import config as jax_config
 from tpu_snappy import format as jax_fmt
+from tpu_snappy import framing as jax_framing
 from tpu_snappy import reference_codec as jax_codec
+from tpu_snappy import sidecar as jax_sidecar
 from tpu_snappy.native import golden as jax_golden
+from tpu_snappy.ops import decode as jax_decode
 from tpu_snappy.utils import corpus
 
 from tpu_snappy_torch import api
 from tpu_snappy_torch import config
 from tpu_snappy_torch import format as fmt
+from tpu_snappy_torch import framing
 from tpu_snappy_torch import reference_codec
+from tpu_snappy_torch import sidecar
 from tpu_snappy_torch.native import golden, realsnappy
+from tpu_snappy_torch.ops import decode
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -48,7 +56,9 @@ def test_import_loads_no_jax_and_no_jax_package():
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
-    assert "tpu_snappy_torch.ops.kernels.matcher" in mods
+    for m in ("ops.kernels.matcher", "ops.kernels.gather", "framing",
+              "sidecar"):
+        assert "tpu_snappy_torch." + m in mods
 
 
 def _public(mod) -> dict:
@@ -72,6 +82,22 @@ def test_format_constants_match_jax():
     for off, length in ((1, 4), (2047, 11), (2048, 64), (65535, 12)):
         assert (fmt.copy_element(off, length)
                 == jax_fmt.copy_element(off, length))
+
+
+def test_framing_and_sidecar_copies_match_jax():
+    """The framed container's copies: CRC tables, chunk types and the
+    policy cut; the decoder constants the 0x81 hints are computed for; the
+    sidecar constants."""
+    assert (framing._T == jax_framing._T).all()
+    for k in ("CHUNK_STREAM_ID", "CHUNK_COMPRESSED", "CHUNK_UNCOMPRESSED",
+              "CHUNK_PADDING", "CHUNK_SIDECAR", "CHUNK_DEPTH", "STREAM_ID",
+              "SIDECAR_AUTO_FRAC", "MAX_CHUNK"):
+        assert getattr(framing, k) == getattr(jax_framing, k), k
+    for k in ("TAIL_CAP", "TAIL_TILE", "HINT_TILE", "FRAG_CAP", "OUT"):
+        assert getattr(decode, k) == getattr(jax_decode, k), k
+    for k in ("MAGIC", "CHUNK_TYPE", "DEPTH_CHUNK_TYPE", "DEPTH_MAGIC",
+              "SPLIT_LEN", "PARENT_WROWS", "MAX_PIECES", "OUT"):
+        assert getattr(sidecar, k) == getattr(jax_sidecar, k), k
 
 
 @pytest.mark.parametrize("preset", ["DEFAULT_CONFIG", "FAST_CONFIG",

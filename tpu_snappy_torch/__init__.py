@@ -7,6 +7,8 @@ for the CPU. It imports `torch`, never `jax`, and nothing of `tpu_snappy`:
 it keeps its own copies of the framework-free modules (format, config,
 reference_codec, native).
 
-Entry points: `tpu_snappy_torch.api.compress` / `decompress`, on the CUDA
-card unless the caller passes `device="cpu"`.
+Entry points: `tpu_snappy_torch.api.compress` / `decompress` (raw
+streams) and `tpu_snappy_torch.framing.compress` / `decompress` (the
+framed container with its decode sidecars), on the CUDA card unless the
+caller passes `device="cpu"`.
 """

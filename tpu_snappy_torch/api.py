@@ -1,9 +1,10 @@
 """Host-facing codec API of the PyTorch port: bytes in, bytes out.
 
 Port of tpu_snappy/api.py at DEFAULT_CONFIG (the presets are later
-slices). The entry points run on the CUDA card (`device="cuda"`) unless
-the caller passes `device="cpu"`; with no CUDA device visible, the
-default raises instead of falling back to the CPU. Multi-block inputs run
+slices); the framed container is framing.py. The entry points run on the
+CUDA card (`device="cuda"`) unless the caller passes `device="cpu"`; with
+no CUDA device visible, the default raises instead of falling back to the
+CPU. Multi-block inputs run
 in waves of `wave` blocks (or fragments) per batched device call; the
 wave width bounds device memory and never changes the output bytes.
 """
@@ -41,6 +42,8 @@ class DecodeStats:
     path: str = "device"  # "device", "host-small" or "host-fallback"
     fragments: int = 0    # fragments decoded on the device
     spliced: int = 0      # of those, re-decoded on the host (ok=False)
+    #: Dense doubling rounds (gather_block launches) of each wave.
+    dense_rounds: list = dataclasses.field(default_factory=list)
 
 
 def _to_blocks(data: bytes):
@@ -108,8 +111,9 @@ def compress(data: bytes, *, device="cuda", small_fastpath: bool = True,
 def decompress(comp: bytes, *, device="cuda", small_fastpath: bool = True,
                wave: int | None = None) -> bytes:
     """Decompress a standard Snappy stream (ours or any other encoder's)
-    on `device`. Fragments that fail device validation (corrupt, or valid
-    but exotic) re-decode on the host; corrupt streams raise ValueError."""
+    on `device`, with the TPU-default resolve ("tiledtail"). Fragments
+    that fail device validation (corrupt, or valid but exotic) re-decode
+    on the host; corrupt streams raise ValueError."""
     return decompress_with_stats(comp, device=device,
                                  small_fastpath=small_fastpath,
                                  wave=wave)[0]
@@ -143,7 +147,8 @@ def decompress_with_stats(comp: bytes, *, device="cuda",
             np.ascontiguousarray(frags[s:s + w, :width])).to(device)
         ct = torch.from_numpy(clens[s:s + w]).to(device)
         ut = torch.from_numpy(ulens[s:s + w]).to(device)
-        out, ok = ops_decode.decode_fragments(ft, ct, ut)
+        out, ok, rounds = ops_decode.decode_fragments(ft, ct, ut)
+        stats.dense_rounds.append(rounds)
         outs.append(out.cpu().numpy())
         oks.append(ok.cpu().numpy())
     out = np.concatenate(outs)

@@ -1,0 +1,554 @@
+"""Snappy framing format, the official streaming container (port of
+tpu_snappy/framing.py).
+
+Spec: google/snappy framing_format.txt — a stream identifier, then chunks
+of at most 65536 uncompressed bytes, each data chunk carrying the masked
+CRC-32C of its uncompressed bytes. One 64 KB block is one chunk, so the
+port's block encoder and fragment decoder run the container with no
+re-batching. The encoder may put a decode sidecar (sidecar.py) before each
+compressed chunk: a 0x80 root map or 0x81 depth hints, both skippable by
+spec.
+
+Entry points: `compress(data, sidecar="off" | "auto" | "always")`,
+`decompress(framed, use_sidecar=True)` (and `decompress_with_stats`), and
+the streaming forms `compress_stream` / `decompress_stream`. They run on
+the CUDA card unless the caller passes `device="cpu"`; with no CUDA device
+visible, the default raises. The output bytes are the JAX package's.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import api
+from . import format as fmt
+from . import reference_codec
+from . import sidecar as sc
+from .ops import decode as ops_decode
+from .ops import encode as ops_encode
+
+#: Chunk types (framing_format.txt section 4).
+CHUNK_STREAM_ID = 0xFF
+CHUNK_COMPRESSED = 0x00
+CHUNK_UNCOMPRESSED = 0x01
+CHUNK_PADDING = 0xFE
+#: Skippable chunks carrying the decode sidecars: 0x80 root map, 0x81
+#: depth hints.
+CHUNK_SIDECAR = sc.CHUNK_TYPE
+CHUNK_DEPTH = sc.DEPTH_CHUNK_TYPE
+
+STREAM_ID = b"\xff\x06\x00\x00sNaPpY"
+
+#: "auto" sidecar policy: emit a sidecar only when it costs at most this
+#: fraction of the chunk's uncompressed size (framing.py:46).
+SIDECAR_AUTO_FRAC = 0.03
+
+#: Most uncompressed bytes of a data chunk (spec-fixed; the block size).
+MAX_CHUNK = 65536
+
+POLICIES = ("off", "auto", "always")
+
+
+# ---- CRC-32C (Castagnoli): numpy slice-by-8, batched across chunks ----
+
+def _make_tables() -> np.ndarray:
+    t = np.zeros((8, 256), dtype=np.uint32)
+    poly = np.uint32(0x82F63B78)
+    for i in range(256):
+        c = np.uint32(i)
+        for _ in range(8):
+            c = (c >> np.uint32(1)) ^ (poly if c & np.uint32(1)
+                                       else np.uint32(0))
+        t[0, i] = c
+    for j in range(1, 8):
+        t[j] = (t[j - 1] >> np.uint32(8)) ^ t[0, t[j - 1] & np.uint32(0xFF)]
+    return t
+
+
+_T = _make_tables()
+
+
+def crc32c(data: bytes | np.ndarray) -> int:
+    """CRC-32C of one buffer (unmasked): the native slice-by-8 C path where
+    the golden library builds (the numpy form below pays its word loop
+    once per call, slow for one row), else the numpy form."""
+    golden = ops_decode.native_golden()
+    if golden is not None:
+        return golden.crc32c(bytes(data))
+    arr = np.frombuffer(bytes(data), dtype=np.uint8).reshape(1, -1)
+    return int(crc32c_batch(arr)[0])
+
+
+def crc32c_batch(rows: np.ndarray) -> np.ndarray:
+    """CRC-32C of every row of a (C, L) uint8 matrix in one vectorized
+    pass (slice-by-8 over little-endian u32 words)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    c = np.full(rows.shape[0], 0xFFFFFFFF, dtype=np.uint32)
+    length = rows.shape[1]
+    k8 = length // 8 * 8
+    if k8:
+        w = (rows[:, :k8].reshape(-1).view(np.dtype("<u4"))
+             .reshape(rows.shape[0], -1))
+        t0, t1, t2, t3, t4, t5, t6, t7 = _T
+        m = np.uint32(0xFF)
+        for j in range(0, w.shape[1], 2):
+            lo = w[:, j] ^ c
+            hi = w[:, j + 1]
+            c = (t7[lo & m] ^ t6[(lo >> np.uint32(8)) & m]
+                 ^ t5[(lo >> np.uint32(16)) & m] ^ t4[lo >> np.uint32(24)]
+                 ^ t3[hi & m] ^ t2[(hi >> np.uint32(8)) & m]
+                 ^ t1[(hi >> np.uint32(16)) & m] ^ t0[hi >> np.uint32(24)])
+    for j in range(k8, length):
+        c = (c >> np.uint32(8)) ^ _T[0, (c ^ rows[:, j]) & np.uint32(0xFF)]
+    return c ^ np.uint32(0xFFFFFFFF)
+
+
+def mask(crc: int) -> int:
+    """The spec's CRC masking (rotate right by 15, add a constant)."""
+    crc &= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def unmask(m: int) -> int:
+    c = (m - 0xA282EAD8) & 0xFFFFFFFF
+    return ((c >> 17) | (c << 15)) & 0xFFFFFFFF
+
+
+# ---- encode ----
+
+def _sidecar_chunk(elems: bytes, blen: int, policy: str) -> bytes:
+    """Sidecar chunk bytes for one compressed chunk (b"" when the policy
+    declines or the stream is unrepresentable): "always" emits the 0x80
+    root map wherever representable; "auto" emits the root map where it
+    costs at most SIDECAR_AUTO_FRAC of the chunk, else the 0x81 depth
+    hints where they do (both fall through to the hints)."""
+    if policy == "off":
+        return b""
+    payload = sc.build(elems, blen)
+    if payload is not None and (
+            policy == "always"
+            or len(payload) + 4 <= SIDECAR_AUTO_FRAC * blen):
+        return (bytes([CHUNK_SIDECAR]) + len(payload).to_bytes(3, "little")
+                + payload)
+    dp = sc.build_depth(elems, blen)
+    if dp is not None and len(dp) + 4 <= SIDECAR_AUTO_FRAC * blen:
+        return bytes([CHUNK_DEPTH]) + len(dp).to_bytes(3, "little") + dp
+    return b""
+
+
+def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray,
+                   device) -> list[bytes]:
+    """Element bytes of every block, encoded on `device` in waves of
+    api.API_WAVE blocks and compacted there, so the host fetches dense
+    payload."""
+    wave = api.API_WAVE
+    elems = []
+    for s in range(0, len(lengths), wave):
+        bt = torch.from_numpy(blocks[s:s + wave]).to(device)
+        lt = torch.from_numpy(lengths[s:s + wave]).to(device)
+        out, out_lens = ops_encode.encode_blocks(bt, lt)
+        dense, total = ops_encode.compact_blocks(out, out_lens)
+        buf = dense[:total].cpu().numpy().tobytes()
+        offs = np.concatenate([[0], np.cumsum(out_lens.cpu().numpy())])
+        elems += [buf[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+    return elems
+
+
+def _chunks(raw: bytes, lengths, elems_list, crcs, policy: str) -> bytes:
+    """The data chunks (each with its sidecar) of consecutive blocks."""
+    parts = []
+    pos = 0
+    for i, blen in enumerate(int(n) for n in lengths):
+        # A short final block needs its own CRC over just blen bytes.
+        crc = (int(crcs[i]) if blen == MAX_CHUNK
+               else crc32c(raw[pos:pos + blen]))
+        elems = elems_list[i]
+        payload = fmt.varint_encode(blen) + elems
+        if len(payload) < blen:
+            parts.append(_sidecar_chunk(elems, blen, policy))
+            body = mask(crc).to_bytes(4, "little") + payload
+            parts.append(bytes([CHUNK_COMPRESSED])
+                         + len(body).to_bytes(3, "little") + body)
+        else:
+            body = mask(crc).to_bytes(4, "little") + raw[pos:pos + blen]
+            parts.append(bytes([CHUNK_UNCOMPRESSED])
+                         + len(body).to_bytes(3, "little") + body)
+        pos += blen
+    return b"".join(parts)
+
+
+def _check_policy(policy: str) -> None:
+    if policy not in POLICIES:
+        raise ValueError(f"sidecar {policy!r}: one of {POLICIES}")
+
+
+def compress(data: bytes, sidecar: str = "off", *, device="cuda") -> bytes:
+    """Compress to a framed stream: one data chunk per 64 KB block, every
+    block encoded on `device` in waves of api.API_WAVE blocks; a chunk is
+    stored uncompressed where compression would not shrink it.
+    `sidecar` ("off", "auto" or "always") puts a decode sidecar before each
+    compressed chunk (see _sidecar_chunk)."""
+    _check_policy(sidecar)
+    device = api._device(device)
+    if not data:
+        return STREAM_ID
+    blocks, lengths = api._to_blocks(data)
+    elems_list = _encode_blocks(blocks, lengths, device)
+    crcs = crc32c_batch(blocks)  # a short last block is redone in _chunks
+    return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
+
+
+def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
+                    device="cuda", blocks_per_wave: int = 64) -> int:
+    """Stream `total_len` bytes from src into a framed stream on dst, in
+    waves of `blocks_per_wave` blocks; byte-identical to compress() on the
+    whole input. The chunk assembly of one wave overlaps the next wave's
+    encode on a worker thread. Returns the bytes written."""
+    _check_policy(sidecar)
+    device = api._device(device)
+    dst.write(STREAM_ID)
+    written = len(STREAM_ID)
+    remaining = total_len
+
+    def assemble(raw, elems_list, lengths):
+        crcs = crc32c_batch(
+            np.frombuffer(raw.ljust(len(lengths) * MAX_CHUNK, b"\0"),
+                          np.uint8).reshape(len(lengths), MAX_CHUNK))
+        blob = _chunks(raw, lengths, elems_list, crcs, sidecar)
+        dst.write(blob)
+        return len(blob)
+
+    with cf.ThreadPoolExecutor(max_workers=1) as pool:
+        fut = None
+        while remaining > 0:
+            take = min(blocks_per_wave * MAX_CHUNK, remaining)
+            raw = src.read(take)
+            if len(raw) != take:
+                raise IOError("short read from source")
+            remaining -= take
+            blocks, lengths = api._to_blocks(raw)
+            elems_list = _encode_blocks(blocks, lengths, device)
+            if fut is not None:
+                written += fut.result()
+            fut = pool.submit(assemble, raw, elems_list, lengths)
+        if fut is not None:
+            written += fut.result()
+    return written
+
+
+# ---- decode ----
+
+@dataclasses.dataclass
+class FramedStats:
+    """What a framed decode did with its compressed chunks."""
+    root_map: int = 0     # decoded from their 0x80 root map
+    hinted: int = 0       # decoded with their 0x81 depth hints
+    normal: int = 0       # decoded by the fragment decoder, no sidecar
+    host: int = 0         # of those, settled by the host codec (ok=False)
+    redecoded_root_map: int = 0  # 0x80 result failed ok or CRC: re-decoded
+    redecoded_hinted: int = 0    # 0x81 result failed ok or CRC: re-decoded
+    uncompressed: int = 0  # stored chunks
+    #: Dense doubling rounds of each fragment-decoder wave (hinted waves
+    #: first, then normal ones).
+    dense_rounds: list = dataclasses.field(default_factory=list)
+
+
+def _parse_chunks(framed: bytes):
+    """Split a framed stream into (type, payload offset, payload length)
+    entries, validating its structure."""
+    if not framed.startswith(STREAM_ID):
+        raise ValueError("missing stream identifier chunk")
+    chunks = []
+    ip, n = len(STREAM_ID), len(framed)
+    while ip < n:
+        if ip + 4 > n:
+            raise ValueError("truncated chunk header")
+        typ = framed[ip]
+        ln = int.from_bytes(framed[ip + 1: ip + 4], "little")
+        ip += 4
+        if ip + ln > n:
+            raise ValueError("truncated chunk payload")
+        if typ == CHUNK_STREAM_ID:
+            if framed[ip - 4: ip + ln] != STREAM_ID:
+                raise ValueError("malformed repeated stream identifier")
+        elif typ in (CHUNK_COMPRESSED, CHUNK_UNCOMPRESSED):
+            if ln < 4:
+                raise ValueError("data chunk shorter than its checksum")
+            chunks.append((typ, ip, ln))
+        elif typ in (CHUNK_SIDECAR, CHUNK_DEPTH):
+            chunks.append((typ, ip, ln))  # paired with the next data chunk
+        elif typ == CHUNK_PADDING or typ >= 0x80:
+            pass  # skippable
+        else:
+            raise ValueError(f"reserved unskippable chunk type {typ:#x}")
+        ip += ln
+    return chunks
+
+
+def _want_crc(body: bytes) -> int:
+    return unmask(int.from_bytes(body[:4], "little"))
+
+
+def _head(body: bytes):
+    """(ulen, element bytes) of a compressed chunk body, or None when its
+    length varint is malformed or out of range."""
+    try:
+        ulen, vstart = fmt.varint_decode(body[4:])
+    except ValueError:
+        return None
+    if not 0 < ulen <= MAX_CHUNK:
+        return None
+    return ulen, body[4 + vstart:]
+
+
+def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts, device,
+                           stats: FramedStats):
+    """Root-map decode of the compressed chunks with a usable 0x80 sidecar,
+    in waves of api.API_WAVE chunks (one wrows bucket a wave, the largest
+    any of its chunks needs). Fills out_parts for every chunk whose bytes
+    pass ok and the chunk CRC; returns the indices still to decode (no or
+    unusable sidecar, or a miss: the sidecar is only a hint)."""
+    jobs, rest = [], []
+    for i in comp_idx:
+        job = None
+        head = _head(bodies[i][1]) if i in side_for else None
+        if head is not None and len(head[1]) < sc.OUT:
+            parsed = sc.parse(side_for[i])
+            if parsed is not None:
+                prep = sc.prep_parent(*parsed, head[0])
+                if prep is not None:
+                    job = (i, head[1], head[0]) + prep
+        if job is None:
+            rest.append(i)
+        else:
+            jobs.append(job)
+    for s in range(0, len(jobs), api.API_WAVE):
+        wave = jobs[s:s + api.API_WAVE]
+        wrows = max(j[5] for j in wave)
+        e, st, v, u = (torch.from_numpy(a).to(device) for a in sc.pack_batch(
+            [(elems, ulen, starts, vals)
+             for _i, elems, ulen, starts, vals, _w in wave]))
+        out, ok = sc.decode_chunks(e, st, v, u, wrows=wrows)
+        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        for j, (i, _e, ulen, _s, _v, _w) in enumerate(wave):
+            piece = out[j, :ulen].tobytes()
+            if ok[j] and crc32c(piece) == _want_crc(bodies[i][1]):
+                out_parts[i] = piece
+                stats.root_map += 1
+            else:
+                rest.append(i)  # settles on the normal path
+                stats.redecoded_root_map += 1
+    return sorted(rest)
+
+
+def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts, device,
+                          stats: FramedStats):
+    """Depth-hinted decode (decode.decode_fragments_depth) of the
+    compressed chunks with a usable 0x81 sidecar, in waves of api.API_WAVE
+    chunks. The chunk CRC gates every byte, so a wrong hint costs only a
+    re-decode on the normal path. Returns the indices still to decode."""
+    jobs, rest = [], []
+    for i in comp_idx:
+        job = None
+        head = _head(bodies[i][1]) if i in depth_for else None
+        if head is not None and len(head[1]) <= ops_decode.FRAG_CAP:
+            d = sc.parse_depth(depth_for[i])
+            if d is not None:
+                job = (i, head[1], head[0], d)
+        if job is None:
+            rest.append(i)
+        else:
+            jobs.append(job)
+    for s in range(0, len(jobs), api.API_WAVE):
+        wave = jobs[s:s + api.API_WAVE]
+        clens = np.asarray([len(j[1]) for j in wave], np.int32)
+        ulens = np.asarray([j[2] for j in wave], np.int32)
+        frags = np.zeros((len(wave), ops_decode.frag_width(clens)), np.uint8)
+        deps = np.stack([j[3] for j in wave]).astype(np.int32)
+        for j, (_i, payload, _u, _d) in enumerate(wave):
+            frags[j, : len(payload)] = np.frombuffer(payload, np.uint8)
+        out, ok, rounds = ops_decode.decode_fragments_depth(
+            *(torch.from_numpy(a).to(device)
+              for a in (frags, clens, ulens, deps)))
+        stats.dense_rounds.append(rounds)
+        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        for j, (i, _p, ulen, _d) in enumerate(wave):
+            piece = out[j, :ulen].tobytes()
+            if ok[j] and crc32c(piece) == _want_crc(bodies[i][1]):
+                out_parts[i] = piece
+                stats.hinted += 1
+            else:
+                rest.append(i)  # settles on the normal path
+                stats.redecoded_hinted += 1
+    return sorted(rest)
+
+
+def _decode_normal_chunks(bodies, comp_idx, out_parts, device,
+                          stats: FramedStats) -> None:
+    """The fragment decoder (decode.decode_fragments, "tiledtail") on the
+    remaining compressed chunks, in waves of api.API_WAVE; chunks over the
+    device capacity or not ok settle on the host codec, which decodes a
+    valid one and raises on a corrupt one. Raises ValueError on a CRC
+    mismatch."""
+    n = len(comp_idx)
+    clens = np.zeros(n, np.int32)
+    ulens = np.zeros(n, np.int32)
+    payloads = []
+    for j, i in enumerate(comp_idx):
+        body = bodies[i][1]
+        ulen, vstart = fmt.varint_decode(body[4:])
+        if ulen > MAX_CHUNK:
+            raise ValueError("chunk uncompressed size exceeds 65536")
+        clens[j] = len(body) - 4 - vstart
+        ulens[j] = ulen
+        payloads.append(body[4 + vstart:])
+    # Spec-valid chunks can exceed the fragment capacity; they decode on
+    # the host, like a chunk that fails the device's checks.
+    oversize = clens > ops_decode.FRAG_CAP
+    clens = np.where(oversize, 0, clens).astype(np.int32)
+    for s in range(0, n, api.API_WAVE):
+        sl = slice(s, s + api.API_WAVE)
+        frags = np.zeros((len(clens[sl]), ops_decode.frag_width(clens[sl])),
+                         np.uint8)
+        for j, p in enumerate(payloads[sl]):
+            if not oversize[s + j]:
+                frags[j, : clens[s + j]] = np.frombuffer(p, np.uint8)
+        out, ok, rounds = ops_decode.decode_fragments(
+            *(torch.from_numpy(a).to(device)
+              for a in (frags, clens[sl], ulens[sl])))
+        stats.dense_rounds.append(rounds)
+        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        for j, i in enumerate(comp_idx[sl]):
+            body = bodies[i][1]
+            stats.normal += 1
+            if ok[j] and not oversize[s + j]:
+                piece = out[j, : ulens[s + j]].tobytes()
+            else:
+                stats.host += 1
+                piece = reference_codec.decompress(body[4:])
+            if crc32c(piece) != _want_crc(body):
+                raise ValueError(f"chunk {i}: CRC-32C mismatch")
+            out_parts[i] = piece
+
+
+def _decode_data_chunks(bodies: list, device, use_sidecar: bool,
+                        stats: FramedStats) -> list[bytes]:
+    """Decode and CRC-check a window of data chunks, in order. bodies:
+    (type, body) pairs, body = 4-byte masked CRC + payload; a sidecar
+    entry pairs with the compressed chunk that follows it. Root-map chunks
+    go first, hinted ones next, the rest through the fragment decoder.
+    Raises ValueError with the window-relative chunk index on corruption."""
+    out_parts: list[bytes | None] = [None] * len(bodies)
+    side_for: dict[int, bytes] = {}
+    depth_for: dict[int, bytes] = {}
+    pending_s = pending_d = None
+    for i, (t, b) in enumerate(bodies):
+        if t == CHUNK_SIDECAR:
+            pending_s = b
+        elif t == CHUNK_DEPTH:
+            pending_d = b
+        elif t == CHUNK_COMPRESSED:
+            if pending_s is not None:
+                side_for[i] = pending_s
+            if pending_d is not None:
+                depth_for[i] = pending_d
+            pending_s = pending_d = None
+        elif t == CHUNK_UNCOMPRESSED:
+            pending_s = pending_d = None
+
+    comp_idx = [i for i, (t, _) in enumerate(bodies)
+                if t == CHUNK_COMPRESSED]
+    if use_sidecar and side_for:
+        comp_idx = _decode_sidecar_chunks(bodies, side_for, comp_idx,
+                                          out_parts, device, stats)
+    if use_sidecar and depth_for:
+        comp_idx = _decode_hinted_chunks(bodies, depth_for, comp_idx,
+                                         out_parts, device, stats)
+    if comp_idx:
+        _decode_normal_chunks(bodies, comp_idx, out_parts, device, stats)
+
+    for i, (typ, body) in enumerate(bodies):
+        if typ == CHUNK_UNCOMPRESSED:
+            piece = body[4:]
+            if len(piece) > MAX_CHUNK:
+                raise ValueError("uncompressed chunk exceeds 65536")
+            if crc32c(piece) != _want_crc(body):
+                raise ValueError(f"chunk {i}: CRC-32C mismatch")
+            out_parts[i] = piece
+            stats.uncompressed += 1
+    return [p for p in out_parts if p is not None]
+
+
+def decompress(framed: bytes, use_sidecar: bool = True, *,
+               device="cuda") -> bytes:
+    """Decompress and validate a framed stream (structure and every CRC).
+    use_sidecar=False ignores the decode sidecars (skippable by spec)."""
+    return decompress_with_stats(framed, use_sidecar, device=device)[0]
+
+
+def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
+                          device="cuda"):
+    """decompress, also returning the FramedStats of the paths taken."""
+    device = api._device(device)
+    stats = FramedStats()
+    bodies = [(t, framed[off: off + ln])
+              for t, off, ln in _parse_chunks(framed)]
+    return b"".join(_decode_data_chunks(bodies, device, use_sidecar,
+                                        stats)), stats
+
+
+def decompress_stream(src, dst, use_sidecar: bool = True, *, device="cuda",
+                      chunks_per_wave: int = 64) -> int:
+    """Stream-decode a framed stream from src to dst in windows of
+    `chunks_per_wave` data chunks. Returns the bytes written."""
+    device = api._device(device)
+    if src.read(len(STREAM_ID)) != STREAM_ID:
+        raise ValueError("missing stream identifier chunk")
+    stats = FramedStats()
+    written = 0
+    window: list[tuple[int, bytes]] = []
+    ndata = 0
+
+    def flush():
+        nonlocal written, ndata
+        for piece in _decode_data_chunks(window, device, use_sidecar, stats):
+            dst.write(piece)
+            written += len(piece)
+        window.clear()
+        ndata = 0
+
+    while True:
+        hdr = src.read(4)
+        if not hdr:
+            break
+        if len(hdr) != 4:
+            raise ValueError("truncated chunk header")
+        typ = hdr[0]
+        ln = int.from_bytes(hdr[1:4], "little")
+        body = src.read(ln)
+        if len(body) != ln:
+            raise ValueError("truncated chunk payload")
+        if typ == CHUNK_STREAM_ID:
+            if hdr + body != STREAM_ID:
+                raise ValueError("malformed repeated stream identifier")
+        elif typ in (CHUNK_COMPRESSED, CHUNK_UNCOMPRESSED):
+            if ln < 4:
+                raise ValueError("data chunk shorter than its checksum")
+            window.append((typ, body))
+            ndata += 1
+            # Flush only after a data chunk, so a sidecar never ends up
+            # in another window than the chunk it describes.
+            if ndata >= chunks_per_wave:
+                flush()
+        elif typ in (CHUNK_SIDECAR, CHUNK_DEPTH):
+            window.append((typ, body))
+        elif typ == CHUNK_PADDING or typ >= 0x80:
+            pass  # skippable
+        else:
+            raise ValueError(f"reserved unskippable chunk type {typ:#x}")
+    flush()
+    return written

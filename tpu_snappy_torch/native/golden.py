@@ -1,12 +1,15 @@
 """ctypes binding of the repository's clean-room C++ Snappy codec (native/).
 
 The port's own binding, with only what it calls: `compress`,
-`uncompress`, `scan_index` (the decoder's host fragment split) and
-`available`. It builds the shared sources in native/ at the repository
-root with CMake and Ninja, as tpu_snappy/native/golden.py does, but into
-a directory of its own (`_build/` beside this file, git-ignored), under a
-file lock, so concurrent test processes never build over each other or
-over the JAX package's native/build/.
+`uncompress`, `scan_index` (the decoder's host fragment split),
+`available`, and for the framed container `crc32c`, `root_map` and
+`depth_hints` (the 0x80 and 0x81 sidecars' payloads), `compress_framed`
+and `uncompress_framed` (an independent framed codec). It builds the
+shared sources in native/ at the repository root with CMake and Ninja, as
+tpu_snappy/native/golden.py does, but into a directory of its own
+(`_build/` beside this file, git-ignored), under a file lock, so
+concurrent test processes never build over each other or over the JAX
+package's native/build/.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ _ERRORS = {
     3: "length mismatch",
     4: "output capacity too small",
     5: "bad varint",
+    6: "chunk CRC mismatch",
+    7: "bad chunk",
 }
 
 _lock = threading.Lock()
@@ -74,6 +79,33 @@ def _load():
                 ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint32),
                 ctypes.POINTER(ctypes.c_uint32), ctypes.c_size_t,
                 ctypes.POINTER(ctypes.c_uint32),
+            ]
+            lib.sr_root_map.restype = ctypes.c_int
+            lib.sr_root_map.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64,
+                ctypes.POINTER(ctypes.c_uint16),
+                ctypes.POINTER(ctypes.c_uint16),
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_uint32),
+            ]
+            lib.sr_depth_hints.restype = ctypes.c_int
+            lib.sr_depth_hints.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64,
+                ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.POINTER(ctypes.c_uint8),
+            ]
+            lib.sr_crc32c.restype = ctypes.c_uint32
+            lib.sr_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+            lib.sr_max_framed_length.restype = ctypes.c_size_t
+            lib.sr_max_framed_length.argtypes = [ctypes.c_size_t]
+            lib.sr_compress_framed.restype = ctypes.c_size_t
+            lib.sr_compress_framed.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int
+            ]
+            lib.sr_uncompress_framed.restype = ctypes.c_int
+            lib.sr_uncompress_framed.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint64),
             ]
             _lib = lib
     return _lib
@@ -128,3 +160,65 @@ def scan_index(comp: bytes, start: int, total: int, max_frags: int):
     f = nfrag.value
     return (np.frombuffer(offs, dtype=np.uint32)[:f].astype(np.int64),
             np.frombuffer(lens, dtype=np.uint32)[:f].astype(np.int64), f)
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli, unmasked) of one buffer, slice-by-8 in C."""
+    return _load().sr_crc32c(data, len(data))
+
+
+def root_map(elems: bytes, ulen: int):
+    """Affine pieces of an element stream's literal-root map (the framed
+    0x80 sidecar's payload; sr_root_map in native/snappy_ref.h). Returns
+    (starts u16[P], roots u16[P], slopes u8[P] in {0, 1}). Raises
+    RuntimeError on a malformed stream or past capacity (elems >= 64 KB)."""
+    lib = _load()
+    cap = max(1, ulen)
+    starts = (ctypes.c_uint16 * cap)()
+    roots = (ctypes.c_uint16 * cap)()
+    slopes = (ctypes.c_uint8 * cap)()
+    npieces = ctypes.c_uint32()
+    rc = lib.sr_root_map(elems, len(elems), ulen, starts, roots, slopes,
+                         cap, ctypes.byref(npieces))
+    if rc:
+        raise RuntimeError(f"root_map: {_ERRORS.get(rc, rc)}")
+    p = npieces.value
+    return (np.frombuffer(starts, dtype=np.uint16)[:p].copy(),
+            np.frombuffer(roots, dtype=np.uint16)[:p].copy(),
+            np.frombuffer(slopes, dtype=np.uint8)[:p].copy())
+
+
+def depth_hints(elems: bytes, ulen: int, tail_cap: int, tile: int):
+    """Per-tile resolve round counts of one element stream for the decode
+    pipeline at (tail_cap, tile) (the framed 0x81 sidecar; sr_depth_hints).
+    Returns a (65536 // tile,) uint8 array. Raises RuntimeError on a
+    malformed stream or past capacity."""
+    lib = _load()
+    out = (ctypes.c_uint8 * (65536 // tile))()
+    rc = lib.sr_depth_hints(elems, len(elems), ulen, tail_cap, tile, out)
+    if rc:
+        raise RuntimeError(f"depth_hints: {_ERRORS.get(rc, rc)}")
+    return np.frombuffer(out, dtype=np.uint8).copy()
+
+
+def compress_framed(data: bytes) -> bytes:
+    """A Snappy framed stream (framing_format.txt) of `data`."""
+    lib = _load()
+    out = ctypes.create_string_buffer(lib.sr_max_framed_length(len(data)))
+    n = lib.sr_compress_framed(data, len(data), out, 0)
+    return out.raw[:n]
+
+
+def uncompress_framed(data: bytes, max_out: int | None = None) -> bytes:
+    """Decode and validate (structure and every CRC) a framed stream;
+    ValueError on an invalid one. Framed streams carry no total length:
+    the buffer is `max_out` bytes, by default the worst-case expansion."""
+    lib = _load()
+    cap = max_out if max_out is not None else max(1, len(data) * 256)
+    out = ctypes.create_string_buffer(cap)
+    got = ctypes.c_uint64()
+    rc = lib.sr_uncompress_framed(data, len(data), out, cap,
+                                  ctypes.byref(got))
+    if rc:
+        raise ValueError(f"golden uncompress_framed: {_ERRORS.get(rc, rc)}")
+    return out.raw[: got.value]

@@ -1,11 +1,15 @@
 """Fragment-parallel Snappy decoder in PyTorch (port of
 tpu_snappy/ops/decode.py).
 
-The JAX decoder at resolve="tiled": per fragment, speculative element
-fields for every compressed byte, the tag-chain parse (commit_general),
-forward fills, the windowed transport scatter, the periodic-run collapse,
-and the tile-sequential resolve. The forward fills, the transport scatter
-and the resolve run through the hand-written kernels (ops/kernels/).
+The JAX decoder at its TPU default, resolve="tiledtail": per fragment,
+speculative element fields for every compressed byte, the tag-chain parse
+(commit_general), forward fills, the windowed transport scatter, the
+periodic-run collapse, dense pointer-doubling rounds while more than
+TAIL_CAP lanes still move, and the tile-sequential resolve. resolve="tiled"
+(the resolve kernel alone) stays selectable, and decode_fragments_depth is
+the framed container's depth-hinted decode ("depthtail"). The forward
+fills, the transport scatter, the dense rounds' gather and both resolves
+run through the hand-written kernels (ops/kernels/).
 
 As on the TPU, a transport write outside its window marks the fragment
 not-ok (the JAX CPU path scatters without a window and cannot see one);
@@ -24,6 +28,7 @@ import torch
 
 from .. import format as fmt
 from . import scan
+from .kernels import gather as _gather
 from .kernels import scatter as _scatter
 from .kernels import tiledres as _tiledres
 
@@ -32,6 +37,16 @@ from .kernels import tiledres as _tiledres
 FRAG_CAP = 68 * 1024
 #: Output cells of one fragment (decode.py:86).
 OUT = fmt.BLOCK_SIZE
+#: resolve="tiledtail" dense-round exit (decode.py:109): dense rounds run
+#: while more than this many lanes of a fragment moved in its last round.
+TAIL_CAP = 57344
+#: Tile of the resolve after the dense rounds (decode.py:114).
+TAIL_TILE = _tiledres.TILE
+#: Tile of the depth-hinted resolve (decode.py:126); the framed 0x81 hints
+#: are computed for it.
+HINT_TILE = _tiledres.DEPTH_TILE
+#: Most dense rounds a fragment runs (decode.py:351).
+MAX_DENSE_ROUNDS = 16
 
 
 def _elem_fields(c: torch.Tensor):
@@ -145,17 +160,70 @@ def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
     return lit_out, torch.clamp(src, 0, OUT - 1).to(torch.int32), ok
 
 
-def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
-                     ulens: torch.Tensor):
-    """Decode a batch of fragments (decode.py:292 at resolve="tiled").
-    frags (B, M) uint8 zero-padded, M a multiple of 1024 (frag_width
-    gives one); clens, ulens (B,) int32. Returns (out (B, 65536) uint8,
-    zero past ulen; ok (B,) bool)."""
-    lit_out, src, ok = parse_transport(frags, clens, ulens)
-    out = _tiledres.resolve_tiled(lit_out, src).to(torch.uint8)
-    oiota = torch.arange(OUT, dtype=torch.int32, device=frags.device)
+def dense_rounds(src: torch.Tensor):
+    """The dense pointer-doubling loop of resolve="tiledtail" and
+    "depthtail" (decode.py:349-359), per fragment as the vmapped
+    while_loop runs it: fragment b doubles its map (src = src[src], one
+    gather_block) while its moved count cnt[b] > TAIL_CAP and it has run
+    fewer than 16 rounds; cnt starts above 65536. A fragment whose
+    condition fails is frozen: its map and its count stay. Returns (src
+    (B, 65536) int32, cnt (B,) int32, rounds: the gather launches, which
+    is the largest per-fragment round count)."""
+    cnt = torch.full((src.shape[0],), OUT + 1, dtype=torch.int32,
+                     device=src.device)
+    rounds = 0
+    while rounds < MAX_DENSE_ROUNDS:
+        active = cnt > TAIL_CAP
+        if not bool(active.any()):
+            break
+        s2 = _gather.gather_block(src, src, limbs=2)
+        moved = (s2 != src).sum(dim=-1, dtype=torch.int32)
+        src = torch.where(active[:, None], s2, src)
+        cnt = torch.where(active, moved, cnt)
+        rounds += 1
+    return src, cnt, rounds
+
+
+def _finish(out: torch.Tensor, ulens: torch.Tensor) -> torch.Tensor:
+    """Bytes as uint8, zero past each fragment's length."""
+    oiota = torch.arange(OUT, dtype=torch.int32, device=out.device)
     keep = oiota < ulens.to(torch.int32)[:, None]
-    return torch.where(keep, out, 0), ok
+    return torch.where(keep, out.to(torch.uint8), 0)
+
+
+def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
+                     ulens: torch.Tensor, resolve: str = "tiledtail"):
+    """Decode a batch of fragments (decode.py:292). frags (B, M) uint8
+    zero-padded, M a multiple of 1024 (frag_width gives one); clens, ulens
+    (B,) int32. resolve: "tiledtail" (dense rounds, then the resolve
+    kernel with each fragment's `resolved` flag: cnt == 0) or "tiled" (the
+    resolve kernel alone); the bytes are the same. Returns (out (B, 65536)
+    uint8, zero past ulen; ok (B,) bool; the dense rounds run, 0 for
+    "tiled")."""
+    lit_out, src, ok = parse_transport(frags, clens, ulens)
+    if resolve == "tiledtail":
+        src, cnt, rounds = dense_rounds(src)
+        out = _tiledres.resolve_tiled(lit_out, src, resolved=cnt == 0)
+    elif resolve == "tiled":
+        rounds = 0
+        out = _tiledres.resolve_tiled(lit_out, src)
+    else:
+        raise ValueError(f"resolve {resolve!r}: 'tiledtail' or 'tiled'")
+    return _finish(out, ulens), ok, rounds
+
+
+def decode_fragments_depth(frags: torch.Tensor, clens: torch.Tensor,
+                           ulens: torch.Tensor, depths: torch.Tensor):
+    """Depth-hinted decode (decode.py:363-387, 632): the "tiledtail" dense
+    rounds, then exactly depths[b, t] doubling rounds in each HINT_TILE
+    tile (the framed 0x81 hints; an under-declared depth gives wrong
+    bytes, which the frame's CRC catches). depths: (B, 64) int32. Same
+    arguments and results as decode_fragments."""
+    lit_out, src, ok = parse_transport(frags, clens, ulens)
+    src, _cnt, rounds = dense_rounds(src)
+    out = _tiledres.resolve_tiled_depth(lit_out, src,
+                                        depths.to(torch.int32).contiguous())
+    return _finish(out, ulens), ok, rounds
 
 
 class FragmentFallback(Exception):

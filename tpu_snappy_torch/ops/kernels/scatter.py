@@ -2,13 +2,13 @@
 full-height one of the encoder's overflow entries.
 
 `scatter_windowed` ports tpu_snappy/ops/pallas/scatter.py:scatter_windowed
-at limbs=3, out_cells=65536, wrows=192: the decode transport (the
-sidecar's smaller `wrows` waits for the framed slice). `scatter_block`
-ports scatter.py:scatter_block at limbs 1-3 and any out_cells that is a
-multiple of 128. The CUDA kernels are in csrc/scatter.cu (integer atomics
-per limb, then a shift-OR join, see its note). The plain versions
-reproduce the window drop and the drop count exactly, so kernel and plain
-agree bit for bit, counts included.
+at limbs=3, out_cells=65536 and any `wrows` up to 512: 192 for the decode
+transport, the buckets of sidecar.PARENT_WROWS for the framed sidecar's
+pieces. `scatter_block` ports scatter.py:scatter_block at limbs 1-3 and
+any out_cells that is a multiple of 128. The CUDA kernels are in
+csrc/scatter.cu (integer atomics per limb, then a shift-OR join, see its
+note). The plain versions reproduce the window drop and the drop count
+exactly, so kernel and plain agree bit for bit, counts included.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ SOURCE = "tpu_snappy_torch/ops/kernels/csrc/scatter.cu"
 REPLACES = {"scatter_windowed": "tpu_snappy/ops/pallas/scatter.py:176",
             "scatter_block": "tpu_snappy/ops/pallas/scatter.py:74"}
 
-#: Window rows of 128 cells per 1024-source tile (scatter.py:116).
+#: Window rows of 128 cells per 1024-source tile, the decode transport's
+#: (scatter.py:116).
 WROWS = 192
 #: Sources per window tile.
 TILE = 1024
@@ -47,14 +48,21 @@ def _join(acc: list) -> torch.Tensor:
     return res
 
 
-def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor):
+def _check_wrows(wrows: int) -> None:
+    if not 1 <= wrows <= N // LO:
+        raise ValueError(f"scatter_windowed: wrows {wrows} (1 to {N // LO})")
+
+
+def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor,
+                           wrows: int = WROWS):
     """Plain PyTorch form: (out (B, 65536) int32, ovf (B,) int32)."""
+    _check_wrows(wrows)
     batch, m = dest.shape
     tiles = dest.reshape(batch, m // TILE, TILE)
     active = (tiles >= 0) & (tiles < N)
     mn = torch.where(active, tiles, _NONE).amin(dim=-1, keepdim=True)
-    base = torch.clamp((mn >> 10) << 3, max=N // LO - WROWS)
-    inside = (tiles >> 7) - base < WROWS
+    base = torch.clamp((mn >> 10) << 3, max=N // LO - wrows)
+    inside = (tiles >> 7) - base < wrows
     ovf = (active & ~inside).sum(dim=(1, 2), dtype=torch.int32)
     idx = torch.where(active & inside, tiles, N).reshape(batch, m)
     idx = idx.to(torch.int64)
@@ -66,19 +74,21 @@ def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor):
     return _join(acc), ovf
 
 
-def scatter_windowed(dest: torch.Tensor, values: torch.Tensor):
+def scatter_windowed(dest: torch.Tensor, values: torch.Tensor,
+                     wrows: int = WROWS):
     """Additive scatter of (B, M) int32 `values` to (B, M) int32 `dest`
     cells (M a multiple of 1024; a destination outside [0, 65536) drops).
-    Per 1024-source tile, writes more than WROWS 128-cell rows past the
+    Per 1024-source tile, writes `wrows` or more 128-cell rows past the
     tile's window base are dropped and counted. Returns (out (B, 65536)
     int32, ovf (B,) int32). CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     batch, m = dest.shape
+    _check_wrows(wrows)
     if m % TILE:
         raise ValueError(f"scatter_windowed: width {m} is not a multiple "
                          f"of {TILE}")
     if _build.on_cpu(dest, values):
-        return scatter_windowed_plain(dest, values)
+        return scatter_windowed_plain(dest, values, wrows)
     _build.require(dest, torch.int32, (batch, m), "dest")
     _build.require(values, torch.int32, (batch, m), "values")
     dev = dest.device
@@ -88,7 +98,7 @@ def scatter_windowed(dest: torch.Tensor, values: torch.Tensor):
     if batch and m:
         rc = _build.lib().snk_scatter_windowed(
             dest.data_ptr(), values.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), ovf.data_ptr(), m, N, WROWS, batch,
+            out.data_ptr(), ovf.data_ptr(), m, N, wrows, batch,
             _build.stream())
         _build.check(rc, "scatter_windowed")
         scatter_windowed.launches += 1

@@ -1,11 +1,17 @@
 """Copy-chain resolution: out[p] = lit[fix(src)[p]].
 
-Port of tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (one variant; the
-"pair", "tri" and "grid" variants give the same bytes). The CUDA kernel is
-csrc/tiledres.cu (tiles left to right: pointer doubling in shared memory,
-then one absorb from the row's earlier, final tiles; see its note).
-`src[p] <= p` must hold, as decode guarantees: it is what makes the
-fixed point exist and the tile walk exact.
+Ports tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (the "fori"
+variant with its `resolved` flag; the "pair", "tri" and "grid" variants
+give the same bytes) and tiledres.py:resolve_tiled_depth. The CUDA
+kernels are csrc/tiledres.cu (tiles left to right: pointer doubling in
+shared memory, then one absorb from the row's earlier, final tiles; see
+its note). `src[p] <= p` must hold, as decode guarantees: it is what makes
+the fixed point exist and the tile walk exact.
+
+The plain versions simulate the same tile walk, round for round, so they
+agree with the kernels (and the TPU) also where the walk does not reach
+the fixed point: a `resolved` flag given for a map that is not at its
+fixed point, or an under-declared depth.
 """
 
 from __future__ import annotations
@@ -16,41 +22,134 @@ from . import _build
 
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/tiledres.cu"
-REPLACES = "tpu_snappy/ops/pallas/tiledres.py:764"
+REPLACES = {"resolve_tiled": "tpu_snappy/ops/pallas/tiledres.py:764",
+            "resolve_tiled_depth": "tpu_snappy/ops/pallas/tiledres.py:736"}
 
-#: Positions per sequential tile (tiledres.py:50).
+#: Positions per sequential tile of resolve_tiled (tiledres.py:50, the
+#: decoder's TAIL_TILE).
 TILE = 4096
+#: Positions per tile of resolve_tiled_depth (the decoder's HINT_TILE).
+DEPTH_TILE = 1024
 
 
-def resolve_tiled_plain(lit: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch form: global pointer doubling to the fixed point
-    (depth <= 65535, so at most 16 moving rounds), then a byte gather."""
-    s = src.to(torch.int64)
-    for _ in range(17):
-        s2 = torch.gather(s, -1, s)
-        if torch.equal(s2, s):
-            break
-        s = s2
-    return torch.gather(lit, -1, s)
+def _tile_walk(lit: torch.Tensor, src: torch.Tensor, tile: int,
+               budget) -> torch.Tensor:
+    """The TPU kernels' walk: per tile, left to right, in-tile doubling
+    rounds (at most budget(t) per row, (B,) int64; a round that moves
+    nothing ends the row's loop, as it changes nothing), then one absorb
+    from the byte plane (lit right of the tile base, final bytes left of
+    it)."""
+    plane = lit.clone()
+    for t in range(N // tile):
+        base = t * tile
+        s = src[:, base:base + tile]
+        rounds = budget(t)
+        active = rounds > 0
+        r = 0
+        while bool(active.any()):
+            d = s - base
+            inside = (d >= 0) & (d < tile)
+            hop = torch.gather(s, -1, torch.clamp(d, 0, tile - 1).long())
+            s2 = torch.where(inside, hop, s)
+            moved = (s2 != s).any(dim=-1)
+            s = torch.where(active[:, None], s2, s)
+            r += 1
+            active &= moved & (rounds > r)
+        plane[:, base:base + tile] = torch.gather(plane, -1, s.long())
+    return plane
 
 
-def resolve_tiled(lit: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+def resolve_tiled_plain(lit: torch.Tensor, src: torch.Tensor,
+                        resolved: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch form of resolve_tiled: the tile walk with up to
+    bit_length(TILE) rounds a tile, none in rows flagged `resolved`."""
+    rounds = torch.full((lit.shape[0],), TILE.bit_length(), dtype=torch.int64,
+                        device=lit.device)
+    if resolved is not None:
+        rounds = torch.where(resolved, 0, rounds)
+    return _tile_walk(lit, src, TILE, lambda t: rounds)
+
+
+def resolve_tiled(lit: torch.Tensor, src: torch.Tensor,
+                  resolved: torch.Tensor | None = None) -> torch.Tensor:
     """Resolve (B, 65536) int32 `src` maps against (B, 65536) int32 `lit`
-    bytes. Returns (B, 65536) int32. CPU tensors take the plain version;
+    bytes. `resolved` (B,) bool, optional: rows the caller has proven to be
+    at their fixed point, which skip every doubling round and run only the
+    absorbs. Returns (B, 65536) int32. CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
-    if _build.on_cpu(lit, src):
-        return resolve_tiled_plain(lit, src)
+    args = (lit, src) if resolved is None else (lit, src, resolved)
+    if _build.on_cpu(*args):
+        return resolve_tiled_plain(lit, src, resolved)
     batch = lit.shape[0]
     _build.require(lit, torch.int32, (batch, N), "lit")
     _build.require(src, torch.int32, (batch, N), "src")
+    if resolved is not None:
+        _build.require(resolved, torch.bool, (batch,), "resolved")
     out = torch.empty_like(lit)
     if batch:
-        rc = _build.lib().snk_resolve_tiled(lit.data_ptr(), src.data_ptr(),
-                                            out.data_ptr(), batch,
-                                            _build.stream())
+        rc = _build.lib().snk_resolve_tiled(
+            lit.data_ptr(), src.data_ptr(),
+            None if resolved is None else resolved.data_ptr(),
+            out.data_ptr(), batch, _build.stream())
         _build.check(rc, "resolve_tiled")
         resolve_tiled.launches += 1
     return out
 
 
 resolve_tiled.launches = 0
+
+
+def resolve_tiled_depth_plain(lit: torch.Tensor, src: torch.Tensor,
+                              depths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form of resolve_tiled_depth: the tile walk with
+    exactly min(depths[:, t], bit_length(DEPTH_TILE)) rounds in tile t."""
+    cap = DEPTH_TILE.bit_length()
+    rounds = torch.clamp(depths.to(torch.int64), 0, cap)
+    return _tile_walk(lit, src, DEPTH_TILE, lambda t: rounds[:, t])
+
+
+def tile_depths_plain(src: torch.Tensor) -> torch.Tensor:
+    """Each DEPTH_TILE tile's local doubling depth in (B, 65536) int32
+    maps: the in-tile rounds that move something, the depth a framed 0x81
+    hint declares for a tile. Returns (B, 65536 // DEPTH_TILE) int32."""
+    depths = torch.zeros((src.shape[0], N // DEPTH_TILE), dtype=torch.int32,
+                         device=src.device)
+    for t in range(N // DEPTH_TILE):
+        base = t * DEPTH_TILE
+        s = src[:, base:base + DEPTH_TILE]
+        while True:
+            d = s - base
+            hop = torch.gather(s, -1, torch.clamp(d, 0, DEPTH_TILE - 1).long())
+            s2 = torch.where((d >= 0) & (d < DEPTH_TILE), hop, s)
+            moved = (s2 != s).any(dim=-1)
+            if not bool(moved.any()):
+                break
+            depths[:, t] += moved.to(torch.int32)
+            s = s2
+    return depths
+
+
+def resolve_tiled_depth(lit: torch.Tensor, src: torch.Tensor,
+                        depths: torch.Tensor) -> torch.Tensor:
+    """Resolve with per-tile round counts: (B, 64) int32 `depths`, one per
+    DEPTH_TILE-position tile, each meant to be at least the tile's local
+    depth (an under-declared one gives wrong bytes, as on the TPU). lit,
+    src: (B, 65536) int32. Returns (B, 65536) int32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if _build.on_cpu(lit, src, depths):
+        return resolve_tiled_depth_plain(lit, src, depths)
+    batch = lit.shape[0]
+    _build.require(lit, torch.int32, (batch, N), "lit")
+    _build.require(src, torch.int32, (batch, N), "src")
+    _build.require(depths, torch.int32, (batch, N // DEPTH_TILE), "depths")
+    out = torch.empty_like(lit)
+    if batch:
+        rc = _build.lib().snk_resolve_tiled_depth(
+            lit.data_ptr(), src.data_ptr(), depths.data_ptr(),
+            out.data_ptr(), batch, _build.stream())
+        _build.check(rc, "resolve_tiled_depth")
+        resolve_tiled_depth.launches += 1
+    return out
+
+
+resolve_tiled_depth.launches = 0
