@@ -10,9 +10,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the ten kernels equals its plain
+3. kernel against plain: each of the twelve kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
-   inputs and edge cases at the main path's shapes;
+   inputs and edge cases at the main path's shapes (the matchers at K 3,
+   8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
+   planted with signature collisions);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -23,19 +25,28 @@ Phases, each printing its results; any failure raises (non-zero exit):
    decode path took, no hinted chunk re-decoded after a CRC miss, and the
    launch counters showing resolve_tiled_depth and the sidecar's 1-limb
    gather; compress / decompress GB/s per policy;
-6. times: raw compress / decompress throughput and peak device memory;
-   then traced raw and framed round trips with a synchronised host clock
-   around each public stage and kernel wrapper, which also capture every
-   kernel's inputs;
-7. main path, kernel against plain: each kernel equals its plain version
+6. presets: the same 16 MiB through api.compress / api.decompress under
+   FAST, TURBO, ULTRA and flatten "off", each stream checked against the
+   host goldens and, on its first 4 blocks, against the port's CPU
+   stream, with ratio, GB/s, peak memory, dense rounds and launch
+   counters (the packed matcher at K=3 sig, matcher_block, the decode
+   kernels); a framed sidecar "auto" round trip under ULTRA; then one
+   wave through encode_blocks at every placement, each giving the bytes
+   of "auto" (emit_block among the launches);
+7. times: raw compress / decompress throughput and peak device memory;
+   then traced raw and framed round trips, plus TURBO and flatten "off"
+   compresses and an "emit" placement wave, with a synchronised host
+   clock around each public stage and kernel wrapper, which also capture
+   every kernel's inputs;
+8. main path, kernel against plain: each kernel equals its plain version
    exactly on the calls captured from the main paths (the wave shapes they
    really run at), the time of both on them (CUDA events), the least
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one.
 
 The second-to-last lines are a JSON object of per-kernel results (its
-`launches` count phases 4 and 5, each run with the counters set to 0 just
-before it) and the nvidia-smi name/power line; the last line is
+`launches` count phases 4, 5 and 6, each path run with the counters set to
+0 just before it) and the nvidia-smi name/power line; the last line is
 {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (checked at the
 end of the run).
@@ -43,6 +54,7 @@ end of the run).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -289,38 +301,79 @@ def _synthetic_parse(rng, n: int):
     return cj, off
 
 
+def _sig_collision_row(rng) -> np.ndarray:
+    """A random row with planted signature collisions: at each planted p
+    the window at p-4 occurs only a bytes back and the window at p only b
+    bytes back, sig(a) == sig(b). At K=3 "sig" carries p-4's default a
+    into p, where only the final exact verification drops it for b."""
+    x = np.arange(1, 2048, dtype=np.uint64)
+    bucket = ((x * 0x9E3779B1) & 0xFFFFFFFF) >> 27
+    row = rng.integers(0, 256, N, dtype=np.uint8)
+    for p in range(3000, 60000, 2500):
+        members = x[bucket == rng.integers(0, 32)]
+        a, b = int(members[1]), int(members[2])
+        w1, w2, other = (rng.integers(0, 256, 4, dtype=np.uint8)
+                         for _ in range(3))
+        row[p - 4 - a:p - a], row[p - a:p - a + 4] = w1, other
+        row[p - b:p - b + 4] = w2
+        row[p - 4:p], row[p:p + 4] = w1, w2
+    return row
+
+
 def check_encode_kernels(dev, rng, t, report: dict) -> None:
-    """Phase 3, the encoder's TPU-default route: matcher, emission,
+    """Phase 3, the encoder's kernels: both matchers, both emissions,
     placement and overflow scatter against their plain versions."""
+    from tpu_snappy_torch import config
     from tpu_snappy_torch.ops import encode, scan
     from tpu_snappy_torch.ops.kernels import emit, matcher, place, scatter
 
-    # matcher: the port's packed tables of the edge rows, and random packed
-    # tables of small offsets (sticky memberships hit often), K 14 and 8,
-    # lazy 2 and 0.
+    # matcher: the port's packed tables of the edge rows and of the
+    # collision row at K 3, 8, 14 and 15 (stride 1, and the stride-2
+    # expanded form), and random packed tables of small offsets (sticky
+    # memberships hit often), each at sticky "exact" and "sig", lazy 2 and
+    # 0; matcher_block on the unpacked form of every table.
     blocks_np, n_np = _matcher_rows(rng)
     blocks, n = t(blocks_np), t(n_np)
-    pref, words = encode._candidate_offsets(encode._window_keys(blocks, n), n)
-    errs = []
-    cases = [(pref, words, encode.K, encode.LAZY)]
-    for k, lazy in ((14, 2), (14, 0), (8, 2)):
+    coll = t(_sig_collision_row(rng)[None])
+    coll_n = t(np.array([N], np.int32))
+    cases = []
+    for k in (3, 8, 14, 15):
+        for stride in (1, 2):
+            cfg = dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
+                                      probes=k, stride=stride)
+            for b, m in ((blocks, n), (coll, coll_n)):
+                key = (encode._window_keys(b, m) if stride == 1
+                       else encode._window_keys_strided(b, m, stride))
+                cases.append((*encode._candidate_offsets(key, m, cfg), m, k))
         rp = rng.integers(0, 40, (BATCH, N)).astype(np.int32)
         lo = rng.integers(0, 40, (BATCH, k // 2, N))
         hi = rng.integers(0, 40, (BATCH, k // 2, N))
-        cases.append((t(rp), t((lo | hi << 16).astype(np.int32)), k, lazy))
-    for pr, wd, k, lazy in cases:
-        got = matcher.matcher_block_packed(pr, wd, n, k, lazy)
-        want = matcher.matcher_block_packed_plain(pr, wd, n, k, lazy)
-        errs += [_exact(g, w) for g, w in zip(got, want)]
+        cases.append((t(rp), t((lo | hi << 16).astype(np.int32)), n, k))
+    errs, errs_u = [], []
+    for pr, wd, m, k in cases:
+        cands = matcher.unpack_table(pr, wd, k).contiguous()
+        for sticky in ("exact", "sig"):
+            for lazy in (2, 0):
+                want = matcher.matcher_block_packed_plain(pr, wd, m, k, lazy,
+                                                          sticky)
+                got = matcher.matcher_block_packed(pr, wd, m, k, lazy, sticky)
+                errs += [_exact(g, w) for g, w in zip(got, want)]
+                got = matcher.matcher_block(cands, m, lazy, sticky)
+                errs_u += [_exact(g, w) for g, w in zip(got, want)]
     report["matcher_block_packed"] = max(errs)
+    report["matcher_block"] = max(errs_u)
     print(f"kernel matcher      B={BATCH} (wrap row, period 17, ab ladder, "
-          f"random, text; n edges; random tables K 14/8, lazy 2/0): "
-          f"max_abs_err={max(errs)}")
+          f"random, text; n edges; the collision row; K 3/8/14/15, stride "
+          f"1/2, random tables; sticky exact/sig, lazy 2/0): packed "
+          f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
 
     # emit: the committed parses of those rows, and synthetic parses with
-    # long literal runs, far copies and a block-opening literal.
-    jump, off = matcher.matcher_block_packed(pref, words, n, encode.K,
-                                             encode.LAZY)
+    # long literal runs, far copies and a block-opening literal, through
+    # both emission kernels.
+    dflt = config.DEFAULT_CONFIG
+    pref, words = encode._candidate_offsets(encode._window_keys(blocks, n), n)
+    jump, off = matcher.matcher_block_packed(pref, words, n, dflt.candidates,
+                                             dflt.lazy)
     iota = torch.arange(N, device=dev)
     cj = torch.where(scan.commit_bounded(jump) & (iota < n[:, None]),
                      jump, -1)
@@ -329,15 +382,16 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     cj_s = t(np.stack([c for c, _ in syn]))
     off_s = t(np.stack([o for _, o in syn]))
     blk_s = t(rng.integers(0, 256, (len(syn), N), dtype=np.uint8))
-    errs = []
-    for args in ((cj, off, blocks, n),
-                 (cj_s, off_s, blk_s, t(np.array(syn_n, np.int32)))):
-        got = emit.emit_block_single(*args)
-        want = emit.emit_block_single_plain(*args)
-        errs += [_exact(g, w) for g, w in zip(got, want)]
-    report["emit_block_single"] = max(errs)
-    print(f"kernel emit         B={BATCH}+{len(syn)} (real and synthetic "
-          f"parses, runs > 60 and > 256): max_abs_err={max(errs)}")
+    for name in ("emit_block_single", "emit_block"):
+        errs = []
+        for args in ((cj, off, blocks, n),
+                     (cj_s, off_s, blk_s, t(np.array(syn_n, np.int32)))):
+            got = getattr(emit, name)(*args)
+            want = getattr(emit, name + "_plain")(*args)
+            errs += [_exact(g, w) for g, w in zip(got, want)]
+        report[name] = max(errs)
+        print(f"kernel {name:18s} B={BATCH}+{len(syn)} (real and synthetic "
+              f"parses, runs > 60 and > 256): max_abs_err={max(errs)}")
 
     # place: the encoder's main lanes, plus one tile that breaks the window
     # contract (counted once and dropped).
@@ -345,7 +399,8 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     dest, vals = (pm >> 8).contiguous(), (pm & 0xFF).contiguous()
     dest[-1] = emit.SENT
     dest[-1, 0], dest[-1, 1023] = 0, 40000
-    rows = encode.CAPACITY // 128
+    cap = dflt.block_capacity
+    rows = cap // 128
     got, govf = place.place_block(dest, vals, rows)
     want, wovf = place.place_block_plain(dest, vals, rows)
     err = max(_exact(got, want), _exact(govf, wovf))
@@ -357,7 +412,7 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
 
     # scatter_block: drops at out_cells and below 0, summed duplicates.
     errs = []
-    for limbs, cells in ((1, encode.CAPACITY), (2, N), (3, N)):
+    for limbs, cells in ((1, cap), (2, N), (3, N)):
         d = rng.integers(-50, cells + 50, (BATCH, 2048)).astype(np.int32)
         d[:, :64] = cells
         d[:, 64:128] = -1
@@ -380,11 +435,13 @@ def _kernel_modules() -> dict:
             "scatter_windowed": scatter, "resolve_tiled": tiledres,
             "matcher_block_packed": matcher, "emit_block_single": emit,
             "place_block": place, "scatter_block": scatter,
-            "gather_block": gather, "resolve_tiled_depth": tiledres}
+            "gather_block": gather, "resolve_tiled_depth": tiledres,
+            "matcher_block": matcher, "emit_block": emit}
 
 
-#: Kernels only the framed container's sidecar decodes run.
-FRAMED_ONLY = ("resolve_tiled_depth",)
+#: Kernels the raw DEFAULT round trip does not run: the framed sidecar
+#: decodes', flatten "off"'s and the "emit" placement's.
+NOT_RAW = ("resolve_tiled_depth", "matcher_block", "emit_block")
 
 
 def _replaces(mod, name: str) -> str:
@@ -449,19 +506,24 @@ def _clone(x, memo: dict | None = None):
 
 
 def traced_round_trip(dev, data: bytes, framed: dict, card: str):
-    """Phase 6: one more raw round trip through the public API, and the
-    framed decodes of the "auto" and "always" streams, with every public
-    stage and every kernel wrapper wrapped in place. Each wrapped call is
+    """Phase 7: one more raw round trip through the public API, the framed
+    decodes of the "auto" and "always" streams, TURBO and flatten "off"
+    compresses and one "emit" placement wave, with every public stage and
+    every kernel wrapper wrapped in place. Each wrapped call is
     timed on the host clock between two synchronises, and the first call
     of each kernel per calling stage, input shape and scalar argument is
-    cloned, so that phase 7 holds the kernel against its plain version on
+    cloned, so that phase 8 holds the kernel against its plain version on
     exactly the calls the main paths make. Returns those captured calls,
     each as (args, kwargs)."""
     import functools
 
-    from tpu_snappy_torch import api, framing
+    from tpu_snappy_torch import api, config, framing
+    from tpu_snappy_torch.ops import encode
 
     kernels = _kernel_modules()
+    blocks, lengths = api._to_blocks(data)
+    wave = (torch.from_numpy(blocks[:api.API_WAVE]).to(dev),
+            torch.from_numpy(lengths[:api.API_WAVE]).to(dev))
     targets = dict(_public_stages())
     targets.update({k: (mod, k) for k, mod in kernels.items()})
     clock = dict.fromkeys(targets, 0.0)
@@ -506,6 +568,10 @@ def traced_round_trip(dev, data: bytes, framed: dict, card: str):
         backs = [framing.decompress(framed[p], device="cuda")
                  for p in ("auto", "always")]
         t3 = time.perf_counter()
+        api.compress(data, config.TURBO_CONFIG, device="cuda")
+        api.compress(data, _flat_off(), device="cuda")
+        encode.encode_blocks(*wave, placement="emit")
+        t4 = time.perf_counter()
     finally:
         for name, (mod, attr) in targets.items():
             setattr(mod, attr, saved[name])
@@ -513,7 +579,8 @@ def traced_round_trip(dev, data: bytes, framed: dict, card: str):
         raise AssertionError("the traced round trip changed the data")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
-          f" framed decompress auto + always {(t3 - t2) * 1e3} ms; "
+          f" framed decompress auto + always {(t3 - t2) * 1e3} ms, TURBO and"
+          f" flatten off compresses + an emit wave {(t4 - t3) * 1e3} ms; "
           f"host-clock ms per stage over all waves [{card}]:")
     for name in targets:
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
@@ -536,14 +603,25 @@ def _timed(fn, dev, reps: int) -> float:
 
 
 #: Integer operations per element that the function needs, for the
-#: bound (elements: positions, or sources for the scatters). The matcher
-#: tests each of K+1 shifted offsets against K own offsets per sticky
-#: level (4 levels, 840 compares at K=14), then about 72 more per position
-#: (16 link compares, 3 phases, the 16-wide filter, 7 propagation levels,
-#: lazy, jump). The others do a few per element and are bound by bytes.
+#: bound (elements: positions, or sources for the scatters); the matchers'
+#: count is _matcher_ops. The others do a few per element and are bound
+#: by bytes.
 _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
-        "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2}
+        "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2,
+        "emit_block": 60}
+
+
+def _matcher_ops(k: int, sticky: str) -> int:
+    """Integer operations a position of the matcher needs: per sticky
+    level (4 levels), at "exact" each of K+1 shifted offsets against K own
+    ones (840 compares at K=14), at "sig" K bucket bits into the mask and
+    K+1 tests (2K+1), plus K compares to verify; then about 72 more (16
+    link compares, 3 phases, the 16-wide filter, 7 propagation levels,
+    lazy, jump)."""
+    if sticky == "sig":
+        return 4 * (2 * k + 1) + k + 72
+    return 4 * (k + 1) * k + 72
 
 
 def _bound(name: str, args, outs) -> tuple:
@@ -554,12 +632,16 @@ def _bound(name: str, args, outs) -> tuple:
     nbytes = sum(t.numel() * t.element_size()
                  for t in _distinct(_tensors(args) + _tensors(outs)))
     # Elements: positions, sources, or (gather_block) targets.
-    elems = _tensors(args)[1 if name == "gather_block" else 0].numel()
-    if name == "matcher_block_packed":
-        k = args[3]
-        ops = elems * (4 * (k + 1) * k + 72)
+    first = _tensors(args)[1 if name == "gather_block" else 0]
+    sticky = ("sig" if any(isinstance(a, str) and a == "sig" for a in args)
+              else "exact")
+    if name == "matcher_block":  # (B, N, K) table
+        ops = first.shape[0] * first.shape[1] * _matcher_ops(
+            first.shape[2], sticky)
+    elif name == "matcher_block_packed":
+        ops = first.numel() * _matcher_ops(args[3], sticky)
     else:
-        ops = elems * _OPS[name]
+        ops = first.numel() * _OPS[name]
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / INT_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -594,7 +676,7 @@ def _library_ms(name: str, args, dev):
 
 
 def check_main_path_calls(dev, captured: dict, card: str) -> dict:
-    """Phase 6: each kernel against its plain version, exact equality (ovf
+    """Phase 8: each kernel against its plain version, exact equality (ovf
     counts included), on the calls captured from the main path; then the
     time of both on those tensors (CUDA events), the bound, and the
     library call's time. Returns, per kernel, the largest absolute
@@ -659,6 +741,132 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     return report
 
 
+def _flat_off():
+    """DEFAULT_CONFIG without flattening: the unpacked matcher route."""
+    from tpu_snappy_torch import config
+    return dataclasses.replace(config.DEFAULT_CONFIG, flatten="off")
+
+
+def _launches(wrappers: dict) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def _reset(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def preset_round_trips(dev, data: bytes, wrappers: dict, card: str):
+    """Phase 6: the 16 MiB through api.compress / api.decompress under
+    FAST, TURBO, ULTRA and flatten "off", each run with the launch counters
+    set to 0 just before and read just after; the host goldens decode each
+    stream and its first 4 blocks equal the port's CPU stream. Then a
+    framed sidecar "auto" round trip under ULTRA. Returns the launches of
+    all these runs."""
+    from tpu_snappy_torch import api, config, framing
+    from tpu_snappy_torch.ops import decode as ops_decode
+
+    total = dict.fromkeys(wrappers, 0)
+    runs = {"FAST": config.FAST_CONFIG, "TURBO": config.TURBO_CONFIG,
+            "ULTRA": config.ULTRA_CONFIG, 'flatten "off"': _flat_off()}
+    for name, cfg in runs.items():
+        _reset(wrappers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        comp = api.compress(data, cfg, device="cuda")
+        t1 = time.perf_counter()
+        back, stats = api.decompress_with_stats(comp, cfg, device="cuda")
+        t2 = time.perf_counter()
+        launches = _launches(wrappers)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if back != data:
+            raise AssertionError(f"{name} round trip changed the data")
+        if stats.path != "device" or stats.spliced:
+            raise AssertionError(f"{name} decode left the device: {stats}")
+        matcher = ("matcher_block" if cfg.flatten == "off"
+                   else "matcher_block_packed")
+        need = [matcher, "ffill", "emit_block_single", "place_block",
+                "scatter_block", "scatter_windowed", "resolve_tiled"]
+        if cfg.stride == 1:
+            need.append("window_keys")
+        if sum(stats.dense_rounds):
+            need.append("gather_block")
+        missing = [k for k in need if not launches[k]]
+        if missing:
+            raise AssertionError(f"{name}: kernels that did not run: "
+                                 f"{missing}; {launches}")
+        print(f"preset {name} (K={cfg.candidates}, sticky {cfg.sticky}, "
+              f"stride {cfg.stride}, flatten {cfg.flatten}): {len(data)} -> "
+              f"{len(comp)} bytes (ratio {len(comp) / len(data)}); compress "
+              f"{t1 - t0} s, {len(data) / (t1 - t0) / 1e9} GB/s; decompress "
+              f"{t2 - t1} s, {len(data) / (t2 - t1) / 1e9} GB/s; peak device "
+              f"memory {peak} bytes; dense rounds per wave "
+              f"{stats.dense_rounds} [{card}]")
+        print(f"  launches: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        check_goldens(data, comp, cfg, foreign=False)
+
+    golden = ops_decode.native_golden()
+    _reset(wrappers)
+    t0 = time.perf_counter()
+    fr = framing.compress(data, "auto", device="cuda",
+                          cfg=config.ULTRA_CONFIG)
+    t1 = time.perf_counter()
+    back, st = framing.decompress_with_stats(fr, device="cuda")
+    t2 = time.perf_counter()
+    launches = _launches(wrappers)
+    if back != data or golden.uncompress_framed(
+            fr, max_out=len(data) + 16) != data:
+        raise AssertionError("framed ULTRA auto stream differs")
+    if st.redecoded_hinted or not (st.hinted or st.root_map):
+        raise AssertionError(f"framed ULTRA auto: {st}")
+    if st.hinted and not launches["resolve_tiled_depth"]:
+        raise AssertionError(f"framed ULTRA: no hinted resolve {launches}")
+    print(f"framed ULTRA auto: {len(fr)} bytes; compress {t1 - t0} s, "
+          f"decompress {t2 - t1} s; {st} [{card}]")
+    for k, v in launches.items():
+        total[k] += v
+    return total
+
+
+def placement_wave(dev, data: bytes, wrappers: dict, card: str) -> dict:
+    """Phase 6, continued: one wave of the 16 MiB through encode_blocks at
+    every placement, with the launch counters set to 0 just before and
+    read just after; each gives the bytes of "auto". Then a second,
+    timed pass. Returns the launches of the first."""
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import encode
+
+    blocks, lengths = api._to_blocks(data)
+    bt = torch.from_numpy(blocks[:api.API_WAVE]).to(dev)
+    lt = torch.from_numpy(lengths[:api.API_WAVE]).to(dev)
+    _reset(wrappers)
+    outs = {p: encode.encode_blocks(bt, lt, placement=p)
+            for p in encode.PLACEMENTS}
+    launches = _launches(wrappers)
+    print(f"placement launches: {launches}")
+    for p in encode.PLACEMENTS:  # timed after the first (warm-up) pass
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        encode.encode_blocks(bt, lt, placement=p)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"placement {p}: encode_blocks {ms} ms for {bt.shape[0]} "
+              f"blocks [{card}]")
+    out, lens = outs["auto"]
+    for p, (o, n) in outs.items():
+        if not (torch.equal(n, lens) and torch.equal(o, out)):
+            raise AssertionError(f"placement {p} differs from auto")
+    need = ["emit_block", "emit_block_single", "place_block", "scatter_block"]
+    if any(not launches[k] for k in need):
+        raise AssertionError(f"placement kernels did not run: {launches}")
+    print(f"placements {', '.join(encode.PLACEMENTS)}: identical bytes "
+          f"({int(lens.sum())} over {len(lens)} blocks)")
+    return launches
+
+
 def round_trip(dev, wrappers: dict):
     """Phase 4: 16 MiB through the port's API on the card, with the launch
     counters read around exactly that run."""
@@ -667,12 +875,11 @@ def round_trip(dev, wrappers: dict):
     data = make_data(ROUND_TRIP_BYTES)
     print(f"round trip input: {len(data)} bytes, "
           f"{-(-len(data) // N)} blocks (last partial)")
-    for w in wrappers.values():
-        w.launches = 0
+    _reset(wrappers)
     torch.cuda.reset_peak_memory_stats(dev)
     comp = api.compress(data, device="cuda")
     back, stats = api.decompress_with_stats(comp, device="cuda")
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = _launches(wrappers)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"raw path launches: {launches}")
     if back != data:
@@ -680,7 +887,7 @@ def round_trip(dev, wrappers: dict):
     if stats.path != "device" or stats.spliced:
         raise AssertionError(f"decode left the device: {stats}")
     missing = [k for k, n in launches.items()
-               if not n and k not in FRAMED_ONLY]
+               if not n and k not in NOT_RAW]
     if missing:
         raise AssertionError(f"kernels the raw path did not run: {missing}")
     waves = len(stats.dense_rounds)
@@ -705,8 +912,7 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
         raise AssertionError("the C++ golden (hints, framed decoder) does "
                              "not build here")
     streams, stats = {}, {}
-    for w in wrappers.values():
-        w.launches = 0
+    _reset(wrappers)
     for policy in ("off", "auto", "always"):
         t0 = time.perf_counter()
         fr = framing.compress(data, policy, device="cuda")
@@ -730,7 +936,7 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
                                   - gathers)
             print(f"  decompress use_sidecar={use}: {t1 - t0} s, "
                   f"{len(data) / (t1 - t0) / 1e9} GB/s; {st} [{card}]")
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = _launches(wrappers)
     print(f"framed path launches: {launches}")
     auto, always = stats["auto", True][0], stats["always", True]
     if not auto.hinted or not always[0].root_map:
@@ -755,10 +961,12 @@ def _chunk_types(fr: bytes):
         ip += 4 + int.from_bytes(fr[ip + 1: ip + 4], "little")
 
 
-def check_goldens(data: bytes, comp: bytes) -> None:
-    """Phase 4, continued: the host codecs decode the port's stream, the
-    card decodes theirs, and the CUDA stream equals the CPU stream."""
-    from tpu_snappy_torch import api, reference_codec
+def check_goldens(data: bytes, comp: bytes, cfg=None,
+                  foreign: bool = True) -> None:
+    """Phase 4, continued: the host codecs decode the port's stream (made
+    at `cfg`, default DEFAULT_CONFIG), the card decodes theirs (where
+    `foreign`), and the CUDA stream equals the CPU stream on 4 blocks."""
+    from tpu_snappy_torch import api, config, reference_codec
     from tpu_snappy_torch.native import realsnappy
     from tpu_snappy_torch.ops import decode as ops_decode
 
@@ -778,22 +986,25 @@ def check_goldens(data: bytes, comp: bytes) -> None:
     print(f"goldens that decoded the port's stream: {', '.join(goldens)}"
           f" (system libsnappy loads: {realsnappy.available()})")
 
-    foreign = {"reference_codec (first 2 MiB)":
-               (data[:2 << 20], reference_codec.compress(data[:2 << 20]))}
-    if golden is not None:
-        foreign["native golden"] = (data, golden.compress(data))
-    if realsnappy.available():
-        foreign["system libsnappy"] = (data, realsnappy.compress(data))
-    for label, (plain, stream) in foreign.items():
+    others = {}
+    if foreign:
+        others["reference_codec (first 2 MiB)"] = (
+            data[:2 << 20], reference_codec.compress(data[:2 << 20]))
+        if golden is not None:
+            others["native golden"] = (data, golden.compress(data))
+        if realsnappy.available():
+            others["system libsnappy"] = (data, realsnappy.compress(data))
+    for label, (plain, stream) in others.items():
         got, st = api.decompress_with_stats(stream, device="cuda")
         if got != plain:
             raise AssertionError(f"the card mis-decodes a {label} stream")
         print(f"decoded on the card: {label} stream of {len(stream)} bytes "
               f"({st.fragments} fragments, {st.spliced} spliced)")
 
+    cfg = cfg or config.DEFAULT_CONFIG
     head = data[:4 * N]
-    cpu_stream = api.compress(head, device="cpu", small_fastpath=False)
-    gpu_stream = api.compress(head, device="cuda", small_fastpath=False)
+    cpu_stream = api.compress(head, cfg, device="cpu", small_fastpath=False)
+    gpu_stream = api.compress(head, cfg, device="cuda", small_fastpath=False)
     if cpu_stream != gpu_stream:
         raise AssertionError("CUDA and CPU streams differ on 4 blocks")
     print(f"first 4 blocks: CUDA stream == CPU stream ({len(gpu_stream)} "
@@ -823,7 +1034,10 @@ def main() -> None:
     check_goldens(data, comp)
     card = smi
     framed, framed_launches = framed_round_trips(data, wrappers, card)
-    launches = {k: n + framed_launches[k] for k, n in launches.items()}
+    preset_launches = preset_round_trips(dev, data, wrappers, card)
+    place_launches = placement_wave(dev, data, wrappers, card)
+    launches = {k: n + framed_launches[k] + preset_launches[k]
+                + place_launches[k] for k, n in launches.items()}
 
     # Times on the card (the round trip above was the warm-up).
     torch.cuda.synchronize(dev)

@@ -76,7 +76,7 @@ def port():
     b, n = torch.from_numpy(blocks), torch.from_numpy(lens)
     key = TE._window_keys(b, n)
     pref, words = TE._candidate_offsets(key, n)
-    cands = KM.unpack_table(pref, words, TE.K)
+    cands = KM.unpack_table(pref, words, DEFAULT_CONFIG.candidates)
     jump, off = TE._matcher_xla(cands, n)
     out, out_lens = TE.encode_blocks(b, n)
     sort_out, sort_lens = TE.encode_blocks(b, n, placement="sort")
@@ -108,7 +108,8 @@ def test_sort_placement_matches_jax(jax_oracle, port):
 def test_unknown_placement_raises():
     b = torch.zeros((1, N), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        TE.encode_blocks(b, torch.ones(1, dtype=torch.int32), "emit")
+        TE.encode_blocks(b, torch.ones(1, dtype=torch.int32),
+                         placement="scatter")
 
 
 def test_compact_blocks_matches_jax(jax_oracle, port):

@@ -9,6 +9,8 @@ the XLA expression the JAX encoder uses off the TPU. The tests marked
 skip where no CUDA device is visible.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ from tpu_snappy.ops.pallas import scatter as PS
 from tpu_snappy.ops.pallas import tiledres as PT
 from tpu_snappy.ops.pallas import windows as PW
 
+from tpu_snappy_torch import config as TC
 from tpu_snappy_torch.ops import decode as TD
 from tpu_snappy_torch.ops import encode as TE
 from tpu_snappy_torch.ops.kernels import ffill as KF
@@ -51,9 +54,8 @@ def test_shared_constants():
     """The constants the port's kernels and pipelines bake in equal the
     JAX modules' own, and DEFAULT_CONFIG still has the knobs the port
     implements."""
-    assert (DEFAULT_CONFIG.candidates, DEFAULT_CONFIG.probes) == (TE.K, TE.K)
-    assert TE.K % 2 == 0 and TE.LAZY == DEFAULT_CONFIG.lazy
-    assert TE.CAPACITY == DEFAULT_CONFIG.block_capacity
+    assert dataclasses.asdict(TC.DEFAULT_CONFIG) == dataclasses.asdict(
+        DEFAULT_CONFIG)
     assert (DEFAULT_CONFIG.flatten, DEFAULT_CONFIG.sticky,
             DEFAULT_CONFIG.stride, DEFAULT_CONFIG.table) == (
         "class", "exact", 1, "points")

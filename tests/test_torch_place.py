@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from tpu_snappy.ops.pallas import place as PP
 from tpu_snappy.ops.pallas import scatter as PS
 
+from tpu_snappy_torch.config import DEFAULT_CONFIG
 from tpu_snappy_torch.ops import encode as TE
 from tpu_snappy_torch.ops.kernels import emit as KE
 from tpu_snappy_torch.ops.kernels import place as KP
@@ -28,7 +29,8 @@ from tpu_snappy_torch.ops.kernels import scatter as KS
 from test_torch_emit import parse  # noqa: F401 (fixture)
 
 N = 1 << 16
-OUT_ROWS = TE.CAPACITY // 128
+CAPACITY = DEFAULT_CONFIG.block_capacity
+OUT_ROWS = CAPACITY // 128
 
 
 def _t(a):
@@ -105,7 +107,7 @@ def _scatter_cases():
                   N))
     dup = rng.integers(-8, 64, 2048).astype(np.int32)
     cases.append((dup, rng.integers(0, 256, 2048).astype(np.int32), 1,
-                  TE.CAPACITY))
+                  CAPACITY))
     return cases
 
 
@@ -122,10 +124,10 @@ def test_scatter_block_plain_matches_pallas(case):
 
 def test_scatter_block_plain_matches_pallas_on_overflow(parse):  # noqa: F811
     _, ovf = _encoder_lanes(parse)
-    got = KS.scatter_block(ovf >> 8, ovf & 0xFF, 1, TE.CAPACITY)
+    got = KS.scatter_block(ovf >> 8, ovf & 0xFF, 1, CAPACITY)
     for row in (1, 3):
         o = jnp.asarray(ovf[row].numpy())
-        want = PS.scatter_block(o >> 8, o & 0xFF, 1, TE.CAPACITY)
+        want = PS.scatter_block(o >> 8, o & 0xFF, 1, CAPACITY)
         assert (got[row].numpy() == np.asarray(want)).all(), row
     assert (got > 0).sum() > 0
 

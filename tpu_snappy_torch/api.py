@@ -1,10 +1,11 @@
 """Host-facing codec API of the PyTorch port: bytes in, bytes out.
 
-Port of tpu_snappy/api.py at DEFAULT_CONFIG (the presets are later
-slices); the framed container is framing.py. The entry points run on the
-CUDA card (`device="cuda"`) unless the caller passes `device="cpu"`; with
-no CUDA device visible, the default raises instead of falling back to the
-CPU. Multi-block inputs run
+Port of tpu_snappy/api.py at any CodecConfig: `compress(data, cfg)` and
+`decompress(comp, cfg)` give the JAX package's bytes for the same cfg
+(DEFAULT_CONFIG or a preset such as TURBO_CONFIG); the framed container
+is framing.py. The entry points run on the CUDA card (`device="cuda"`)
+unless the caller passes `device="cpu"`; with no CUDA device visible, the
+default raises instead of falling back to the CPU. Multi-block inputs run
 in waves of `wave` blocks (or fragments) per batched device call; the
 wave width bounds device memory and never changes the output bytes.
 """
@@ -18,6 +19,7 @@ import torch
 
 from . import format as fmt
 from . import reference_codec
+from .config import CodecConfig, DEFAULT_CONFIG
 from .ops import decode as ops_decode
 from .ops import encode as ops_encode
 
@@ -31,8 +33,8 @@ from .ops import encode as ops_encode
 #: 80 GB card, or of a CPU host's memory, free.
 API_WAVE = 128
 
-#: Inputs below one block take the host codec (tpu_snappy/api.py:50), so
-#: the port's API bytes match the JAX API's.
+#: Inputs below one block take the host codec at DEFAULT_CONFIG
+#: (tpu_snappy/api.py:50), so the port's API bytes match the JAX API's.
 SMALL_INPUT_BYTES = fmt.BLOCK_SIZE
 
 
@@ -46,16 +48,21 @@ class DecodeStats:
     dense_rounds: list = dataclasses.field(default_factory=list)
 
 
-def _to_blocks(data: bytes):
-    """Split + zero-pad input into (B, 65536) blocks with a length vector."""
-    size = fmt.BLOCK_SIZE
+def _to_blocks(data: bytes, block_size: int = fmt.BLOCK_SIZE):
+    """Split input into blocks of `block_size` bytes, each zero-padded to a
+    (65536,) row, with a length vector."""
     n = len(data)
-    nblocks = max(1, -(-n // size))
-    arr = np.zeros((nblocks, size), dtype=np.uint8)
+    nblocks = max(1, -(-n // block_size))
+    arr = np.zeros((nblocks, fmt.BLOCK_SIZE), dtype=np.uint8)
     flat = np.frombuffer(data, dtype=np.uint8)
-    arr.reshape(-1)[:n] = flat
-    lengths = np.minimum(
-        np.maximum(n - np.arange(nblocks) * size, 0), size).astype(np.int32)
+    if block_size == fmt.BLOCK_SIZE:
+        arr.reshape(-1)[:n] = flat
+    else:
+        for i in range(nblocks):
+            chunk = flat[i * block_size:(i + 1) * block_size]
+            arr[i, :len(chunk)] = chunk
+    lengths = np.minimum(np.maximum(n - np.arange(nblocks) * block_size, 0),
+                         block_size).astype(np.int32)
     return arr, lengths
 
 
@@ -88,39 +95,44 @@ def _host_decompress(comp: bytes) -> bytes:
     return reference_codec.decompress(comp)
 
 
-def compress(data: bytes, *, device="cuda", small_fastpath: bool = True,
+def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
+             device="cuda", small_fastpath: bool = True,
              wave: int | None = None) -> bytes:
     """Compress to a standard Snappy stream (varint preamble + elements)
-    on `device`. small_fastpath=False forces the device pipeline below one
-    block."""
+    on `device`, encoding blocks of cfg.block_size bytes at `cfg`.
+    small_fastpath=False forces the device pipeline below one block (the
+    host path applies only at DEFAULT_CONFIG, as in the JAX package)."""
     device = _device(device)
-    if small_fastpath and len(data) < SMALL_INPUT_BYTES:
+    if (small_fastpath and len(data) < SMALL_INPUT_BYTES
+            and cfg == DEFAULT_CONFIG):
         return _host_compress(data)
     w = wave or API_WAVE
-    blocks, lengths = _to_blocks(data)
+    blocks, lengths = _to_blocks(data, cfg.block_size)
     parts = [fmt.varint_encode(len(data))]
     for s in range(0, len(lengths), w):
         bt = torch.from_numpy(blocks[s:s + w]).to(device)
         lt = torch.from_numpy(lengths[s:s + w]).to(device)
-        out, out_lens = ops_encode.encode_blocks(bt, lt)
+        out, out_lens = ops_encode.encode_blocks(bt, lt, cfg)
         dense, total = ops_encode.compact_blocks(out, out_lens)
         parts.append(dense[:total].cpu().numpy().tobytes())
     return b"".join(parts)
 
 
-def decompress(comp: bytes, *, device="cuda", small_fastpath: bool = True,
+def decompress(comp: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
+               device="cuda", small_fastpath: bool = True,
                wave: int | None = None) -> bytes:
     """Decompress a standard Snappy stream (ours or any other encoder's)
     on `device`, with the TPU-default resolve ("tiledtail"). Fragments
     that fail device validation (corrupt, or valid but exotic) re-decode
-    on the host; corrupt streams raise ValueError."""
-    return decompress_with_stats(comp, device=device,
+    on the host; corrupt streams raise ValueError. `cfg` only gates the
+    small-input host path (DEFAULT_CONFIG only), as in the JAX package."""
+    return decompress_with_stats(comp, cfg, device=device,
                                  small_fastpath=small_fastpath,
                                  wave=wave)[0]
 
 
-def decompress_with_stats(comp: bytes, *, device="cuda",
-                          small_fastpath: bool = True,
+def decompress_with_stats(comp: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
+                          device="cuda", small_fastpath: bool = True,
                           wave: int | None = None):
     """api.decompress, also returning a DecodeStats of the path taken."""
     device = _device(device)
@@ -130,7 +142,8 @@ def decompress_with_stats(comp: bytes, *, device="cuda",
         if len(comp) != start:
             raise ValueError("trailing bytes after empty stream")
         return b"", stats
-    if small_fastpath and total < SMALL_INPUT_BYTES:
+    if (small_fastpath and total < SMALL_INPUT_BYTES
+            and cfg == DEFAULT_CONFIG):
         stats.path = "host-small"
         return _host_decompress(comp), stats
     try:

@@ -9,11 +9,14 @@ re-batching. The encoder may put a decode sidecar (sidecar.py) before each
 compressed chunk: a 0x80 root map or 0x81 depth hints, both skippable by
 spec.
 
-Entry points: `compress(data, sidecar="off" | "auto" | "always")`,
+Entry points: `compress(data, sidecar="off" | "auto" | "always", cfg=...)`,
 `decompress(framed, use_sidecar=True)` (and `decompress_with_stats`), and
 the streaming forms `compress_stream` / `decompress_stream`. They run on
 the CUDA card unless the caller passes `device="cpu"`; with no CUDA device
-visible, the default raises. The output bytes are the JAX package's.
+visible, the default raises. The output bytes are the JAX package's at
+the same `cfg` (the encoder's knobs; chunks stay 64 KB blocks whatever
+cfg.block_size says, as in the JAX package). The decoders take `cfg` for
+the JAX signature; no decode depends on it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from . import api
 from . import format as fmt
 from . import reference_codec
 from . import sidecar as sc
+from .config import CodecConfig, DEFAULT_CONFIG
 from .ops import decode as ops_decode
 from .ops import encode as ops_encode
 
@@ -140,17 +144,17 @@ def _sidecar_chunk(elems: bytes, blen: int, policy: str) -> bytes:
     return b""
 
 
-def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray,
-                   device) -> list[bytes]:
-    """Element bytes of every block, encoded on `device` in waves of
-    api.API_WAVE blocks and compacted there, so the host fetches dense
+def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray, device,
+                   cfg: CodecConfig) -> list[bytes]:
+    """Element bytes of every block, encoded at `cfg` on `device` in waves
+    of api.API_WAVE blocks and compacted there, so the host fetches dense
     payload."""
     wave = api.API_WAVE
     elems = []
     for s in range(0, len(lengths), wave):
         bt = torch.from_numpy(blocks[s:s + wave]).to(device)
         lt = torch.from_numpy(lengths[s:s + wave]).to(device)
-        out, out_lens = ops_encode.encode_blocks(bt, lt)
+        out, out_lens = ops_encode.encode_blocks(bt, lt, cfg)
         dense, total = ops_encode.compact_blocks(out, out_lens)
         buf = dense[:total].cpu().numpy().tobytes()
         offs = np.concatenate([[0], np.cumsum(out_lens.cpu().numpy())])
@@ -186,10 +190,11 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"sidecar {policy!r}: one of {POLICIES}")
 
 
-def compress(data: bytes, sidecar: str = "off", *, device="cuda") -> bytes:
+def compress(data: bytes, sidecar: str = "off", *, device="cuda",
+             cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
     """Compress to a framed stream: one data chunk per 64 KB block, every
-    block encoded on `device` in waves of api.API_WAVE blocks; a chunk is
-    stored uncompressed where compression would not shrink it.
+    block encoded at `cfg` on `device` in waves of api.API_WAVE blocks; a
+    chunk is stored uncompressed where compression would not shrink it.
     `sidecar` ("off", "auto" or "always") puts a decode sidecar before each
     compressed chunk (see _sidecar_chunk)."""
     _check_policy(sidecar)
@@ -197,13 +202,14 @@ def compress(data: bytes, sidecar: str = "off", *, device="cuda") -> bytes:
     if not data:
         return STREAM_ID
     blocks, lengths = api._to_blocks(data)
-    elems_list = _encode_blocks(blocks, lengths, device)
+    elems_list = _encode_blocks(blocks, lengths, device, cfg)
     crcs = crc32c_batch(blocks)  # a short last block is redone in _chunks
     return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
 
 
 def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
-                    device="cuda", blocks_per_wave: int = 64) -> int:
+                    device="cuda", blocks_per_wave: int = 64,
+                    cfg: CodecConfig = DEFAULT_CONFIG) -> int:
     """Stream `total_len` bytes from src into a framed stream on dst, in
     waves of `blocks_per_wave` blocks; byte-identical to compress() on the
     whole input. The chunk assembly of one wave overlaps the next wave's
@@ -231,7 +237,7 @@ def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
                 raise IOError("short read from source")
             remaining -= take
             blocks, lengths = api._to_blocks(raw)
-            elems_list = _encode_blocks(blocks, lengths, device)
+            elems_list = _encode_blocks(blocks, lengths, device, cfg)
             if fut is not None:
                 written += fut.result()
             fut = pool.submit(assemble, raw, elems_list, lengths)
@@ -484,14 +490,14 @@ def _decode_data_chunks(bodies: list, device, use_sidecar: bool,
 
 
 def decompress(framed: bytes, use_sidecar: bool = True, *,
-               device="cuda") -> bytes:
+               device="cuda", cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
     """Decompress and validate a framed stream (structure and every CRC).
     use_sidecar=False ignores the decode sidecars (skippable by spec)."""
     return decompress_with_stats(framed, use_sidecar, device=device)[0]
 
 
 def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
-                          device="cuda"):
+                          device="cuda", cfg: CodecConfig = DEFAULT_CONFIG):
     """decompress, also returning the FramedStats of the paths taken."""
     device = api._device(device)
     stats = FramedStats()
@@ -502,7 +508,8 @@ def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
 
 
 def decompress_stream(src, dst, use_sidecar: bool = True, *, device="cuda",
-                      chunks_per_wave: int = 64) -> int:
+                      chunks_per_wave: int = 64,
+                      cfg: CodecConfig = DEFAULT_CONFIG) -> int:
     """Stream-decode a framed stream from src to dst in windows of
     `chunks_per_wave` data chunks. Returns the bytes written."""
     device = api._device(device)

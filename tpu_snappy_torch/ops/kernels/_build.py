@@ -41,8 +41,10 @@ SIGNATURES = {
     "snk_resolve_tiled": [P, P, P, P, I, P],
     "snk_resolve_tiled_depth": [P, P, P, P, I, P],
     "snk_gather": [P, P, P, I, I, I, I, P],
-    "snk_matcher_packed": [P, P, P, P, P, I, I, I, P],
+    "snk_matcher_packed": [P, P, P, P, P, I, I, I, I, P],
+    "snk_matcher": [P, P, P, P, I, I, I, I, P],
     "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
+    "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
     "snk_place": [P, P, P, P, I, I, I, P],
     "snk_scatter_block": [P, P, P, P, I, I, I, I, P],
 }

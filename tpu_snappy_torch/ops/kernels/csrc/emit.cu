@@ -1,24 +1,30 @@
-// emit_single: single-lane emission of the encoder's committed parse.
+// emit: single-lane and two-lane emission of the encoder's committed parse.
 //
-// Replaces tpu_snappy/ops/pallas/emit.py:emit_block_single, whose VMEM
-// kernel runs its three row-wide scans (the suffix-min of element starts,
-// the exclusive cumsum of element sizes, the forward fill of the literal
-// base) as 17 Hillis-Steele roll levels each over the whole row. Here one
-// block owns one row and walks it in 1024-wide chunks with warp-shuffle
-// scans and a carry between chunks, as csrc/ffill.cu does:
+// Replaces tpu_snappy/ops/pallas/emit.py:emit_block_single and emit_block,
+// whose VMEM kernels run their three row-wide scans (the suffix-min of
+// element starts, the exclusive cumsum of element sizes, the forward fill
+// of the literal base) as 17 Hillis-Steele roll levels each over the whole
+// row. Here one block owns one row and walks it in 1024-wide chunks with
+// warp-shuffle scans and a carry between chunks, as csrc/ffill.cu does:
 //   * walk 1, right to left: each position's run end (the next element
 //     start, capped at n), kept as the literal run length in a scratch row;
 //   * walk 2, left to right: element sizes, their exclusive cumsum (output
-//     offsets), the literal base fill, and every pack: `pm` (the byte each
-//     position carries), the overflow packs `pa`/`pb` (2nd/3rd literal
-//     header bytes, at run starts), `head` (a block-opening literal's tag)
-//     and the row's total. Position i reads its neighbours i-1, i-2 (copy
-//     header bytes) and i+1 (the next run's tag) from the row, and the two
-//     previous output offsets from shared memory across chunk borders.
+//     offsets), the literal base fill, the row's total and the packs.
+//     Single lane: `pm` (the byte each position carries), the overflow
+//     packs `pa`/`pb` (2nd/3rd literal header bytes, at run starts) and
+//     `head` (a block-opening literal's tag); position i reads its
+//     neighbours i-1, i-2 (copy header bytes) and i+1 (the next run's
+//     tag). Two lanes: lane A (`pa`) the tag byte at an element start, the
+//     2nd header byte of the element at i-1 or the 3rd of the one at i-2,
+//     and lane B (`pb`) the literal payload; as in the XLA lanes, an idle
+//     lane A still carries the low byte of t2[i-2] beside dest SENT.
+//     The two previous output offsets come from shared memory across
+//     chunk borders.
 // Every pack is below 2^29, so int32 holds it.
 //
 // Bound on this card: bytes and the serial chunk walk. A position reads 9
-// bytes (cj, off, its byte) and writes 12 (three packs), plus 8 of scratch;
+// bytes (cj, off, its byte) and writes 12 (three packs; two lanes: 8),
+// plus 8 of scratch;
 // with one block per row the two walks are latency-bound, which a
 // decoupled look-back scan over many blocks per row would cut.
 #include "common.cuh"
@@ -50,6 +56,18 @@ __device__ __forceinline__ uint32_t copy_tag(int len, int off, bool small) {
                : 2u | (l - 1u) << 2;
 }
 
+__device__ __forceinline__ int lit_hdr(int len) {
+  return len <= 60 ? 1 : (len <= 256 ? 2 : 3);
+}
+
+// Element start at a position whose committed jump is c, after one whose
+// jump is cp (-1 where there is none).
+__device__ __forceinline__ bool elem_of(int c, int cp) {
+  return c >= 4 || (lit_of(c) && !lit_of(cp));
+}
+
+// kTwo: two-lane emission (pa = lane A, pb = lane B; pm and head unused).
+template <bool kTwo>
 __global__ void __launch_bounds__(kThreads)
 emit_kernel(const int32_t* __restrict__ cj, const int32_t* __restrict__ off,
             const uint8_t* __restrict__ block,
@@ -107,7 +125,7 @@ emit_kernel(const int32_t* __restrict__ cj, const int32_t* __restrict__ off,
     const bool elem = is_copy || lit_start;
     const int ll = lit_len[rb + i];
     const bool small = c <= kCopy1MaxLen && o < kCopy1MaxOffset;
-    const int lhdr = ll <= 60 ? 1 : (ll <= 256 ? 2 : 3);
+    const int lhdr = lit_hdr(ll);
     const int esz = elem ? (is_copy ? (small ? 2 : 3) : lhdr + ll) : 0;
 
     // Exclusive cumsum of element sizes: the output offset.
@@ -138,41 +156,72 @@ emit_kernel(const int32_t* __restrict__ cj, const int32_t* __restrict__ off,
     const int cm2 = i >= 2 ? cj[rb + i - 2] : -1;
     const int om1 = i >= 1 ? off[rb + i - 1] : 0;
     const int om2 = i >= 2 ? off[rb + i - 2] : 0;
-    const bool c1 = cm1 >= 4;  // 2nd header byte of the copy at i-1
-    const bool c2v = cm2 >= 4  // 3rd header byte of a 3-byte copy at i-2
-                     && !(cm2 <= kCopy1MaxLen && om2 < kCopy1MaxOffset);
-    const bool lt0c = i + 1 < kN && !is_lit && lit_of(cj[rb + i + 1]);
-    uint32_t md, mv;
-    if (is_lit) {
-      md = v + i;
-      mv = block[rb + i];
-    } else if (is_copy) {
-      md = out_off;
-      mv = copy_tag(c, o, small);
-    } else if (c1) {
-      md = oo[2 + tid - 1] + 1;
-      mv = om1;
-    } else if (c2v) {
-      md = oo[2 + tid - 2] + 2;
-      mv = om2 >> 8;
-    } else if (lt0c) {
-      md = incl;  // out_off[i + 1]
-      mv = lit_tag(lit_len[rb + i + 1]);
+    if constexpr (kTwo) {
+      // Lane A: the element at i (its tag), else the 2nd header byte of
+      // the element at i-1, else the 3rd of the one at i-2.
+      const int cm3 = i >= 3 ? cj[rb + i - 3] : -1;
+      const bool e1 = i >= 1 && elem_of(cm1, cm2);
+      const bool e2 = i >= 2 && elem_of(cm2, cm3);
+      const int ll1 = i >= 1 ? lit_len[rb + i - 1] : 1;
+      const int ll2 = i >= 2 ? lit_len[rb + i - 2] : 1;
+      const bool small1 = cm1 <= kCopy1MaxLen && om1 < kCopy1MaxOffset;
+      const bool small2 = cm2 <= kCopy1MaxLen && om2 < kCopy1MaxOffset;
+      const int hdr1 = cm1 >= 4 ? (small1 ? 2 : 3) : lit_hdr(ll1);
+      const int hdr2 = cm2 >= 4 ? (small2 ? 2 : 3) : lit_hdr(ll2);
+      const uint32_t t1 = static_cast<uint32_t>(cm1 >= 4 ? om1 : ll1 - 1);
+      const uint32_t t2 =
+          i >= 2 ? static_cast<uint32_t>(cm2 >= 4 ? om2 : ll2 - 1) >> 8 : 0u;
+      uint32_t ad, av;
+      if (elem) {
+        ad = out_off;
+        av = is_copy ? copy_tag(c, o, small) : lit_tag(ll);
+      } else if (e1 && hdr1 >= 2) {
+        ad = oo[2 + tid - 1] + 1;
+        av = t1;
+      } else {
+        ad = e2 && hdr2 >= 3 ? oo[2 + tid - 2] + 2 : 1u << 20;
+        av = t2;
+      }
+      pa[rb + i] = static_cast<int32_t>(ad << 8 | (av & 0xFFu));
+      const uint32_t bd = is_lit ? static_cast<uint32_t>(v + i) : 1u << 20;
+      pb[rb + i] = static_cast<int32_t>(bd << 8 | block[rb + i]);
     } else {
-      md = 1u << 20;
-      mv = 0;
+      const bool c1 = cm1 >= 4;  // 2nd header byte of the copy at i-1
+      const bool c2v = cm2 >= 4  // 3rd header byte of a 3-byte copy at i-2
+                       && !(cm2 <= kCopy1MaxLen && om2 < kCopy1MaxOffset);
+      const bool lt0c = i + 1 < kN && !is_lit && lit_of(cj[rb + i + 1]);
+      uint32_t md, mv;
+      if (is_lit) {
+        md = v + i;
+        mv = block[rb + i];
+      } else if (is_copy) {
+        md = out_off;
+        mv = copy_tag(c, o, small);
+      } else if (c1) {
+        md = oo[2 + tid - 1] + 1;
+        mv = om1;
+      } else if (c2v) {
+        md = oo[2 + tid - 2] + 2;
+        mv = om2 >> 8;
+      } else if (lt0c) {
+        md = incl;  // out_off[i + 1]
+        mv = lit_tag(lit_len[rb + i + 1]);
+      } else {
+        md = 1u << 20;
+        mv = 0;
+      }
+      pm[rb + i] = static_cast<int32_t>(md << 8 | (mv & 0xFFu));
+      const uint32_t n1 = ll - 1;
+      const uint32_t oo32 = out_off;
+      pa[rb + i] = lit_start && lhdr == 3
+          ? static_cast<int32_t>((oo32 + 2) << 8 | (n1 >> 8 & 0xFFu)) : 0;
+      pb[rb + i] = lit_start && lhdr >= 2
+          ? static_cast<int32_t>((oo32 + 1) << 8 | (n1 & 0xFFu)) : 0;
+      if (c0 == 0 && tid < kHead)
+        head[static_cast<size_t>(blockIdx.x) * kHead + tid] =
+            tid == 0 && lit_start ? static_cast<int32_t>(lit_tag(ll) & 0xFFu)
+                                  : kSentPack;
     }
-    pm[rb + i] = static_cast<int32_t>(md << 8 | (mv & 0xFFu));
-    const uint32_t n1 = ll - 1;
-    const uint32_t oo32 = out_off;
-    pa[rb + i] = lit_start && lhdr == 3
-        ? static_cast<int32_t>((oo32 + 2) << 8 | (n1 >> 8 & 0xFFu)) : 0;
-    pb[rb + i] = lit_start && lhdr >= 2
-        ? static_cast<int32_t>((oo32 + 1) << 8 | (n1 & 0xFFu)) : 0;
-    if (c0 == 0 && tid < kHead)
-      head[static_cast<size_t>(blockIdx.x) * kHead + tid] =
-          tid == 0 && lit_start ? static_cast<int32_t>(lit_tag(ll) & 0xFFu)
-                                : kSentPack;
 
     // Carries into the next chunk.
     carry_sum += chunk_sum;
@@ -197,11 +246,28 @@ SNK_EXPORT int snk_emit_single(const void* cj, const void* off,
                                void* lit_len, void* pm, void* pa, void* pb,
                                void* head, void* total, int batch,
                                void* stream) {
-  emit_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  emit_kernel<false>
+      <<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cj), static_cast<const int32_t*>(off),
       static_cast<const uint8_t*>(block), static_cast<const int32_t*>(n),
       static_cast<int32_t*>(lit_len), static_cast<int32_t*>(pm),
       static_cast<int32_t*>(pa), static_cast<int32_t*>(pb),
       static_cast<int32_t*>(head), static_cast<int32_t*>(total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two-lane form: cj, off, block, n and the lit_len scratch as above;
+// pack_a, pack_b: (batch, 65536) int32; total: (batch,) int32.
+SNK_EXPORT int snk_emit_two_lane(const void* cj, const void* off,
+                                 const void* block, const void* n,
+                                 void* lit_len, void* pack_a, void* pack_b,
+                                 void* total, int batch, void* stream) {
+  emit_kernel<true>
+      <<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(cj), static_cast<const int32_t*>(off),
+          static_cast<const uint8_t*>(block), static_cast<const int32_t*>(n),
+          static_cast<int32_t*>(lit_len), nullptr,
+          static_cast<int32_t*>(pack_a), static_cast<int32_t*>(pack_b),
+          nullptr, static_cast<int32_t*>(total));
   return static_cast<int>(cudaGetLastError());
 }

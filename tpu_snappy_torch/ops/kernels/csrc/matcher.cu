@@ -1,11 +1,19 @@
-// matcher_packed: the fused encoder matcher, packed candidate form.
+// matcher: the fused encoder matcher, on the packed or the unpacked
+// candidate table.
 //
-// Replaces tpu_snappy/ops/pallas/matcher.py:matcher_block_packed (sticky
-// "exact", even K <= 16). The TPU kernel holds a whole 64K row in VMEM
-// and runs every stage as full-row Hillis-Steele rolls. What it computes,
-// and what this kernel keeps bit for bit:
+// Replaces tpu_snappy/ops/pallas/matcher.py:matcher_block_packed and
+// matcher_block (sticky "exact" and "sig", K from 2 to 16). The TPU kernel
+// holds a whole 64K row in VMEM and runs every stage as full-row
+// Hillis-Steele rolls. What it computes, and what this kernel keeps bit
+// for bit:
 //   * sticky offsets: 4 levels of the windowed keep-set composition at
-//     shifts 4, 8, 16, 32; below gidx = s a level is the identity;
+//     shifts 4, 8, 16, 32; below gidx = s a level is the identity. At
+//     "exact" membership compares with each of the K keeps; at "sig" it
+//     is one AND with the u32 mask of the keeps' hash buckets (bit
+//     (x * 0x9E3779B1) >> 27 of each keep > 0), and the composed default
+//     is then re-verified exactly against the position's ORIGINAL table,
+//     falling back to its original column 0 (a bucket collision can carry
+//     a non-member through the levels);
 //   * match lengths: stride-4 links counted by 4 capped doubling rounds
 //     (= the number of consecutive links, at most 16), mlq = 4 + 4r, the
 //     max over phases p = 1..3, then min(ml, n - i); the TPU's backward
@@ -15,17 +23,23 @@
 //   * suffix propagation: 7 Hillis-Steele max levels (strict >, so ties
 //     keep the right operand), masked below gidx = s, capped at 68;
 //   * lazy deferral against position i+1 (0 at i = 65535), greedy jump.
+// The two table forms differ only in the load: packed, keep 0 is `pref`
+// and keeps 1.. are the 16-bit halves of the words in order (low first;
+// at even K the last word's high half is not a keep); unpacked, keep j is
+// column j of the (N, K) table.
 // Each output needs a bounded neighbourhood: 203 positions to the left
 // (sticky 60, filter 16, propagation 127) and 68 to the right (lengths
 // and lazy). So one block owns one row's tile of 1024 outputs, loads the
 // tile plus halos (1296 positions) into shared memory as 16-bit offsets,
 // and runs every stage there, the halos recomputed by each tile.
 //
-// Bound on this card: integer operations. The sticky membership test
+// Bound on this card: integer operations. The exact membership test
 // compares each of K+1 shifted offsets with K own offsets per level
-// (840 compares a position at K = 14); the kernel reads 32 bytes and
-// writes 8 a position. It keeps every intermediate on chip, so device
-// memory sees one read of the table and one write of (jump, off).
+// (840 compares a position at K = 14), the signature test builds K bucket
+// bits and tests K+1 (about 2K+1 per level, plus K to verify); the kernel
+// reads 4 + 2K bytes a position (packed) and writes 8. It keeps every
+// intermediate on chip, so device memory sees one read of the table (two
+// of the verified positions' at "sig") and one write of (jump, off).
 #include "common.cuh"
 
 namespace {
@@ -50,10 +64,32 @@ struct Smem {
   static constexpr size_t kTotal = kBig + kLen * sizeof(int32_t);
 };
 
+__device__ __forceinline__ uint32_t sig_bit(uint32_t x) {
+  return 1u << ((x * 0x9E3779B1u) >> 27);
+}
+
+// Keep j of the original table at global position gm of row `row`.
+// Packed: `table` is the words (row, K/2, N), `pref` keep 0. Unpacked:
+// `table` is (row, N, K).
 template <int K>
+__device__ __forceinline__ uint16_t orig_keep(const int32_t* pref,
+                                              const int32_t* table,
+                                              bool packed, int row, int gm,
+                                              int j) {
+  if (!packed)
+    return static_cast<uint16_t>(
+        table[(static_cast<size_t>(row) * kN + gm) * K + j]);
+  if (j == 0)
+    return static_cast<uint16_t>(pref[static_cast<size_t>(row) * kN + gm]);
+  const uint32_t w = static_cast<uint32_t>(
+      table[(static_cast<size_t>(row) * (K / 2) + (j - 1) / 2) * kN + gm]);
+  return static_cast<uint16_t>((j - 1) % 2 ? w >> 16 : w & 0xFFFFu);
+}
+
+template <int K, bool kSig>
 __global__ void __launch_bounds__(kThreads)
 matcher_kernel(const int32_t* __restrict__ pref,
-               const int32_t* __restrict__ words,
+               const int32_t* __restrict__ table, bool packed,
                const int32_t* __restrict__ nlen, int32_t* __restrict__ jump,
                int32_t* __restrict__ offo, int lazy) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -70,19 +106,32 @@ matcher_kernel(const int32_t* __restrict__ pref,
   const int n = nlen[row];
   const size_t rbase = static_cast<size_t>(row) * kN;
 
-  // --- load the table: keeps = [pref, halves of words in order] ---
-  for (int p = tid; p < kLen; p += kThreads) {
-    const int gm = (g0 + p) & (kN - 1);
-    const uint16_t pr = static_cast<uint16_t>(pref[rbase + gm]);
-    bufa[p] = pr;
-    bufa[K * kLen + p] = pr;  // default
+  // --- load the table: keeps 0..K-1, and the default = keep 0 ---
+  if (packed) {
+    for (int p = tid; p < kLen; p += kThreads) {
+      const int gm = (g0 + p) & (kN - 1);
+      const uint16_t pr = static_cast<uint16_t>(pref[rbase + gm]);
+      bufa[p] = pr;
+      bufa[K * kLen + p] = pr;  // default
 #pragma unroll
-    for (int j = 0; j < kW; ++j) {
-      const uint32_t w = static_cast<uint32_t>(
-          words[(static_cast<size_t>(row) * kW + j) * kN + gm]);
-      bufa[(1 + 2 * j) * kLen + p] = static_cast<uint16_t>(w & 0xFFFFu);
-      if (2 + 2 * j < K)
-        bufa[(2 + 2 * j) * kLen + p] = static_cast<uint16_t>(w >> 16);
+      for (int j = 0; j < kW; ++j) {
+        const uint32_t w = static_cast<uint32_t>(
+            table[(static_cast<size_t>(row) * kW + j) * kN + gm]);
+        bufa[(1 + 2 * j) * kLen + p] = static_cast<uint16_t>(w & 0xFFFFu);
+        if (2 + 2 * j < K)  // at even K the last high half is not a keep
+          bufa[(2 + 2 * j) * kLen + p] = static_cast<uint16_t>(w >> 16);
+      }
+    }
+  } else {
+    // Consecutive threads read consecutive entries of the (N, K) rows.
+    for (int f = tid; f < kLen * K; f += kThreads) {
+      const int p = f / K;
+      const int j = f - p * K;
+      const int gm = (g0 + p) & (kN - 1);
+      const uint16_t v = static_cast<uint16_t>(
+          table[(rbase + gm) * K + j]);
+      bufa[j * kLen + p] = v;
+      if (j == 0) bufa[K * kLen + p] = v;
     }
   }
   __syncthreads();
@@ -102,14 +151,24 @@ matcher_kernel(const int32_t* __restrict__ pref,
         continue;
       }
       uint32_t own[K];
+      uint32_t mask = 0;
 #pragma unroll
-      for (int j = 0; j < K; ++j) own[j] = cur[j * kLen + p];
+      for (int j = 0; j < K; ++j) {
+        own[j] = cur[j * kLen + p];
+        if constexpr (kSig) {
+          if (own[j] != 0) mask |= sig_bit(own[j]);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kP; ++j) {
         const uint32_t x = cur[j * kLen + p - s];
         bool hit = false;
+        if constexpr (kSig) {
+          hit = (mask & sig_bit(x)) != 0;
+        } else {
 #pragma unroll
-        for (int m = 0; m < K; ++m) hit |= x == own[m];
+          for (int m = 0; m < K; ++m) hit |= x == own[m];
+        }
         hit &= x != 0;
         // keeps drop a non-member to 0; the default keeps its own value
         nxt[j * kLen + p] = static_cast<uint16_t>(
@@ -121,7 +180,21 @@ matcher_kernel(const int32_t* __restrict__ pref,
     cur = nxt;
     nxt = t;
   }
-  for (int p = tid; p < kLen; p += kThreads) offs[p] = cur[K * kLen + p];
+  for (int p = tid; p < kLen; p += kThreads) {
+    uint32_t d = cur[K * kLen + p];
+    if constexpr (kSig) {
+      // Exact re-verification against the original table (the double
+      // buffer no longer holds it), falling back to the original keep 0.
+      const int gm = (g0 + p) & (kN - 1);
+      const uint16_t c0 = orig_keep<K>(pref, table, packed, row, gm, 0);
+      bool ver = d == c0;
+#pragma unroll
+      for (int j = 1; j < K; ++j)
+        ver |= d == orig_keep<K>(pref, table, packed, row, gm, j);
+      d = ver && d != 0 ? d : c0;
+    }
+    offs[p] = static_cast<int32_t>(d);
+  }
   __syncthreads();
 
   // Stage arrays in the (now dead) sticky buffer.
@@ -216,40 +289,66 @@ matcher_kernel(const int32_t* __restrict__ pref,
   }
 }
 
-template <int K>
-int launch(const void* pref, const void* words, const void* n, void* jump,
-           void* off, int lazy, int batch, cudaStream_t s) {
+template <int K, bool kSig>
+int launch(const void* pref, const void* table, bool packed, const void* n,
+           void* jump, void* off, int lazy, int batch, cudaStream_t s) {
   const size_t bytes = Smem<K>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(
-      matcher_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matcher_kernel<K, kSig>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(kN / kTile, batch);
-  matcher_kernel<K><<<grid, kThreads, bytes, s>>>(
-      static_cast<const int32_t*>(pref), static_cast<const int32_t*>(words),
-      static_cast<const int32_t*>(n), static_cast<int32_t*>(jump),
+  matcher_kernel<K, kSig><<<grid, kThreads, bytes, s>>>(
+      static_cast<const int32_t*>(pref), static_cast<const int32_t*>(table),
+      packed, static_cast<const int32_t*>(n), static_cast<int32_t*>(jump),
       static_cast<int32_t*>(off), lazy);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_k(const void* pref, const void* table, bool packed, const void* n,
+             void* jump, void* off, int lazy, int sig, int batch,
+             cudaStream_t s) {
+  return sig ? launch<K, true>(pref, table, packed, n, jump, off, lazy,
+                               batch, s)
+             : launch<K, false>(pref, table, packed, n, jump, off, lazy,
+                                batch, s);
+}
+
+int dispatch(const void* pref, const void* table, bool packed, const void* n,
+             void* jump, void* off, int k, int lazy, int sig, int batch,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SNK_K(K)                                                       \
+  case K:                                                              \
+    return launch_k<K>(pref, table, packed, n, jump, off, lazy, sig, \
+                       batch, s);
+  switch (k) {
+    SNK_K(2) SNK_K(3) SNK_K(4) SNK_K(5) SNK_K(6) SNK_K(7) SNK_K(8) SNK_K(9)
+    SNK_K(10) SNK_K(11) SNK_K(12) SNK_K(13) SNK_K(14) SNK_K(15) SNK_K(16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SNK_K
 }
 
 }  // namespace
 
 // pref: (batch, 65536) int32; words: (batch, k/2, 65536) int32 (two 16-bit
 // offsets each, low half first); n: (batch,) int32; jump, off: (batch,
-// 65536) int32 outputs. k even, 2..16; lazy >= 0 (0: no deferral).
+// 65536) int32 outputs. k 2..16; lazy >= 0 (0: no deferral); sig: 1 for
+// sticky "sig", 0 for "exact".
 SNK_EXPORT int snk_matcher_packed(const void* pref, const void* words,
                                   const void* n, void* jump, void* off, int k,
-                                  int lazy, int batch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 2: return launch<2>(pref, words, n, jump, off, lazy, batch, s);
-    case 4: return launch<4>(pref, words, n, jump, off, lazy, batch, s);
-    case 6: return launch<6>(pref, words, n, jump, off, lazy, batch, s);
-    case 8: return launch<8>(pref, words, n, jump, off, lazy, batch, s);
-    case 10: return launch<10>(pref, words, n, jump, off, lazy, batch, s);
-    case 12: return launch<12>(pref, words, n, jump, off, lazy, batch, s);
-    case 14: return launch<14>(pref, words, n, jump, off, lazy, batch, s);
-    case 16: return launch<16>(pref, words, n, jump, off, lazy, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                  int lazy, int sig, int batch, void* stream) {
+  return dispatch(pref, words, true, n, jump, off, k, lazy, sig, batch,
+                  stream);
+}
+
+// cands: (batch, 65536, k) int32, every entry below 65536; the rest as
+// snk_matcher_packed.
+SNK_EXPORT int snk_matcher(const void* cands, const void* n, void* jump,
+                           void* off, int k, int lazy, int sig, int batch,
+                           void* stream) {
+  return dispatch(nullptr, cands, false, n, jump, off, k, lazy, sig, batch,
+                  stream);
 }

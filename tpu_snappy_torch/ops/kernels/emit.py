@@ -1,16 +1,25 @@
-"""Single-lane emission: committed parse -> one (dest << 8 | byte) per position.
+"""Emission of the committed parse: (dest << 8 | byte) packs per position.
 
-Port of tpu_snappy/ops/pallas/emit.py:emit_block_single (the Pallas
-`_single_kernel`); the CUDA kernel is csrc/emit.cu (one block per row,
-two walks over 1024-wide chunks for the three row-wide scans, see its
-note). The plain version below is the torch form of `_single_kernel`.
+Port of tpu_snappy/ops/pallas/emit.py: `emit_block_single` (the Pallas
+`_single_kernel`) and `emit_block` (the two-lane `_kernel`). The CUDA
+kernel is csrc/emit.cu, one template for both (one block per row, two
+walks over 1024-wide chunks for the three row-wide scans, see its note).
+The plain single-lane version below is the torch form of
+`_single_kernel`; the plain two-lane version is the encoder's XLA
+emission lanes (encode._emit_lanes), which the JAX suite proves
+bit-identical to `_kernel` (tests/test_fuzz.py:104-123).
 
-Byte-to-position assignment (conflict-free for any committed parse with
-jumps in [1, 64]): literal payload rides its own position; a copy's 2-3
-header bytes ride its first positions; a literal run's 1-byte tag rides
-position s-1 (the last position of the preceding copy); a run's 2nd and
-3rd header bytes go to the sparse overflow arrays `pb` and `pa` (nonzero
-only at run starts); a block-opening literal's tag lands in `head`.
+Two-lane emission: lane A carries every tag byte (a header's 2nd and 3rd
+bytes ride positions i+1 and i+2), lane B the literal payload; an idle
+position's dest is SENT.
+
+Single-lane byte-to-position assignment (conflict-free for any committed
+parse with jumps in [1, 64]): literal payload rides its own position; a
+copy's 2-3 header bytes ride its first positions; a literal run's 1-byte
+tag rides position s-1 (the last position of the preceding copy); a run's
+2nd and 3rd header bytes go to the sparse overflow arrays `pb` and `pa`
+(nonzero only at run starts); a block-opening literal's tag lands in
+`head`.
 Every pack is below 2^29, so int32 holds it.
 """
 
@@ -23,7 +32,8 @@ from . import _build
 
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/emit.cu"
-REPLACES = "tpu_snappy/ops/pallas/emit.py:305"
+REPLACES = {"emit_block_single": "tpu_snappy/ops/pallas/emit.py:305",
+            "emit_block": "tpu_snappy/ops/pallas/emit.py:155"}
 
 #: Inactive-destination sentinel (emit.py:36, place.py:38).
 SENT = 1 << 20
@@ -147,3 +157,41 @@ def emit_block_single(cj: torch.Tensor, off: torch.Tensor,
 
 
 emit_block_single.launches = 0
+
+
+def emit_block_plain(cj: torch.Tensor, off: torch.Tensor,
+                     block: torch.Tensor, n: torch.Tensor):
+    """Plain PyTorch form of emit_block: (pack_a, pack_b (B, N) int32,
+    total (B,) int32)."""
+    from .. import encode  # the XLA emission lanes are the plain body
+    return encode._emit_lanes(cj, off, block, n)
+
+
+def emit_block(cj: torch.Tensor, off: torch.Tensor, block: torch.Tensor,
+               n: torch.Tensor):
+    """Two-lane emission of (B, N) int32 `cj` (committed ? jump : -1),
+    (B, N) int32 offsets, (B, N) uint8 bytes and (B,) int32 lengths.
+    Returns (pack_a, pack_b (B, N) int32, total (B,) int32 output sizes).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if _build.on_cpu(cj, off, block, n):
+        return emit_block_plain(cj, off, block, n)
+    batch = cj.shape[0]
+    _build.require(cj, torch.int32, (batch, N), "cj")
+    _build.require(off, torch.int32, (batch, N), "off")
+    _build.require(block, torch.uint8, (batch, N), "block")
+    _build.require(n, torch.int32, (batch,), "n")
+    pack_a = torch.empty((batch, N), dtype=torch.int32, device=cj.device)
+    pack_b = torch.empty_like(pack_a)
+    lit_len = torch.empty_like(pack_a)  # scratch: the first walk's lengths
+    total = torch.empty((batch,), dtype=torch.int32, device=cj.device)
+    if batch:
+        rc = _build.lib().snk_emit_two_lane(
+            cj.data_ptr(), off.data_ptr(), block.data_ptr(), n.data_ptr(),
+            lit_len.data_ptr(), pack_a.data_ptr(), pack_b.data_ptr(),
+            total.data_ptr(), batch, _build.stream())
+        _build.check(rc, "emit_block")
+        emit_block.launches += 1
+    return pack_a, pack_b, total
+
+
+emit_block.launches = 0

@@ -1,12 +1,14 @@
-"""Fused matcher on the packed candidate form: (pref, words) -> (jump, off).
+"""Fused matcher: candidate table -> (jump, off).
 
-Port of tpu_snappy/ops/pallas/matcher.py:matcher_block_packed at sticky
-"exact" and any even K <= 16 (sticky "sig" and odd K belong to the
-presets). The CUDA kernel is csrc/matcher.cu (one block per row and
-1024-position tile, halos in shared memory, see its note). The plain
-version unpacks the words into the (B, N, K) candidate table and runs the
-XLA-form matcher, encode._matcher_xla, which the JAX suite proves
-bit-identical to the Pallas kernel.
+Port of tpu_snappy/ops/pallas/matcher.py: `matcher_block_packed` (the
+packed form: the gated default plus 16-bit halves in int32 words) and
+`matcher_block` (the unpacked (B, N, K) table, column 0 the default), at
+sticky "exact" and "sig" and any K from 2 to 16. The CUDA kernel is
+csrc/matcher.cu, one template for both forms that differ only in the load
+stage (one block per row and 1024-position tile, halos in shared memory,
+see its note). The plain versions run the XLA-form matcher,
+encode._matcher_xla, on the (unpacked) table; the JAX suite proves it
+bit-identical to both Pallas kernels (tests/test_pallas.py:513-583).
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ from . import _build
 
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/matcher.cu"
-REPLACES = "tpu_snappy/ops/pallas/matcher.py:224"
+REPLACES = {"matcher_block_packed": "tpu_snappy/ops/pallas/matcher.py:224",
+            "matcher_block": "tpu_snappy/ops/pallas/matcher.py:202"}
 
-#: Largest candidate count the kernel takes.
-MAX_K = 16
+#: Candidate counts the kernel takes (the JAX kernel takes any K; no
+#: preset and no JAX test goes above 16).
+MIN_K, MAX_K = 2, 16
+STICKY = ("exact", "sig")
 
 
 def unpack_table(pref: torch.Tensor, words: torch.Tensor,
@@ -38,12 +43,11 @@ def unpack_table(pref: torch.Tensor, words: torch.Tensor,
 
 
 def _check_args(k: int, sticky: str) -> None:
-    if k % 2 or not 2 <= k <= MAX_K:
-        raise ValueError(f"matcher_block_packed: K={k}; even K up to "
-                         f"{MAX_K} is ported (odd K belongs to the presets)")
-    if sticky != "exact":
-        raise ValueError(f"matcher_block_packed: sticky={sticky!r}; only "
-                         "'exact' is ported")
+    if not MIN_K <= k <= MAX_K:
+        raise ValueError(f"matcher: K={k}; the kernel takes K from {MIN_K} "
+                         f"to {MAX_K}")
+    if sticky not in STICKY:
+        raise ValueError(f"matcher: sticky={sticky!r}; one of {STICKY}")
 
 
 def matcher_block_packed_plain(pref: torch.Tensor, words: torch.Tensor,
@@ -52,7 +56,31 @@ def matcher_block_packed_plain(pref: torch.Tensor, words: torch.Tensor,
     """Plain PyTorch form: (jump (B, N) int32, off (B, N) int32)."""
     _check_args(k, sticky)
     from .. import encode  # the XLA-form matcher is the plain body
-    return encode._matcher_xla(unpack_table(pref, words, k), n, lazy)
+    return encode._matcher_xla(unpack_table(pref, words, k), n, lazy,
+                               sticky)
+
+
+def matcher_block_plain(cands: torch.Tensor, n: torch.Tensor, lazy: int = 0,
+                        sticky: str = "exact"):
+    """Plain PyTorch form of matcher_block: (jump, off), each (B, N)."""
+    _check_args(cands.shape[-1], sticky)
+    from .. import encode
+    return encode._matcher_xla(cands, n, lazy, sticky)
+
+
+def _launch(entry: str, name: str, tables: list, n: torch.Tensor, k: int,
+            lazy: int, sticky: str):
+    """Run one C entry point on (B, N) outputs; `tables` are its table
+    pointers' tensors."""
+    jump = torch.empty((n.shape[0], N), dtype=torch.int32, device=n.device)
+    off = torch.empty_like(jump)
+    if n.shape[0]:
+        rc = getattr(_build.lib(), entry)(
+            *(t.data_ptr() for t in tables), n.data_ptr(), jump.data_ptr(),
+            off.data_ptr(), k, lazy, int(sticky == "sig"), n.shape[0],
+            _build.stream())
+        _build.check(rc, name)
+    return jump, off
 
 
 def matcher_block_packed(pref: torch.Tensor, words: torch.Tensor,
@@ -70,15 +98,32 @@ def matcher_block_packed(pref: torch.Tensor, words: torch.Tensor,
     _build.require(pref, torch.int32, (batch, N), "pref")
     _build.require(words, torch.int32, (batch, k // 2, N), "words")
     _build.require(n, torch.int32, (batch,), "n")
-    jump = torch.empty((batch, N), dtype=torch.int32, device=pref.device)
-    off = torch.empty_like(jump)
+    out = _launch("snk_matcher_packed", "matcher_block_packed",
+                  [pref, words], n, k, lazy, sticky)
     if batch:
-        rc = _build.lib().snk_matcher_packed(
-            pref.data_ptr(), words.data_ptr(), n.data_ptr(), jump.data_ptr(),
-            off.data_ptr(), k, lazy, batch, _build.stream())
-        _build.check(rc, "matcher_block_packed")
         matcher_block_packed.launches += 1
-    return jump, off
+    return out
+
+
+def matcher_block(cands: torch.Tensor, n: torch.Tensor, lazy: int = 0,
+                  sticky: str = "exact"):
+    """The matcher on the unpacked (B, N, K) int32 table (column 0 the
+    sticky default, every entry an offset below 65536) and (B,) int32
+    lengths. Returns (jump, off), each (B, N) int32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    k = cands.shape[-1]
+    _check_args(k, sticky)
+    if _build.on_cpu(cands, n):
+        return matcher_block_plain(cands, n, lazy, sticky)
+    batch = cands.shape[0]
+    _build.require(cands, torch.int32, (batch, N, k), "cands")
+    _build.require(n, torch.int32, (batch,), "n")
+    out = _launch("snk_matcher", "matcher_block", [cands], n, k, lazy,
+                  sticky)
+    if batch:
+        matcher_block.launches += 1
+    return out
 
 
 matcher_block_packed.launches = 0
+matcher_block.launches = 0
