@@ -10,11 +10,14 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the twelve kernels equals its plain
+3. kernel against plain: each of the sixteen kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
-   planted with signature collisions);
+   planted with signature collisions; the resolve kernels on the JAX
+   tests' maps, the period-1 chain and a depth-10000 chain among them,
+   with exact, over-approximate and all-zero root flags and partly stable
+   tiles);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -33,19 +36,27 @@ Phases, each printing its results; any failure raises (non-zero exit):
    kernels); a framed sidecar "auto" round trip under ULTRA; then one
    wave through encode_blocks at every placement, each giving the bytes
    of "auto" (emit_block among the launches);
-7. times: raw compress / decompress throughput and peak device memory;
+7. resolve modes: the DEFAULT stream of phase 4 through
+   ops.decode.decode_corpus at the API's wave under "tiledtail", "tiled",
+   "flagtail", "paratail", "kernel", "stable" and "plain", and "kernel"
+   and "stable" again without the run collapse, each giving the input
+   bytes, all fragments ok, equal to "tiledtail"'s output, with its
+   decode seconds, rounds per wave and launch counters (each mode's own
+   kernel among them);
+8. times: raw compress / decompress throughput and peak device memory;
    then traced raw and framed round trips, plus TURBO and flatten "off"
-   compresses and an "emit" placement wave, with a synchronised host
-   clock around each public stage and kernel wrapper, which also capture
-   every kernel's inputs;
-8. main path, kernel against plain: each kernel equals its plain version
+   compresses, an "emit" placement wave and decode_corpus under
+   "flagtail", "paratail", "kernel" and "stable", with a synchronised
+   host clock around each public stage and kernel wrapper, which also
+   capture every kernel's inputs;
+9. main path, kernel against plain: each kernel equals its plain version
    exactly on the calls captured from the main paths (the wave shapes they
    really run at), the time of both on them (CUDA events), the least
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one.
 
 The second-to-last lines are a JSON object of per-kernel results (its
-`launches` count phases 4, 5 and 6, each path run with the counters set to
+`launches` count phases 4 to 7, each path run with the counters set to
 0 just before it) and the nvidia-smi name/power line; the last line is
 {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (checked at the
@@ -252,6 +263,7 @@ def check_kernels(dev) -> None:
     print(f"kernel gather_block B={BATCH} T={N} S 65536/8192 limbs 1/2: "
           f"max_abs_err={max(errs)}")
     check_encode_kernels(dev, rng, t, report)
+    check_resolve_kernels(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
 
@@ -426,22 +438,111 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
           f"duplicates): max_abs_err={max(errs)}")
 
 
+def _resolve_maps(rng) -> np.ndarray:
+    """Phase 3's maps for the resolve kernels, all with src[p] <= p: random
+    back hops, tile straddles, the period-1 chain, the identity, the JAX
+    tests' random hops around a depth-10000 chain
+    (tests/test_pallas.py:162), random decreasing hops, sparse 7-hops and
+    hops of one 4096-tile. Returns (8, N) int32."""
+    ident = np.arange(N, dtype=np.int32)
+    mixed = ident.copy()
+    copies = rng.choice(np.arange(1, N), 20000, replace=False)
+    mixed[copies] = np.maximum(copies - rng.integers(1, 64, 20000), 0)
+    mixed[40000:50000] = np.arange(40000, 50000) - 1
+    return np.stack([
+        np.maximum(ident - rng.integers(1, 300, N), 0),
+        np.maximum(ident - ident % 4096 - 1, 0),
+        np.maximum(ident - 1, 0),
+        ident,
+        mixed,
+        np.minimum(ident, rng.integers(0, N, N)),
+        np.where(rng.random(N) < 0.5, ident, np.maximum(ident - 7, 0)),
+        np.maximum(ident - 4096, 0)]).astype(np.int32)
+
+
+def check_resolve_kernels(rng, t, report: dict) -> None:
+    """Phase 3, the resolve modes' kernels: local_round, doubling_round,
+    resolve_block and resolve_tiled_flag against their plain versions."""
+    from tpu_snappy_torch.ops.kernels import (doubling, localround, resolve,
+                                              tiledres)
+
+    src = t(_resolve_maps(rng))
+    lit = t(rng.integers(0, 256, (BATCH, N), dtype=np.int32))
+
+    # local_round: three chained rounds.
+    errs, s = [], src
+    for _ in range(3):
+        got = localround.local_round(s)
+        errs.append(_exact(got, localround.local_round_plain(s)))
+        s = got
+    report["local_round"] = max(errs)
+    print(f"kernel local_round  B={BATCH} (the maps, 3 chained rounds): "
+          f"max_abs_err={max(errs)}")
+
+    # doubling_round: from zero, random and all-stable flags, 17 chained
+    # rounds (the period-1 chain turns stable in the 17th).
+    errs = []
+    part = t((rng.random((BATCH, doubling.TILES)) < 0.4).astype(np.int32))
+    for stable in (torch.zeros_like(part), part, torch.ones_like(part)):
+        s = src
+        for _ in range(17):
+            got = doubling.doubling_round(s, stable)
+            want = doubling.doubling_round_plain(s, stable)
+            errs += [_exact(g, w) for g, w in zip(got, want)]
+            s, stable = got
+    report["doubling_round"] = max(errs)
+    print(f"kernel doubling_round B={BATCH} (flags zero, partly stable, all "
+          f"stable; 17 chained rounds): max_abs_err={max(errs)}")
+
+    # resolve_block: against the plain version (synchronous doubling to
+    # the fixed point), which the kernel's in-place doubling must meet.
+    err = _exact(resolve.resolve_block(lit, src),
+                 resolve.resolve_block_plain(lit, src))
+    report["resolve_block"] = err
+    print(f"kernel resolve_block B={BATCH} (the maps, depth 65535 and 10000 "
+          f"chains): max_abs_err={err}")
+
+    # resolve_tiled_flag: exact, over-approximate, all-zero and all-one
+    # flags.
+    hop = torch.gather(src, -1, src.long())
+    exact = (hop == src).to(torch.int32)
+    over = exact | t((rng.random((BATCH, N)) < 0.5).astype(np.int32))
+    errs = []
+    for flags in (exact, over, torch.zeros_like(exact),
+                  torch.ones_like(exact)):
+        errs.append(_exact(tiledres.resolve_tiled_flag(lit, src, flags),
+                           tiledres.resolve_tiled_flag_plain(lit, src,
+                                                             flags)))
+    report["resolve_tiled_flag"] = max(errs)
+    print(f"kernel resolve_tiled_flag B={BATCH} (the maps; flags exact, over, "
+          f"zero, one): max_abs_err={max(errs)}")
+
+
 def _kernel_modules() -> dict:
     """Every kernel of the main paths: wrapper name -> module."""
-    from tpu_snappy_torch.ops.kernels import (emit, ffill, gather, matcher,
-                                              place, scatter, tiledres,
+    from tpu_snappy_torch.ops.kernels import (doubling, emit, ffill, gather,
+                                              localround, matcher, place,
+                                              resolve, scatter, tiledres,
                                               windows)
     return {"window_keys": windows, "ffill": ffill,
             "scatter_windowed": scatter, "resolve_tiled": tiledres,
             "matcher_block_packed": matcher, "emit_block_single": emit,
             "place_block": place, "scatter_block": scatter,
             "gather_block": gather, "resolve_tiled_depth": tiledres,
-            "matcher_block": matcher, "emit_block": emit}
+            "matcher_block": matcher, "emit_block": emit,
+            "resolve_tiled_flag": tiledres, "local_round": localround,
+            "resolve_block": resolve, "doubling_round": doubling}
 
+
+#: The kernel each resolve mode adds to the decode (phase 7).
+MODE_KERNEL = {"flagtail": "resolve_tiled_flag", "paratail": "local_round",
+               "kernel": "resolve_block", "stable": "doubling_round"}
 
 #: Kernels the raw DEFAULT round trip does not run: the framed sidecar
-#: decodes', flatten "off"'s and the "emit" placement's.
-NOT_RAW = ("resolve_tiled_depth", "matcher_block", "emit_block")
+#: decodes', flatten "off"'s, the "emit" placement's and the other resolve
+#: modes'.
+NOT_RAW = ("resolve_tiled_depth", "matcher_block", "emit_block",
+           *MODE_KERNEL.values())
 
 
 def _replaces(mod, name: str) -> str:
@@ -465,6 +566,7 @@ def _public_stages() -> dict:
             "parse_transport": (decode, "parse_transport"),
             "commit_general": (scan, "commit_general"),
             "dense_rounds": (decode, "dense_rounds"),
+            "decode_corpus": (decode, "decode_corpus"),
             "decode_chunks": (sidecar, "decode_chunks")}
 
 
@@ -505,20 +607,23 @@ def _clone(x, memo: dict | None = None):
     return x
 
 
-def traced_round_trip(dev, data: bytes, framed: dict, card: str):
-    """Phase 7: one more raw round trip through the public API, the framed
+def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
+                      card: str):
+    """Phase 8: one more raw round trip through the public API, the framed
     decodes of the "auto" and "always" streams, TURBO and flatten "off"
-    compresses and one "emit" placement wave, with every public stage and
-    every kernel wrapper wrapped in place. Each wrapped call is
+    compresses, one "emit" placement wave and decode_corpus of phase 7's
+    fragments (`corpus`) under the four resolve modes with kernels of
+    their own, with every public stage and every kernel wrapper wrapped in
+    place. Each wrapped call is
     timed on the host clock between two synchronises, and the first call
     of each kernel per calling stage, input shape and scalar argument is
-    cloned, so that phase 8 holds the kernel against its plain version on
+    cloned, so that phase 9 holds the kernel against its plain version on
     exactly the calls the main paths make. Returns those captured calls,
     each as (args, kwargs)."""
     import functools
 
     from tpu_snappy_torch import api, config, framing
-    from tpu_snappy_torch.ops import encode
+    from tpu_snappy_torch.ops import decode, encode
 
     kernels = _kernel_modules()
     blocks, lengths = api._to_blocks(data)
@@ -572,16 +677,22 @@ def traced_round_trip(dev, data: bytes, framed: dict, card: str):
         api.compress(data, _flat_off(), device="cuda")
         encode.encode_blocks(*wave, placement="emit")
         t4 = time.perf_counter()
+        modes = [decode.decode_corpus(*corpus, resolve=m, wave=api.API_WAVE)
+                 for m in MODE_KERNEL]
+        t5 = time.perf_counter()
     finally:
         for name, (mod, attr) in targets.items():
             setattr(mod, attr, saved[name])
     if back != data or any(b != data for b in backs):
         raise AssertionError("the traced round trip changed the data")
+    if any(not torch.equal(out, modes[0][0]) for out, _ in modes):
+        raise AssertionError("the traced resolve modes disagree")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
           f" framed decompress auto + always {(t3 - t2) * 1e3} ms, TURBO and"
-          f" flatten off compresses + an emit wave {(t4 - t3) * 1e3} ms; "
-          f"host-clock ms per stage over all waves [{card}]:")
+          f" flatten off compresses + an emit wave {(t4 - t3) * 1e3} ms, "
+          f"decode_corpus under {', '.join(MODE_KERNEL)} {(t5 - t4) * 1e3} "
+          f"ms; host-clock ms per stage over all waves [{card}]:")
     for name in targets:
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
     return captured
@@ -609,7 +720,21 @@ def _timed(fn, dev, reps: int) -> float:
 _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
         "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2,
-        "emit_block": 60}
+        "emit_block": 60, "resolve_tiled_flag": 3, "local_round": 3,
+        "doubling_round": 3}
+
+
+def _doubling_rounds(src: torch.Tensor) -> int:
+    """Synchronous doubling rounds that take the batch to its fixed point,
+    the one that sees it included (at most 16): the passes resolve_block
+    makes over this input."""
+    s = src
+    for r in range(1, 17):
+        s2 = torch.gather(s, -1, s.long())
+        if torch.equal(s2, s):
+            return r
+        s = s2
+    return 16
 
 
 def _matcher_ops(k: int, sticky: str) -> int:
@@ -640,6 +765,8 @@ def _bound(name: str, args, outs) -> tuple:
             first.shape[2], sticky)
     elif name == "matcher_block_packed":
         ops = first.numel() * _matcher_ops(args[3], sticky)
+    elif name == "resolve_block":  # 3 a position a round, then the gather
+        ops = first.numel() * (3 * _doubling_rounds(args[1]) + 1)
     else:
         ops = first.numel() * _OPS[name]
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -651,12 +778,13 @@ def _library_ms(name: str, args, dev):
     """Time of one PyTorch call computing the same function, where there
     is one: `scatter_add_` for the three scatters, on the captured inputs
     (it counts no window drops and sums instead of joining limbs), and
-    `torch.gather` for gather_block, with its int64 index made beforehand.
+    `torch.gather` for gather_block and doubling_round (s o s; no stable
+    tiles skipped, no flags), with its int64 index made beforehand.
     None for the others: no single PyTorch call computes the matcher's
-    chain, the emission packs, the window keys, a forward fill or a
-    resolve."""
-    if name == "gather_block":
-        x, idx = args[0], args[1]
+    chain, the emission packs, the window keys, a forward fill, a local
+    round or a resolve."""
+    if name in ("gather_block", "doubling_round"):
+        x, idx = args[0], args[1 if name == "gather_block" else 0]
         ix = torch.clamp(idx, 0, x.shape[-1] - 1).to(torch.int64)
         return _timed(lambda: torch.gather(x, -1, ix), dev, 20)
     if name not in ("scatter_windowed", "place_block", "scatter_block"):
@@ -676,7 +804,7 @@ def _library_ms(name: str, args, dev):
 
 
 def check_main_path_calls(dev, captured: dict, card: str) -> dict:
-    """Phase 8: each kernel against its plain version, exact equality (ovf
+    """Phase 9: each kernel against its plain version, exact equality (ovf
     counts included), on the calls captured from the main path; then the
     time of both on those tensors (CUDA events), the bound, and the
     library call's time. Returns, per kernel, the largest absolute
@@ -738,6 +866,10 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
                 20)
     print(f"time resolve_tiled_depth ({batch}, {N}) on the same chain, "
           f"depth 10 a tile: kernel {ms} ms [{card}]")
+    resolve = kernels["resolve_block"]
+    ms = _timed(lambda: resolve.resolve_block(lit, chain), dev, 20)
+    print(f"time resolve_block ({batch}, {N}) on the same chain, 16 "
+          f"rounds: kernel {ms} ms [{card}]")
     return report
 
 
@@ -865,6 +997,84 @@ def placement_wave(dev, data: bytes, wrappers: dict, card: str) -> dict:
     print(f"placements {', '.join(encode.PLACEMENTS)}: identical bytes "
           f"({int(lens.sum())} over {len(lens)} blocks)")
     return launches
+
+
+def _corpus(dev, comp: bytes, wave: int) -> tuple:
+    """The fragments of a raw stream as decode_corpus takes them: (frags,
+    clens, ulens) on the card at the stream's width, padded with empty
+    fragments to a multiple of `wave`."""
+    from tpu_snappy_torch import format as fmt
+    from tpu_snappy_torch.ops import decode
+
+    total, start = fmt.varint_decode(comp)
+    frags, clens, ulens = decode.fragment_table(comp, start, total)
+    pad = -len(ulens) % wave
+    frags = np.pad(frags[:, :decode.frag_width(clens)], ((0, pad), (0, 0)))
+    clens, ulens = (np.pad(a, (0, pad)) for a in (clens, ulens))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (frags, clens, ulens))
+
+
+def resolve_modes(dev, data: bytes, comp: bytes, wrappers: dict, card: str):
+    """Phase 7: the DEFAULT stream through decode_corpus at the API's wave
+    under every resolve mode, and "kernel" and "stable" without the run
+    collapse, each run with the launch counters set to 0 just before and
+    read just after. Each must give the input bytes, every fragment ok,
+    and "tiledtail"'s output exactly, and launch its mode's kernel.
+    Returns (the launches of all these runs, the fragments on the card)."""
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import decode
+
+    corpus = _corpus(dev, comp, api.API_WAVE)
+    ulens = corpus[2].cpu().numpy()
+    total = dict.fromkeys(wrappers, 0)
+    rounds = []
+    decode_fragments = decode.decode_fragments
+
+    def counted(*args, **kwargs):  # decode_corpus's waves, with rounds
+        res = decode_fragments(*args, **kwargs)
+        rounds.append(res[2])
+        return res
+
+    runs = [(m, True) for m in ("tiledtail", "tiled", "flagtail", "paratail",
+                                "kernel", "stable", "plain")]
+    runs += [("kernel", False), ("stable", False)]
+    first = None
+    decode.decode_fragments = counted
+    try:
+        for mode, collapse in runs:
+            rounds.clear()
+            _reset(wrappers)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out, ok = decode.decode_corpus(*corpus, resolve=mode,
+                                           collapse_runs=collapse,
+                                           wave=api.API_WAVE)
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = _launches(wrappers)
+            host = out.cpu().numpy()
+            back = b"".join(host[i, :n].tobytes() for i, n in enumerate(ulens))
+            if back != data or not bool(ok.all()):
+                raise AssertionError(f"decode_corpus {mode} (collapse "
+                                     f"{collapse}) differs from the input")
+            first = out if first is None else first
+            if not torch.equal(out, first):
+                raise AssertionError(f"{mode} differs from tiledtail")
+            need = MODE_KERNEL.get(mode)
+            if need and not launches[need]:
+                raise AssertionError(f"{mode}: {need} did not run; "
+                                     f"{launches}")
+            print(f"resolve {mode} (collapse_runs={collapse}): "
+                  f"decode_corpus {seconds} s, "
+                  f"{len(data) / seconds / 1e9} GB/s, rounds per wave "
+                  f"{rounds} [{card}]")
+            print(f"  launches: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+    finally:
+        decode.decode_fragments = decode_fragments
+    return total, corpus
 
 
 def round_trip(dev, wrappers: dict):
@@ -1036,8 +1246,10 @@ def main() -> None:
     framed, framed_launches = framed_round_trips(data, wrappers, card)
     preset_launches = preset_round_trips(dev, data, wrappers, card)
     place_launches = placement_wave(dev, data, wrappers, card)
+    mode_launches, corpus = resolve_modes(dev, data, comp, wrappers, card)
     launches = {k: n + framed_launches[k] + preset_launches[k]
-                + place_launches[k] for k, n in launches.items()}
+                + place_launches[k] + mode_launches[k]
+                for k, n in launches.items()}
 
     # Times on the card (the round trip above was the warm-up).
     torch.cuda.synchronize(dev)
@@ -1054,7 +1266,7 @@ def main() -> None:
           f"[{card}]")
     print(f"peak device memory over the round trip: {peak} bytes "
           f"(wave {api.API_WAVE}) [{card}]")
-    captured = traced_round_trip(dev, data, framed, card)
+    captured = traced_round_trip(dev, data, framed, corpus, card)
     report = check_main_path_calls(dev, captured, card)
 
     kernels = []

@@ -1,0 +1,152 @@
+"""The port's doubling kernels against the Pallas kernels they replace:
+local_round (tpu_snappy_torch/ops/kernels/localround.py), doubling_round
+(doubling.py) and resolve_block (resolve.py).
+
+On the CPU each wrapper runs its plain PyTorch version, held with exact
+equality against tpu_snappy/ops/pallas/{localround,doubling,resolve}.py in
+interpret mode on test_torch_tiledres.py's maps (random back hops, tile
+straddles, the period-1 chain, a depth-hint straddle, a map at its fixed
+point, sparse 7-hops) and on tests/test_pallas.py's resolve maps
+(identity, and random back hops around a depth-10000 chain). The `gpu`
+tests hold the CUDA kernels against the plain versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tpu_snappy.ops.pallas import doubling as PD
+from tpu_snappy.ops.pallas import localround as PL
+from tpu_snappy.ops.pallas import resolve as PR
+
+from tpu_snappy_torch.ops.kernels import doubling as KD
+from tpu_snappy_torch.ops.kernels import localround as KL
+from tpu_snappy_torch.ops.kernels import resolve as KR
+
+from test_torch_tiledres import _fixed_point, _maps, _t
+
+N = 1 << 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _resolve_maps():
+    """tests/test_pallas.py:162-184's maps: random back hops (1-63) of
+    20000 lanes around a depth-10000 chain, and the identity."""
+    rng = np.random.default_rng(21)
+    src = np.arange(N, dtype=np.int32)
+    copies = rng.choice(np.arange(1, N), 20000, replace=False)
+    src[copies] = np.maximum(copies - rng.integers(1, 64, 20000), 0)
+    src[40000:50000] = np.arange(40000, 50000) - 1
+    lit = rng.integers(0, 256, (2, N)).astype(np.int32)
+    return lit, np.stack([src, np.arange(N, dtype=np.int32)])
+
+
+@pytest.fixture(scope="module")
+def maps():
+    lit, src = _maps()
+    lit2, src2 = _resolve_maps()
+    return np.concatenate([lit, lit2]), np.concatenate([src, src2])
+
+
+def test_local_round_plain_matches_pallas(maps):
+    _, src = maps
+    s = src
+    for _ in range(2):  # a round, then a round of its result
+        got = KL.local_round(_t(s)).numpy()
+        want = np.asarray(jax.vmap(PL.local_round)(jnp.asarray(s)))
+        assert (got == want).all()
+        assert not (got == s).all()
+        s = got
+    with pytest.raises(ValueError, match="4096"):
+        KL.local_round(_t(src), tile=2048)
+
+
+def test_local_rounds_reach_the_tile_fixed_point(maps):
+    """Fourteen rounds (paratail's cap) leave every lane at an in-tile root
+    or pointing left of its tile, and a further round moves nothing."""
+    _, src = maps
+    s = _t(src)
+    for _ in range(14):
+        s = KL.local_round(s)
+    assert torch.equal(KL.local_round(s), s)
+    tile = torch.arange(N) // KL.TILE * KL.TILE
+    hop = torch.gather(s, -1, s.long())
+    assert ((s < tile) | (hop == s)).all()
+
+
+@pytest.mark.parametrize("kind", ["zero", "random", "ones"])
+def test_doubling_round_plain_matches_pallas(maps, kind):
+    _, src = maps
+    rng = np.random.default_rng(54)
+    shape = (len(src), KD.TILES)
+    stable = {"zero": np.zeros(shape), "random": rng.random(shape) < 0.4,
+              "ones": np.ones(shape)}[kind].astype(np.int32)
+    got, got_st = (x.numpy() for x in KD.doubling_round(_t(src), _t(stable)))
+    for r in range(len(src)):  # one row a call: cheaper interpreted
+        want, want_st = PD.doubling_round(jnp.asarray(src[r]),
+                                          jnp.asarray(stable[r]))
+        assert (got[r] == np.asarray(want)).all(), (kind, r)
+        assert (got_st[r] == np.asarray(want_st)).all(), (kind, r)
+    if kind == "ones":
+        assert (got == src).all() and (got_st == 1).all()
+    else:
+        assert 0 < got_st.sum() < got_st.size
+
+
+def test_doubling_rounds_converge(maps):
+    """resolve="stable"'s loop: rounds until every tile is stable, at most
+    16, give the fixed point on every map (the period-1 chain needs all
+    16 and one more to see it stable)."""
+    _, src = maps
+    s = _t(src)
+    st = torch.zeros((len(src), KD.TILES), dtype=torch.int32)
+    rounds = 0
+    while rounds < 16 and not bool((st == 1).all()):
+        s, st = KD.doubling_round(s, st)
+        rounds += 1
+    assert rounds == 16
+    for r in range(len(src)):
+        assert (s[r].numpy() == _fixed_point(src[r])).all(), r
+
+
+def test_resolve_block_plain_matches_pallas():
+    """On test_torch_tiledres.py's maps, the period-1 chain (16 rounds)
+    among them; one row a call (a vmapped call runs every row for the
+    slowest row's rounds, interpreted)."""
+    lit, src = _maps()
+    got = KR.resolve_block(_t(lit), _t(src)).numpy()
+    for r in range(len(src)):
+        want = PR.resolve_block(jnp.asarray(lit[r]), jnp.asarray(src[r]))
+        assert (got[r] == np.asarray(want)).all(), r
+        assert (got[r] == lit[r][_fixed_point(src[r])]).all(), r
+
+
+@pytest.mark.gpu
+def test_doubling_kernels_match_plain(maps, cuda):
+    lit, src = maps
+    rng = np.random.default_rng(55)
+    lt, st = _t(lit).to(cuda), _t(src).to(cuda)
+    s = st
+    for _ in range(3):
+        nxt = KL.local_round(s)
+        assert torch.equal(nxt, KL.local_round_plain(s))
+        s = nxt
+    flags = _t((rng.random((len(src), KD.TILES)) < 0.4).astype(np.int32))
+    for stable in (torch.zeros_like(flags), flags, torch.ones_like(flags)):
+        s, stab = st, stable.to(cuda)
+        for _ in range(17):
+            got = KD.doubling_round(s, stab)
+            want = KD.doubling_round_plain(s, stab)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            s, stab = got
+    assert torch.equal(KR.resolve_block(lt, st),
+                       KR.resolve_block_plain(lt, st))

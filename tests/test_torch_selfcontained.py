@@ -93,7 +93,8 @@ def test_framing_and_sidecar_copies_match_jax():
               "CHUNK_PADDING", "CHUNK_SIDECAR", "CHUNK_DEPTH", "STREAM_ID",
               "SIDECAR_AUTO_FRAC", "MAX_CHUNK"):
         assert getattr(framing, k) == getattr(jax_framing, k), k
-    for k in ("TAIL_CAP", "TAIL_TILE", "HINT_TILE", "FRAG_CAP", "OUT"):
+    for k in ("TAIL_CAP", "TAIL_TILE", "HINT_TILE", "FRAG_CAP", "OUT",
+              "PARA_CAP", "PARA_TILE"):
         assert getattr(decode, k) == getattr(jax_decode, k), k
     for k in ("MAGIC", "CHUNK_TYPE", "DEPTH_CHUNK_TYPE", "DEPTH_MAGIC",
               "SPLIT_LEN", "PARENT_WROWS", "MAX_PIECES", "OUT"):

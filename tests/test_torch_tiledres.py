@@ -1,20 +1,22 @@
 """The port's resolve kernels (tpu_snappy_torch/ops/kernels/tiledres.py)
 against the Pallas kernels they replace: resolve_tiled with its `resolved`
-flag, and resolve_tiled_depth.
+flag, resolve_tiled_depth, and resolve_tiled_flag.
 
 On the CPU each wrapper runs its plain PyTorch version, a round-for-round
 simulation of the TPU's tile walk; it is held, with exact equality, against
 tpu_snappy/ops/pallas/tiledres.py in interpret mode. That includes the
 cases where the walk does not reach the fixed point: `resolved=True` given
-for a map that is not at it, and under-declared depths (a stale or corrupt
-framed 0x81 hint), which must give exactly the TPU's wrong bytes. The
-`gpu` tests hold the CUDA kernels against the plain versions on the card.
+for a map that is not at it, under-declared depths (a stale or corrupt
+framed 0x81 hint) and over-approximate root flags, which must give exactly
+the TPU's wrong bytes. The `gpu` tests hold the CUDA kernels against the
+plain versions on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpu_snappy.ops import decode as D
@@ -115,6 +117,64 @@ def test_resolve_tiled_depth_plain_matches_pallas(maps, kind):
         assert not all(exact)  # the wrong bytes a frame's CRC rejects
 
 
+def _flags(src, kind):
+    """Root flags for resolve_tiled_flag: "exact" (flags[p] = 1 iff src[p]
+    is a fixed point, what "flagtail" computes), "over" (also 1 on about
+    half the unresolved lanes) or "zero"."""
+    exact = (np.take_along_axis(src, src, axis=-1) == src).astype(np.int32)
+    if kind == "exact":
+        return exact
+    if kind == "over":
+        rng = np.random.default_rng(53)
+        return (exact | (rng.random(src.shape) < 0.5)).astype(np.int32)
+    return np.zeros_like(exact)
+
+
+FLAG_KINDS = ("exact", "over", "zero")
+
+
+@pytest.fixture(scope="module")
+def flagged(maps):
+    """The Pallas resolve_tiled_flag on every map with each kind of flags,
+    one vmapped call over all kinds' rows."""
+    lit, src = maps
+    flags = np.concatenate([_flags(src, k) for k in FLAG_KINDS])
+    k = len(FLAG_KINDS)
+    out = jax.vmap(PT.resolve_tiled_flag)(
+        jnp.asarray(np.concatenate([lit] * k)),
+        jnp.asarray(np.concatenate([src] * k)), jnp.asarray(flags))
+    return np.asarray(out).reshape(k, *src.shape)
+
+
+@pytest.mark.parametrize("kind", FLAG_KINDS)
+def test_resolve_tiled_flag_plain_matches_pallas(maps, flagged, kind):
+    lit, src = maps
+    flags = _flags(src, kind)
+    got = KT.resolve_tiled_flag(_t(lit), _t(src), _t(flags)).numpy()
+    assert (got == flagged[FLAG_KINDS.index(kind)]).all(), kind
+    exact = [(got[r] == lit[r][_fixed_point(src[r])]).all()
+             for r in range(len(src))]
+    if kind == "over":
+        assert not all(exact)  # stopped early: the TPU's wrong bytes
+    else:
+        assert all(exact)
+
+
+def test_resolve_tiled_flag_runs_the_tpu_loop():
+    """Every flag is 1: no tile runs a round, so the result is the absorbs
+    alone (resolve_tiled with `resolved`); all-zero flags on the period-1
+    chain run the full 13 rounds a tile and are exact."""
+    lit, src = _maps()
+    ones = torch.ones(src.shape, dtype=torch.int32)
+    assert torch.equal(
+        KT.resolve_tiled_flag(_t(lit), _t(src), ones),
+        KT.resolve_tiled(_t(lit), _t(src),
+                         torch.ones(len(src), dtype=torch.bool)))
+    chain = _t(src[2:3])
+    got = KT.resolve_tiled_flag(_t(lit[2:3]), chain, torch.zeros_like(chain))
+    assert (got.numpy() == lit[2, 0]).all()
+
+
 @pytest.mark.gpu
 def test_resolve_kernels_match_plain(maps, cuda):
     lit, src = maps
@@ -127,3 +187,12 @@ def test_resolve_kernels_match_plain(maps, cuda):
         dt = _t(d.astype(np.int32)).to(cuda)
         assert torch.equal(KT.resolve_tiled_depth(lt, st, dt),
                            KT.resolve_tiled_depth_plain(lt, st, dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", FLAG_KINDS)
+def test_resolve_tiled_flag_kernel_matches_plain(maps, kind, cuda):
+    lit, src = maps
+    args = [_t(a).to(cuda) for a in (lit, src, _flags(src, kind))]
+    assert torch.equal(KT.resolve_tiled_flag(*args),
+                       KT.resolve_tiled_flag_plain(*args))

@@ -5,11 +5,16 @@ The JAX decoder at its TPU default, resolve="tiledtail": per fragment,
 speculative element fields for every compressed byte, the tag-chain parse
 (commit_general), forward fills, the windowed transport scatter, the
 periodic-run collapse, dense pointer-doubling rounds while more than
-TAIL_CAP lanes still move, and the tile-sequential resolve. resolve="tiled"
-(the resolve kernel alone) stays selectable, and decode_fragments_depth is
-the framed container's depth-hinted decode ("depthtail"). The forward
-fills, the transport scatter, the dense rounds' gather and both resolves
-run through the hand-written kernels (ops/kernels/).
+TAIL_CAP lanes still move, and the tile-sequential resolve. The other
+resolve modes give the same bytes: "tiled" (the resolve kernel alone),
+"flagtail" (root flags steer the resolve), "paratail" (parallel in-tile
+rounds, then absorbs only), "kernel" (the fused resolve_block), "stable"
+(doubling rounds with per-tile stability) and "plain" / "xla" (dense
+doubling to the fixed point, then a byte gather). decode_corpus runs a
+batch in waves under any of them, and decode_fragments_depth is the framed
+container's depth-hinted decode ("depthtail"). The forward fills, the
+transport scatter, the gathers and every resolve run through the
+hand-written kernels (ops/kernels/).
 
 As on the TPU, a transport write outside its window marks the fragment
 not-ok (the JAX CPU path scatters without a window and cannot see one);
@@ -28,7 +33,10 @@ import torch
 
 from .. import format as fmt
 from . import scan
+from .kernels import doubling as _doubling
 from .kernels import gather as _gather
+from .kernels import localround as _localround
+from .kernels import resolve as _resolve
 from .kernels import scatter as _scatter
 from .kernels import tiledres as _tiledres
 
@@ -47,6 +55,18 @@ TAIL_TILE = _tiledres.TILE
 HINT_TILE = _tiledres.DEPTH_TILE
 #: Most dense rounds a fragment runs (decode.py:351).
 MAX_DENSE_ROUNDS = 16
+#: resolve="paratail" dense-round exit (decode.py:132). Meant as "no dense
+#: rounds", but the count starts at OUT + 1 > PARA_CAP, so every fragment
+#: runs exactly one dense round, in JAX and here.
+PARA_CAP = 65536
+#: Tile of "paratail"'s local rounds and absorb-only resolve
+#: (decode.py:133).
+PARA_TILE = _localround.TILE
+#: "paratail"'s most local rounds a fragment runs (decode.py:453).
+MAX_LOCAL_ROUNDS = 14
+#: Every resolve mode decode_fragments takes; "xla" is "plain".
+RESOLVES = ("tiledtail", "tiled", "flagtail", "paratail", "kernel", "stable",
+            "plain", "xla")
 
 
 def _elem_fields(c: torch.Tensor):
@@ -125,11 +145,13 @@ def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
     return mdst, mval, ok
 
 
-def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
+def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor,
+                    collapse_runs: bool = True):
     """PARSE + TRANSPORT + run collapse (decode.py:183) for (B, M) uint8
-    fragments, M a multiple of 1024. Returns (lit_out (B, 65536) int32
-    bytes, src (B, 65536) int32 one-step source map with src[p] <= p,
-    ok (B,) bool)."""
+    fragments, M a multiple of 1024. collapse_runs=False leaves periodic
+    runs as plain one-step copies (deeper chains, the same bytes). Returns
+    (lit_out (B, 65536) int32 bytes, src (B, 65536) int32 one-step source
+    map with src[p] <= p, ok (B,) bool)."""
     b = c.shape[0]
     dev = c.device
     mdst, mval, ok = transport_cells(c, clen, ulen)
@@ -146,34 +168,37 @@ def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
     lit_f = desc_f == 1
     off_f = torch.clamp(desc_f - 1, min=0)
     src_plain = oiota - off_f
-    is_start = o_desc != 0
-    off_prev = torch.roll(off_f, 1, dims=-1)
-    lit_prev = torch.roll(lit_f, 1, dims=-1)
-    run_head = is_start & ~lit_f & (lit_prev | (off_prev != off_f)
-                                    | (oiota == 0))
-    rs_f = scan.ffill(run_head, oiota.expand(b, OUT).contiguous())
-    base = rs_f - off_f
-    offc = torch.clamp(off_f, min=1)
-    src_mod = torch.remainder(oiota - base, offc) + base
-    src = torch.where(lit_f, oiota,
-                      torch.where(src_plain >= rs_f, src_mod, src_plain))
+    if collapse_runs:
+        is_start = o_desc != 0
+        off_prev = torch.roll(off_f, 1, dims=-1)
+        lit_prev = torch.roll(lit_f, 1, dims=-1)
+        run_head = is_start & ~lit_f & (lit_prev | (off_prev != off_f)
+                                        | (oiota == 0))
+        rs_f = scan.ffill(run_head, oiota.expand(b, OUT).contiguous())
+        base = rs_f - off_f
+        offc = torch.clamp(off_f, min=1)
+        src_mod = torch.remainder(oiota - base, offc) + base
+        src = torch.where(lit_f, oiota,
+                          torch.where(src_plain >= rs_f, src_mod, src_plain))
+    else:
+        src = torch.where(lit_f, oiota, src_plain)
     return lit_out, torch.clamp(src, 0, OUT - 1).to(torch.int32), ok
 
 
-def dense_rounds(src: torch.Tensor):
-    """The dense pointer-doubling loop of resolve="tiledtail" and
-    "depthtail" (decode.py:349-359), per fragment as the vmapped
-    while_loop runs it: fragment b doubles its map (src = src[src], one
-    gather_block) while its moved count cnt[b] > TAIL_CAP and it has run
-    fewer than 16 rounds; cnt starts above 65536. A fragment whose
-    condition fails is frozen: its map and its count stay. Returns (src
-    (B, 65536) int32, cnt (B,) int32, rounds: the gather launches, which
-    is the largest per-fragment round count)."""
+def dense_rounds(src: torch.Tensor, cap: int = TAIL_CAP):
+    """The dense pointer-doubling loop of resolve="tiledtail", "flagtail",
+    "paratail" (cap PARA_CAP) and "depthtail" (decode.py:349-359), per
+    fragment as the vmapped while_loop runs it: fragment b doubles its map
+    (src = src[src], one gather_block) while its moved count cnt[b] > cap
+    and it has run fewer than 16 rounds; cnt starts above 65536. A
+    fragment whose condition fails is frozen: its map and its count stay.
+    Returns (src (B, 65536) int32, cnt (B,) int32, rounds: the gather
+    launches, which is the largest per-fragment round count)."""
     cnt = torch.full((src.shape[0],), OUT + 1, dtype=torch.int32,
                      device=src.device)
     rounds = 0
     while rounds < MAX_DENSE_ROUNDS:
-        active = cnt > TAIL_CAP
+        active = cnt > cap
         if not bool(active.any()):
             break
         s2 = _gather.gather_block(src, src, limbs=2)
@@ -191,25 +216,119 @@ def _finish(out: torch.Tensor, ulens: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, out.to(torch.uint8), 0)
 
 
-def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
-                     ulens: torch.Tensor, resolve: str = "tiledtail"):
-    """Decode a batch of fragments (decode.py:292). frags (B, M) uint8
-    zero-padded, M a multiple of 1024 (frag_width gives one); clens, ulens
-    (B,) int32. resolve: "tiledtail" (dense rounds, then the resolve
-    kernel with each fragment's `resolved` flag: cnt == 0) or "tiled" (the
-    resolve kernel alone); the bytes are the same. Returns (out (B, 65536)
-    uint8, zero past ulen; ok (B,) bool; the dense rounds run, 0 for
-    "tiled")."""
-    lit_out, src, ok = parse_transport(frags, clens, ulens)
+def _resolve_copies(lit: torch.Tensor, src: torch.Tensor, resolve: str):
+    """The copy-chain resolve of decode_fragment (decode.py:329-615) for
+    one mode. Returns (bytes (B, 65536) int32, rounds: the dense, local or
+    stability rounds launched, 0 for "tiled" and "kernel")."""
     if resolve == "tiledtail":
         src, cnt, rounds = dense_rounds(src)
-        out = _tiledres.resolve_tiled(lit_out, src, resolved=cnt == 0)
-    elif resolve == "tiled":
+        return _tiledres.resolve_tiled(lit, src, resolved=cnt == 0), rounds
+    if resolve == "tiled":
+        return _tiledres.resolve_tiled(lit, src), 0
+    if resolve == "flagtail":
+        # Root flags from the one-step map (decode.py:402), gathered at the
+        # map the dense rounds leave (decode.py:421; the TPU packs 16 flags
+        # a word only to cheapen its one-hot gather: the same bits).
+        oiota = torch.arange(OUT, dtype=torch.int32, device=src.device)
+        litv = (src == oiota).to(torch.int32)
+        src, _cnt, rounds = dense_rounds(src)
+        flags = _gather.gather_block(litv, src, limbs=1)
+        return _tiledres.resolve_tiled_flag(lit, src, flags), rounds
+    if resolve == "paratail":
+        # decode.py:439-464: one dense round (see PARA_CAP), in-tile local
+        # rounds per fragment while its map moved, then absorbs only.
+        src, cnt, rounds = dense_rounds(src, PARA_CAP)
+        moving = cnt != 0
+        for _ in range(MAX_LOCAL_ROUNDS):
+            if not bool(moving.any()):
+                break
+            s2 = _localround.local_round(src, PARA_TILE)
+            moving &= (s2 != src).any(dim=-1)
+            src = torch.where(moving[:, None], s2, src)
+            rounds += 1
+        done = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+        return _tiledres.resolve_tiled(lit, src, resolved=done), rounds
+    if resolve == "kernel":
+        return _resolve.resolve_block(lit, src), 0
+    if resolve == "stable":
+        # decode.py:468-483, per fragment while a tile is not stable; a row
+        # whose tiles are all stable passes through the kernel unchanged,
+        # so the whole batch runs every round.
+        stable = torch.zeros((src.shape[0], _doubling.TILES),
+                             dtype=torch.int32, device=src.device)
         rounds = 0
-        out = _tiledres.resolve_tiled(lit_out, src)
-    else:
-        raise ValueError(f"resolve {resolve!r}: 'tiledtail' or 'tiled'")
+        while rounds < MAX_DENSE_ROUNDS and not bool((stable == 1).all()):
+            src, stable = _doubling.doubling_round(src, stable)
+            rounds += 1
+        return _gather.gather_block(lit, src, limbs=1), rounds
+    # "plain" / "xla", decode.py:604-615: doubling until the map stops
+    # moving; a row at its fixed point no longer changes, so the batch runs
+    # together.
+    rounds = 0
+    while rounds < MAX_DENSE_ROUNDS:
+        s2 = _gather.gather_block(src, src, limbs=2)
+        rounds += 1
+        if torch.equal(s2, src):
+            break
+        src = s2
+    return _gather.gather_block(lit, src, limbs=1), rounds
+
+
+def _check_modes(resolve: str, fields: str) -> None:
+    """Raise ValueError for a resolve or fields mode the port does not run
+    (yet)."""
+    if resolve not in RESOLVES:
+        raise ValueError(f"resolve {resolve!r}: one of {', '.join(RESOLVES)}"
+                         ' ("windowed" and "hybrid" come with a later port '
+                         "slice)")
+    if fields == "kernel":
+        raise ValueError('fields="kernel" (the Pallas elem_fields_block) '
+                         'comes with a later port slice; use "auto"')
+    if fields not in ("auto", "xla"):
+        raise ValueError(f'fields {fields!r}: "auto" or "xla"')
+
+
+def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
+                     ulens: torch.Tensor, resolve: str = "tiledtail",
+                     fields: str = "auto", collapse_runs: bool = True):
+    """Decode a batch of fragments (decode.py:292). frags (B, M) uint8
+    zero-padded, M a multiple of 1024 (frag_width gives one); clens, ulens
+    (B,) int32. resolve: one of RESOLVES, all giving the same bytes;
+    "tiledtail" (dense rounds, then the resolve kernel with each
+    fragment's `resolved` flag: cnt == 0) is the TPU default. fields:
+    "auto" or "xla" (the same arithmetic). collapse_runs: the periodic-run
+    collapse before the resolve. Returns (out (B, 65536) uint8, zero past
+    ulen; ok (B,) bool; the rounds the resolve launched: dense, local or
+    stability rounds, 0 for "tiled" and "kernel")."""
+    _check_modes(resolve, fields)
+    lit_out, src, ok = parse_transport(frags, clens, ulens, collapse_runs)
+    out, rounds = _resolve_copies(lit_out, src, resolve)
     return _finish(out, ulens), ok, rounds
+
+
+def decode_corpus(frags: torch.Tensor, clens: torch.Tensor,
+                  ulens: torch.Tensor, resolve: str = "tiledtail",
+                  fields: str = "auto", collapse_runs: bool = True,
+                  wave: int = 8):
+    """Whole-corpus decode (decode.py:755): decode_fragments over waves of
+    `wave` fragments. The fragment count must be a multiple of `wave` (pad
+    it), else ValueError. Returns (out (F, 65536) uint8, ok (F,) bool),
+    what decode_fragments gives for the whole batch."""
+    nf = frags.shape[0]
+    if wave < 1 or nf % wave:
+        raise ValueError(f"decode_corpus: {nf} fragments is not a multiple "
+                         f"of the wave {wave}; pad the fragment count")
+    outs, oks = [], []
+    for s in range(0, nf, wave):
+        out, ok, _rounds = decode_fragments(
+            frags[s:s + wave], clens[s:s + wave], ulens[s:s + wave],
+            resolve, fields, collapse_runs)
+        outs.append(out)
+        oks.append(ok)
+    if not outs:
+        return (torch.zeros((0, OUT), dtype=torch.uint8, device=frags.device),
+                torch.zeros((0,), dtype=torch.bool, device=frags.device))
+    return torch.cat(outs), torch.cat(oks)
 
 
 def decode_fragments_depth(frags: torch.Tensor, clens: torch.Tensor,

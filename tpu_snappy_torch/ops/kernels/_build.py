@@ -47,6 +47,10 @@ SIGNATURES = {
     "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
     "snk_place": [P, P, P, P, I, I, I, P],
     "snk_scatter_block": [P, P, P, P, I, I, I, I, P],
+    "snk_resolve_tiled_flag": [P, P, P, P, I, P],
+    "snk_local_round": [P, P, I, P],
+    "snk_doubling_round": [P, P, P, P, I, P],
+    "snk_resolve_block": [P, P, P, I, P],
 }
 
 _lock = threading.Lock()

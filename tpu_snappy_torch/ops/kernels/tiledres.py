@@ -2,16 +2,17 @@
 
 Ports tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (the "fori"
 variant with its `resolved` flag; the "pair", "tri" and "grid" variants
-give the same bytes) and tiledres.py:resolve_tiled_depth. The CUDA
-kernels are csrc/tiledres.cu (tiles left to right: pointer doubling in
-shared memory, then one absorb from the row's earlier, final tiles; see
-its note). `src[p] <= p` must hold, as decode guarantees: it is what makes
-the fixed point exist and the tile walk exact.
+give the same bytes), tiledres.py:resolve_tiled_depth and
+tiledres.py:resolve_tiled_flag. The CUDA kernels are csrc/tiledres.cu
+(tiles left to right: pointer doubling in shared memory, then one absorb
+from the row's earlier, final tiles; see its note). `src[p] <= p` must
+hold, as decode guarantees: it is what makes the fixed point exist and the
+tile walk exact.
 
 The plain versions simulate the same tile walk, round for round, so they
 agree with the kernels (and the TPU) also where the walk does not reach
 the fixed point: a `resolved` flag given for a map that is not at its
-fixed point, or an under-declared depth.
+fixed point, an under-declared depth, or an over-approximate root flag.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from . import _build
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/tiledres.cu"
 REPLACES = {"resolve_tiled": "tpu_snappy/ops/pallas/tiledres.py:764",
-            "resolve_tiled_depth": "tpu_snappy/ops/pallas/tiledres.py:736"}
+            "resolve_tiled_depth": "tpu_snappy/ops/pallas/tiledres.py:736",
+            "resolve_tiled_flag": "tpu_snappy/ops/pallas/tiledres.py:709"}
 
 #: Positions per sequential tile of resolve_tiled (tiledres.py:50, the
 #: decoder's TAIL_TILE).
@@ -33,28 +35,42 @@ DEPTH_TILE = 1024
 
 
 def _tile_walk(lit: torch.Tensor, src: torch.Tensor, tile: int,
-               budget) -> torch.Tensor:
+               budget, flags: torch.Tensor | None = None) -> torch.Tensor:
     """The TPU kernels' walk: per tile, left to right, in-tile doubling
     rounds (at most budget(t) per row, (B,) int64; a round that moves
     nothing ends the row's loop, as it changes nothing), then one absorb
     from the byte plane (lit right of the tile base, final bytes left of
-    it)."""
+    it). With `flags` ((B, 65536) root flags) it is resolve_tiled_flag's
+    walk instead: before every round a row tests, on its current state,
+    whether some lane points in-tile with flag 0, and stops if none does;
+    a round moves each in-tile lane's flag with its pointer; no `moved`
+    break."""
     plane = lit.clone()
     for t in range(N // tile):
         base = t * tile
         s = src[:, base:base + tile]
+        f = None if flags is None else flags[:, base:base + tile] != 0
         rounds = budget(t)
         active = rounds > 0
         r = 0
-        while bool(active.any()):
+        while True:
+            if f is not None:
+                active &= ((s >= base) & ~f).any(dim=-1)
+            if not bool(active.any()):
+                break
             d = s - base
             inside = (d >= 0) & (d < tile)
-            hop = torch.gather(s, -1, torch.clamp(d, 0, tile - 1).long())
-            s2 = torch.where(inside, hop, s)
+            dc = torch.clamp(d, 0, tile - 1).long()
+            s2 = torch.where(inside, torch.gather(s, -1, dc), s)
+            if f is not None:
+                f = torch.where(active[:, None] & inside,
+                                torch.gather(f, -1, dc), f)
             moved = (s2 != s).any(dim=-1)
             s = torch.where(active[:, None], s2, s)
             r += 1
-            active &= moved & (rounds > r)
+            active &= rounds > r
+            if f is None:
+                active &= moved
         plane[:, base:base + tile] = torch.gather(plane, -1, s.long())
     return plane
 
@@ -153,3 +169,41 @@ def resolve_tiled_depth(lit: torch.Tensor, src: torch.Tensor,
 
 
 resolve_tiled_depth.launches = 0
+
+
+def resolve_tiled_flag_plain(lit: torch.Tensor, src: torch.Tensor,
+                             flags: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form of resolve_tiled_flag: the flag walk, at most
+    bit_length(TILE) rounds a tile."""
+    rounds = torch.full((lit.shape[0],), TILE.bit_length(), dtype=torch.int64,
+                        device=lit.device)
+    return _tile_walk(lit, src, TILE, lambda t: rounds, flags)
+
+
+def resolve_tiled_flag(lit: torch.Tensor, src: torch.Tensor,
+                       flags: torch.Tensor) -> torch.Tensor:
+    """Resolve with exact per-lane root flags: (B, 65536) int32 `flags`,
+    flags[p] != 0 iff src[p] is a fixed point of src (the decoder's
+    "flagtail" computes them as litv[src]). Each tile runs rounds while a
+    lane points in-tile at a non-root, on its current state. An
+    over-approximate flag (set on an unresolved lane) gives wrong bytes, as
+    on the TPU; all-zero flags run every round and stay exact. lit, src:
+    (B, 65536) int32, src[p] <= p. Returns (B, 65536) int32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if _build.on_cpu(lit, src, flags):
+        return resolve_tiled_flag_plain(lit, src, flags)
+    batch = lit.shape[0]
+    _build.require(lit, torch.int32, (batch, N), "lit")
+    _build.require(src, torch.int32, (batch, N), "src")
+    _build.require(flags, torch.int32, (batch, N), "flags")
+    out = torch.empty_like(lit)
+    if batch:
+        rc = _build.lib().snk_resolve_tiled_flag(
+            lit.data_ptr(), src.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            batch, _build.stream())
+        _build.check(rc, "resolve_tiled_flag")
+        resolve_tiled_flag.launches += 1
+    return out
+
+
+resolve_tiled_flag.launches = 0
