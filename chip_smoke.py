@@ -10,14 +10,16 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the sixteen kernels equals its plain
+3. kernel against plain: each of the twenty kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
    planted with signature collisions; the resolve kernels on the JAX
    tests' maps, the period-1 chain and a depth-10000 chain among them,
    with exact, over-approximate and all-zero root flags and partly stable
-   tiles);
+   tiles; the windowed gathers in chained rounds on the same maps; the
+   element fields on random, all-zero and all-255 rows at three widths;
+   resolve_tiled_dual with asymmetric `resolved` flags);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -38,22 +40,28 @@ Phases, each printing its results; any failure raises (non-zero exit):
    of "auto" (emit_block among the launches);
 7. resolve modes: the DEFAULT stream of phase 4 through
    ops.decode.decode_corpus at the API's wave under "tiledtail", "tiled",
-   "flagtail", "paratail", "kernel", "stable" and "plain", and "kernel"
-   and "stable" again without the run collapse, each giving the input
-   bytes, all fragments ok, equal to "tiledtail"'s output, with its
-   decode seconds, rounds per wave and launch counters (each mode's own
-   kernel among them);
+   "flagtail", "paratail", "kernel", "stable", "plain", "windowed",
+   "hybrid" (with WINDOWED_OPENING off and on) and "auto", "tiledtail"
+   with fields="kernel", and "kernel" and "stable" again without the run
+   collapse, each giving the input bytes, all fragments ok, equal to
+   "tiledtail"'s output, with its decode seconds, rounds per wave (and
+   "hybrid"'s chase steps) and launch counters (each mode's own kernel
+   among them);
 8. times: raw compress / decompress throughput and peak device memory;
    then traced raw and framed round trips, plus TURBO and flatten "off"
    compresses, an "emit" placement wave and decode_corpus under
-   "flagtail", "paratail", "kernel" and "stable", with a synchronised
-   host clock around each public stage and kernel wrapper, which also
-   capture every kernel's inputs;
+   "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid" with
+   the opening and fields="kernel", with a synchronised host clock around
+   each public stage and kernel wrapper, which also capture every
+   kernel's inputs;
 9. main path, kernel against plain: each kernel equals its plain version
    exactly on the calls captured from the main paths (the wave shapes they
    really run at), the time of both on them (CUDA events), the least
    time the card could take for the same work, and the time of one
-   PyTorch call computing the same function where there is one.
+   PyTorch call computing the same function where there is one
+   (resolve_tiled_dual, on no decode path, on the first two rows of the
+   captured resolve_tiled call). Host load averages print beside the
+   times.
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
@@ -67,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -264,6 +273,7 @@ def check_kernels(dev) -> None:
           f"max_abs_err={max(errs)}")
     check_encode_kernels(dev, rng, t, report)
     check_resolve_kernels(rng, t, report)
+    check_window_kernels(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
 
@@ -518,9 +528,69 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
           f"zero, one): max_abs_err={max(errs)}")
 
 
+def check_window_kernels(rng, t, report: dict) -> None:
+    """Phase 3, the last resolve modes' kernels: gather_window_block and
+    gather_window_anchored in chained rounds on the resolve maps,
+    elem_fields_block on random, all-zero and all-255 rows (every
+    look-ahead wraps) at three fragment widths, and resolve_tiled_dual
+    with asymmetric `resolved` flags."""
+    from tpu_snappy_torch.ops.kernels import (fields, gatherw, gatherwin,
+                                              tiledres)
+
+    src = t(_resolve_maps(rng))
+    errs = []
+    for k in (8, 16):
+        s = src
+        for _ in range(4):
+            got = gatherw.gather_window_block(s, s, k)
+            errs.append(_exact(got, gatherw.gather_window_block_plain(s, s,
+                                                                      k)))
+            s = got
+    report["gather_window_block"] = max(errs)
+    print(f"kernel gather_window_block B={BATCH} (the maps from themselves, "
+          f"k 8 and 16, 4 chained rounds each): max_abs_err={max(errs)}")
+
+    errs, s = [], src
+    for _ in range(2):
+        got = gatherwin.gather_window_anchored(s, s)
+        want = gatherwin.gather_window_anchored_plain(s, s)
+        errs += [_exact(g, w) for g, w in zip(got, want)]
+        s = got[0]
+    report["gather_window_anchored"] = max(errs)
+    print(f"kernel gather_window_anchored B={BATCH} (the maps, 2 chained "
+          f"rounds; in-window share {float(got[1].float().mean())}): "
+          f"max_abs_err={max(errs)}")
+
+    errs = []
+    for w in (8192, 57344, 69632):
+        c = np.concatenate([
+            rng.integers(0, 256, (BATCH - 2, w), dtype=np.uint8),
+            np.zeros((1, w), np.uint8), np.full((1, w), 255, np.uint8)])
+        got = fields.elem_fields_block(t(c))
+        want = fields.elem_fields_block_plain(t(c))
+        errs += [_exact(g, v) for g, v in zip(got, want)]
+    report["elem_fields_block"] = max(errs)
+    print(f"kernel elem_fields_block B={BATCH} W 8192/57344/69632 (random, "
+          f"all-zero, all-255 rows): max_abs_err={max(errs)}")
+
+    lit = t(rng.integers(0, 256, (2, N), dtype=np.int32))
+    errs = []
+    for pair in ((0, 4), (2, 1)):
+        s2 = src[list(pair)].contiguous()
+        for flags in (None, [True, False], [False, True]):
+            res = None if flags is None else t(np.array(flags))
+            errs.append(_exact(tiledres.resolve_tiled_dual(lit, s2, res),
+                               tiledres.resolve_tiled_dual_plain(lit, s2,
+                                                                 res)))
+    report["resolve_tiled_dual"] = max(errs)
+    print(f"kernel resolve_tiled_dual (2, {N}) (pairs of the maps; resolved "
+          f"none, [T, F], [F, T]): max_abs_err={max(errs)}")
+
+
 def _kernel_modules() -> dict:
-    """Every kernel of the main paths: wrapper name -> module."""
-    from tpu_snappy_torch.ops.kernels import (doubling, emit, ffill, gather,
+    """Every ported kernel: wrapper name -> module."""
+    from tpu_snappy_torch.ops.kernels import (doubling, emit, ffill, fields,
+                                              gather, gatherw, gatherwin,
                                               localround, matcher, place,
                                               resolve, scatter, tiledres,
                                               windows)
@@ -531,18 +601,31 @@ def _kernel_modules() -> dict:
             "gather_block": gather, "resolve_tiled_depth": tiledres,
             "matcher_block": matcher, "emit_block": emit,
             "resolve_tiled_flag": tiledres, "local_round": localround,
-            "resolve_block": resolve, "doubling_round": doubling}
+            "resolve_block": resolve, "doubling_round": doubling,
+            "gather_window_block": gatherw,
+            "gather_window_anchored": gatherwin,
+            "elem_fields_block": fields, "resolve_tiled_dual": tiledres}
 
 
-#: The kernel each resolve mode adds to the decode (phase 7).
-MODE_KERNEL = {"flagtail": "resolve_tiled_flag", "paratail": "local_round",
-               "kernel": "resolve_block", "stable": "doubling_round"}
+#: The kernel each resolve-mode run adds to the decode (phase 7), by
+#: (resolve, fields, WINDOWED_OPENING).
+MODE_KERNEL = {("flagtail", "auto", False): "resolve_tiled_flag",
+               ("paratail", "auto", False): "local_round",
+               ("kernel", "auto", False): "resolve_block",
+               ("stable", "auto", False): "doubling_round",
+               ("windowed", "auto", False): "gather_window_block",
+               ("hybrid", "auto", True): "gather_window_anchored",
+               ("tiledtail", "kernel", False): "elem_fields_block"}
+
+#: Kernels on no decode path: held against their plain versions in
+#: phases 3 and 9 only.
+OFF_PATH = ("resolve_tiled_dual",)
 
 #: Kernels the raw DEFAULT round trip does not run: the framed sidecar
 #: decodes', flatten "off"'s, the "emit" placement's and the other resolve
-#: modes'.
+#: modes' and fields'.
 NOT_RAW = ("resolve_tiled_depth", "matcher_block", "emit_block",
-           *MODE_KERNEL.values())
+           *MODE_KERNEL.values(), *OFF_PATH)
 
 
 def _replaces(mod, name: str) -> str:
@@ -566,6 +649,8 @@ def _public_stages() -> dict:
             "parse_transport": (decode, "parse_transport"),
             "commit_general": (scan, "commit_general"),
             "dense_rounds": (decode, "dense_rounds"),
+            "hybrid_rounds": (decode, "hybrid_rounds"),
+            "sparse_chase": (decode, "sparse_chase"),
             "decode_corpus": (decode, "decode_corpus"),
             "decode_chunks": (sidecar, "decode_chunks")}
 
@@ -612,14 +697,13 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
     """Phase 8: one more raw round trip through the public API, the framed
     decodes of the "auto" and "always" streams, TURBO and flatten "off"
     compresses, one "emit" placement wave and decode_corpus of phase 7's
-    fragments (`corpus`) under the four resolve modes with kernels of
-    their own, with every public stage and every kernel wrapper wrapped in
-    place. Each wrapped call is
-    timed on the host clock between two synchronises, and the first call
-    of each kernel per calling stage, input shape and scalar argument is
-    cloned, so that phase 9 holds the kernel against its plain version on
-    exactly the calls the main paths make. Returns those captured calls,
-    each as (args, kwargs)."""
+    fragments (`corpus`) under each resolve-mode run of MODE_KERNEL, with
+    every public stage and every kernel wrapper wrapped in place. Each
+    wrapped call is timed on the host clock between two synchronises, and
+    the first call of each kernel per calling stage, input shape and
+    scalar argument is cloned, so that phase 9 holds the kernel against
+    its plain version on exactly the calls the main paths make. Returns
+    those captured calls, each as (args, kwargs)."""
     import functools
 
     from tpu_snappy_torch import api, config, framing
@@ -677,10 +761,15 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         api.compress(data, _flat_off(), device="cuda")
         encode.encode_blocks(*wave, placement="emit")
         t4 = time.perf_counter()
-        modes = [decode.decode_corpus(*corpus, resolve=m, wave=api.API_WAVE)
-                 for m in MODE_KERNEL]
+        modes = []
+        for mode, fields, opening in MODE_KERNEL:
+            decode.WINDOWED_OPENING = opening
+            modes.append(decode.decode_corpus(*corpus, resolve=mode,
+                                              fields=fields,
+                                              wave=api.API_WAVE))
         t5 = time.perf_counter()
     finally:
+        decode.WINDOWED_OPENING = False
         for name, (mod, attr) in targets.items():
             setattr(mod, attr, saved[name])
     if back != data or any(b != data for b in backs):
@@ -691,8 +780,9 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
           f" framed decompress auto + always {(t3 - t2) * 1e3} ms, TURBO and"
           f" flatten off compresses + an emit wave {(t4 - t3) * 1e3} ms, "
-          f"decode_corpus under {', '.join(MODE_KERNEL)} {(t5 - t4) * 1e3} "
-          f"ms; host-clock ms per stage over all waves [{card}]:")
+          f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
+          f"host-clock ms per stage over all waves; load average "
+          f"{os.getloadavg()} [{card}]:")
     for name in targets:
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
     return captured
@@ -721,7 +811,9 @@ _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
         "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2,
         "emit_block": 60, "resolve_tiled_flag": 3, "local_round": 3,
-        "doubling_round": 3}
+        "doubling_round": 3, "gather_window_block": 5,
+        "gather_window_anchored": 6, "elem_fields_block": 40,
+        "resolve_tiled_dual": 2}
 
 
 def _doubling_rounds(src: torch.Tensor) -> int:
@@ -778,13 +870,15 @@ def _library_ms(name: str, args, dev):
     """Time of one PyTorch call computing the same function, where there
     is one: `scatter_add_` for the three scatters, on the captured inputs
     (it counts no window drops and sums instead of joining limbs), and
-    `torch.gather` for gather_block and doubling_round (s o s; no stable
-    tiles skipped, no flags), with its int64 index made beforehand.
-    None for the others: no single PyTorch call computes the matcher's
-    chain, the emission packs, the window keys, a forward fill, a local
-    round or a resolve."""
-    if name in ("gather_block", "doubling_round"):
-        x, idx = args[0], args[1 if name == "gather_block" else 0]
+    `torch.gather` for gather_block, doubling_round (s o s; no stable
+    tiles skipped, no flags) and the two windowed gathers (no window
+    test), with its int64 index made beforehand. None for the others: no
+    single PyTorch call computes the matcher's chain, the emission packs,
+    the window keys, a forward fill, the element fields, a local round or
+    a resolve."""
+    if name in ("gather_block", "doubling_round", "gather_window_block",
+                "gather_window_anchored"):
+        x, idx = args[0], args[0 if name == "doubling_round" else 1]
         ix = torch.clamp(idx, 0, x.shape[-1] - 1).to(torch.int64)
         return _timed(lambda: torch.gather(x, -1, ix), dev, 20)
     if name not in ("scatter_windowed", "place_block", "scatter_block"):
@@ -811,6 +905,16 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
     difference over its captured calls and the numbers of its largest
     call (by the distinct bytes its arguments hold)."""
     kernels = _kernel_modules()
+    # resolve_tiled_dual is on no decode path: it runs on the first two
+    # rows of the largest captured resolve_tiled call.
+    args, kw = max(((a, k) for (name, *_), (a, k) in captured.items()
+                    if name == "resolve_tiled"),
+                   key=lambda c: c[0][0].shape[0])
+    dual = tuple(a[:2].contiguous() for a in _tensors((args, kw)))
+    captured = {**captured, ("resolve_tiled_dual", "resolve_tiled's first "
+                             "two rows", tuple((tuple(a.shape), str(a.dtype))
+                                               for a in dual), ()):
+                (dual, {})}
     report = {}
     for (name, stage, shapes, scalars), (args, kw) in captured.items():
         mod = kernels[name]
@@ -1017,63 +1121,83 @@ def _corpus(dev, comp: bytes, wave: int) -> tuple:
 
 def resolve_modes(dev, data: bytes, comp: bytes, wrappers: dict, card: str):
     """Phase 7: the DEFAULT stream through decode_corpus at the API's wave
-    under every resolve mode, and "kernel" and "stable" without the run
-    collapse, each run with the launch counters set to 0 just before and
-    read just after. Each must give the input bytes, every fragment ok,
-    and "tiledtail"'s output exactly, and launch its mode's kernel.
-    Returns (the launches of all these runs, the fragments on the card)."""
+    under every resolve mode ("hybrid" with WINDOWED_OPENING off and on),
+    "tiledtail" with fields="kernel", and "kernel" and "stable" without
+    the run collapse, each run with the launch counters set to 0 just
+    before and read just after. Each must give the input bytes, every
+    fragment ok, and "tiledtail"'s output exactly, and launch its run's
+    kernel. Returns (the launches of all these runs, the fragments on the
+    card)."""
     from tpu_snappy_torch import api
     from tpu_snappy_torch.ops import decode
 
     corpus = _corpus(dev, comp, api.API_WAVE)
     ulens = corpus[2].cpu().numpy()
     total = dict.fromkeys(wrappers, 0)
-    rounds = []
-    decode_fragments = decode.decode_fragments
+    rounds, steps = [], []
+    decode_fragments, sparse_chase = decode.decode_fragments, \
+        decode.sparse_chase
 
     def counted(*args, **kwargs):  # decode_corpus's waves, with rounds
         res = decode_fragments(*args, **kwargs)
         rounds.append(res[2])
         return res
 
-    runs = [(m, True) for m in ("tiledtail", "tiled", "flagtail", "paratail",
-                                "kernel", "stable", "plain")]
-    runs += [("kernel", False), ("stable", False)]
+    def chased(*args):  # "hybrid"'s chase steps, the most of a wave
+        res = sparse_chase(*args)
+        steps.append(int(res[2].max()))
+        return res
+
+    runs = [(m, "auto", True, False)
+            for m in ("tiledtail", "tiled", "flagtail", "paratail", "kernel",
+                      "stable", "plain", "windowed", "hybrid")]
+    runs += [("hybrid", "auto", True, True), ("auto", "auto", True, False),
+             ("tiledtail", "kernel", True, False),
+             ("kernel", "auto", False, False),
+             ("stable", "auto", False, False)]
     first = None
-    decode.decode_fragments = counted
+    decode.decode_fragments, decode.sparse_chase = counted, chased
     try:
-        for mode, collapse in runs:
+        for mode, fields, collapse, opening in runs:
             rounds.clear()
+            steps.clear()
+            decode.WINDOWED_OPENING = opening
             _reset(wrappers)
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             out, ok = decode.decode_corpus(*corpus, resolve=mode,
+                                           fields=fields,
                                            collapse_runs=collapse,
                                            wave=api.API_WAVE)
             torch.cuda.synchronize(dev)
             seconds = time.perf_counter() - t0
             launches = _launches(wrappers)
+            label = (f"resolve {mode} fields {fields} (collapse_runs="
+                     f"{collapse}, WINDOWED_OPENING={opening})")
             host = out.cpu().numpy()
             back = b"".join(host[i, :n].tobytes() for i, n in enumerate(ulens))
             if back != data or not bool(ok.all()):
-                raise AssertionError(f"decode_corpus {mode} (collapse "
-                                     f"{collapse}) differs from the input")
+                raise AssertionError(f"decode_corpus {label} differs from "
+                                     f"the input")
             first = out if first is None else first
             if not torch.equal(out, first):
-                raise AssertionError(f"{mode} differs from tiledtail")
-            need = MODE_KERNEL.get(mode)
+                raise AssertionError(f"{label} differs from tiledtail")
+            need = MODE_KERNEL.get((mode, fields, opening))
             if need and not launches[need]:
-                raise AssertionError(f"{mode}: {need} did not run; "
+                raise AssertionError(f"{label}: {need} did not run; "
                                      f"{launches}")
-            print(f"resolve {mode} (collapse_runs={collapse}): "
-                  f"decode_corpus {seconds} s, "
+            chase = f", chase steps per wave {steps}" if steps else ""
+            print(f"{label}: decode_corpus {seconds} s, "
                   f"{len(data) / seconds / 1e9} GB/s, rounds per wave "
-                  f"{rounds} [{card}]")
+                  f"{rounds}{chase}; load average {os.getloadavg()} "
+                  f"[{card}]")
             print(f"  launches: {launches}")
             for k, v in launches.items():
                 total[k] += v
     finally:
-        decode.decode_fragments = decode_fragments
+        decode.WINDOWED_OPENING = False
+        decode.decode_fragments, decode.sparse_chase = decode_fragments, \
+            sparse_chase
     return total, corpus
 
 
@@ -1260,8 +1384,8 @@ def main() -> None:
     t2 = time.perf_counter()
     if comp2 != comp or back2 != data:
         raise AssertionError("second round trip differs from the first")
-    print(f"compress: {t1 - t0} s, {len(data) / (t1 - t0) / 1e9} GB/s "
-          f"[{card}]")
+    print(f"compress: {t1 - t0} s, {len(data) / (t1 - t0) / 1e9} GB/s; "
+          f"load average {os.getloadavg()} [{card}]")
     print(f"decompress: {t2 - t1} s, {len(data) / (t2 - t1) / 1e9} GB/s "
           f"[{card}]")
     print(f"peak device memory over the round trip: {peak} bytes "

@@ -23,6 +23,10 @@ from tpu_snappy.utils import corpus
 from tpu_snappy_torch import api
 from tpu_snappy_torch.ops import decode as TD
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 def _three_blocks() -> bytes:
     rng = np.random.default_rng(21)

@@ -32,6 +32,10 @@ from tpu_snappy_torch import api
 from tpu_snappy_torch.ops import decode as TD
 from tpu_snappy_torch.ops.kernels import scatter as KS
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 def _build(total, elements):
     return fmt.varint_encode(total) + b"".join(elements)

@@ -28,6 +28,10 @@ from tpu_snappy_torch.ops.kernels import resolve as KR
 
 from test_torch_tiledres import _fixed_point, _maps, _t
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 
 

@@ -26,6 +26,10 @@ from tpu_snappy_torch.ops.kernels import emit as KE
 
 from test_torch_encode import _inputs
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 
 

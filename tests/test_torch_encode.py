@@ -24,6 +24,10 @@ from tpu_snappy.ops import encode as E
 from tpu_snappy_torch.ops import encode as TE
 from tpu_snappy_torch.ops.kernels import matcher as KM
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = fmt.BLOCK_SIZE
 
 

@@ -25,6 +25,10 @@ from tpu_snappy import framing as JF
 from tpu_snappy_torch import framing as TF
 from tpu_snappy_torch.native import golden
 
+from torch_threads import share_cores
+
+share_cores()
+
 POLICIES = ("off", "auto", "always")
 
 

@@ -18,6 +18,10 @@ from tpu_snappy.ops.pallas import gather as PG
 
 from tpu_snappy_torch.ops.kernels import gather as KG
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 CASES = [(s, limbs) for s in (8192, N) for limbs in (1, 2)]
 

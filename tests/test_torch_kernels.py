@@ -35,6 +35,10 @@ from tpu_snappy_torch.ops.kernels import scatter as KS
 from tpu_snappy_torch.ops.kernels import tiledres as KT
 from tpu_snappy_torch.ops.kernels import windows as KW
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 N_EDGES = (N, N - 1, 5000, 4, 3, 0)
 

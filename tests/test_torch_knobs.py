@@ -31,6 +31,10 @@ from tpu_snappy_torch.ops.kernels import matcher as KM
 
 from test_torch_presets import data_70k, rows
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 KNOBS = {"stride4": dict(stride=4),
          "probes": dict(candidates=8, probes=12),

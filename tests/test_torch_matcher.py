@@ -34,6 +34,10 @@ from tpu_snappy_torch.ops.kernels import matcher as KM
 from test_torch_encode import _inputs
 from test_torch_presets import sig_collision_row
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 K = DEFAULT_CONFIG.candidates
 ROWS = range(len(_inputs()[1]))

@@ -28,6 +28,10 @@ from tpu_snappy_torch.ops.kernels import scatter as KS
 
 from test_torch_emit import parse  # noqa: F401 (fixture)
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 CAPACITY = DEFAULT_CONFIG.block_capacity
 OUT_ROWS = CAPACITY // 128

@@ -1,16 +1,20 @@
-"""The port's encoder at the JAX package's presets against the JAX encoder.
+"""The port's encoder at the JAX package's presets against the JAX encoder:
+the shared inputs and checks, and the tests that span presets.
 
 FAST (K=8), TURBO (K=3, sticky "sig") and ULTRA (TURBO at stride 2) run
-the packed matcher at odd K and at "sig". On seeded rows (text, byte
-runs, random bytes, a row planted with signature collisions, and the two
-blocks of a 70 KB input) the port's encode_blocks at every placement must
-equal tpu_snappy.ops.encode.encode_blocks at the same config byte for
-byte (the JAX suite proves its CPU route equal to its TPU route and to
-its "sort" placement); the packed candidate form must equal the JAX
+the packed matcher at odd K and at "sig". Each preset has a test file of
+its own (tests/test_torch_presets_fast.py, _turbo.py, _ultra.py), so that
+a run with one worker per file spreads them. There, on seeded rows (text,
+byte runs, random bytes, a row planted with signature collisions, and the
+two blocks of a 70 KB input) the port's encode_blocks at every placement
+must equal tpu_snappy.ops.encode.encode_blocks at the same config byte
+for byte (the JAX suite proves its CPU route equal to its TPU route and
+to its "sort" placement); the packed candidate form must equal the JAX
 packed form; api.compress must equal the JAX api.compress, and every
 stream must round-trip through the port and the host codecs; the framed
 stream under ULTRA with sidecar "auto" must equal the JAX framed stream.
-The `gpu` tests repeat the encode on the card.
+The `gpu` tests repeat the encode on the card. Here: the presets are the
+JAX presets, and every placement gives the bytes of "sort".
 """
 
 import numpy as np
@@ -22,15 +26,17 @@ import jax.numpy as jnp
 
 from tpu_snappy import api as jax_api
 from tpu_snappy import config as JC
-from tpu_snappy import framing as jax_framing
 from tpu_snappy import reference_codec
 from tpu_snappy.ops import encode as E
 
 from tpu_snappy_torch import api
 from tpu_snappy_torch import config as TC
-from tpu_snappy_torch import framing
 from tpu_snappy_torch.ops import decode as TD
 from tpu_snappy_torch.ops import encode as TE
+
+from torch_threads import share_cores
+
+share_cores()
 
 N = 1 << 16
 PRESETS = {"fast": (JC.FAST_CONFIG, TC.FAST_CONFIG),
@@ -100,16 +106,26 @@ def rows():
     return blocks, lens
 
 
-@pytest.fixture(scope="module")
-def jax_out():
-    """preset -> JAX (out, out_lens) on rows()."""
+def jax_encode(preset: str):
+    """JAX (out, out_lens) of rows() at a preset, as numpy."""
     blocks, lens = rows()
-    res = {}
-    for name, (jcfg, _) in PRESETS.items():
-        out, out_lens = E.encode_blocks(jnp.asarray(blocks),
-                                        jnp.asarray(lens), jcfg)
-        res[name] = np.asarray(out), np.asarray(out_lens)
-    return res
+    out, out_lens = E.encode_blocks(jnp.asarray(blocks), jnp.asarray(lens),
+                                    PRESETS[preset][0])
+    return np.asarray(out), np.asarray(out_lens)
+
+
+def check_encode_blocks(want: tuple, preset: str, placement: str,
+                        device="cpu") -> None:
+    """The port's encode_blocks of rows() at a preset and placement, on
+    `device`, equals JAX's (out, out_lens) `want`."""
+    blocks, lens = rows()
+    out, out_lens = TE.encode_blocks(torch.from_numpy(blocks).to(device),
+                                     torch.from_numpy(lens).to(device),
+                                     PRESETS[preset][1], placement)
+    want, want_lens = want
+    assert (out_lens.cpu().numpy() == want_lens).all(), placement
+    assert out.shape == want.shape
+    assert (out.cpu().numpy() == want).all(), placement
 
 
 def test_port_presets_are_the_jax_presets():
@@ -119,21 +135,7 @@ def test_port_presets_are_the_jax_presets():
                              "kernel")
 
 
-@pytest.mark.parametrize("placement", TE.PLACEMENTS)
-@pytest.mark.parametrize("preset", PRESETS)
-def test_encode_blocks_matches_jax(jax_out, preset, placement):
-    blocks, lens = rows()
-    out, out_lens = TE.encode_blocks(torch.from_numpy(blocks),
-                                     torch.from_numpy(lens),
-                                     PRESETS[preset][1], placement)
-    want, want_lens = jax_out[preset]
-    assert (out_lens.numpy() == want_lens).all()
-    assert out.shape == want.shape
-    assert (out.numpy() == want).all()
-
-
-@pytest.mark.parametrize("preset", ["turbo", "ultra"])
-def test_odd_k_packed_form_matches_jax(preset):
+def check_odd_k_packed_form(preset: str) -> None:
     """At odd K every half of the (K-1)/2 words is a slot (no flattening
     offset in a high half), at stride 2 the form is expanded with zero
     rows; both must equal the JAX packed form exactly."""
@@ -200,25 +202,18 @@ def test_every_placement_equals_sort(seed):
             assert torch.equal(out, want), placement
 
 
-@pytest.fixture(scope="module")
-def api_streams():
-    """preset -> (port stream, JAX stream) of data_70k() via api.compress."""
+def api_streams(preset: str):
+    """(port stream, JAX stream) of data_70k() via api.compress."""
+    jcfg, tcfg = PRESETS[preset]
     data = data_70k()
-    return {name: (api.compress(data, tcfg, device="cpu"),
-                   jax_api.compress(data, jcfg))
-            for name, (jcfg, tcfg) in PRESETS.items()}
+    return (api.compress(data, tcfg, device="cpu"),
+            jax_api.compress(data, jcfg))
 
 
-@pytest.mark.parametrize("preset", PRESETS)
-def test_api_compress_matches_jax(api_streams, preset):
-    port, want = api_streams[preset]
-    assert port == want
-
-
-@pytest.mark.parametrize("preset", PRESETS)
-def test_api_round_trip(api_streams, preset):
+def check_api_round_trip(preset: str, comp: bytes) -> None:
+    """The port's stream of data_70k() at a preset round-trips through
+    the port (on the device path) and the host codecs."""
     data = data_70k()
-    comp = api_streams[preset][0]
     tcfg = PRESETS[preset][1]
     got, stats = api.decompress_with_stats(comp, tcfg, device="cpu")
     assert got == data
@@ -227,33 +222,3 @@ def test_api_round_trip(api_streams, preset):
     golden = TD.native_golden()
     if golden is not None:
         assert golden.uncompress(comp) == data
-
-
-def test_framed_ultra_auto_matches_jax():
-    data = data_70k()
-    jcfg, tcfg = PRESETS["ultra"]
-    fr = framing.compress(data, "auto", device="cpu", cfg=tcfg)
-    assert fr == jax_framing.compress(data, jcfg, sidecar="auto")
-    assert framing.decompress(fr, device="cpu", cfg=tcfg) == data
-    assert framing.decompress(fr, False, device="cpu") == data
-    assert jax_framing.decompress(fr, jcfg) == data
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("preset", PRESETS)
-def test_presets_on_the_card_match_jax(jax_out, preset, cuda):
-    blocks, lens = rows()
-    want, want_lens = jax_out[preset]
-    for placement in TE.PLACEMENTS:
-        out, out_lens = TE.encode_blocks(
-            torch.from_numpy(blocks).to(cuda), torch.from_numpy(lens).to(cuda),
-            PRESETS[preset][1], placement)
-        assert (out_lens.cpu().numpy() == want_lens).all(), placement
-        assert (out.cpu().numpy() == want).all(), placement

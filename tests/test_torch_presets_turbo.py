@@ -1,0 +1,62 @@
+"""The port's encoder at the JAX package's TURBO preset (K=3, sticky "sig")
+against the JAX encoder: encode_blocks of tests/test_torch_presets.py's
+rows at every placement, the packed candidate form at odd K, api.compress
+of its 70 KB input, and that stream's round trip through the port and the
+host codecs. The `gpu` test repeats the encode on the card.
+"""
+
+import pytest
+import torch
+
+from test_torch_presets import (api_streams, check_api_round_trip,
+                                check_encode_blocks, check_odd_k_packed_form,
+                                jax_encode)
+
+from tpu_snappy_torch.ops import encode as TE
+
+from torch_threads import share_cores
+
+share_cores()
+
+PRESET = "turbo"
+
+
+@pytest.fixture(scope="module")
+def jax_out():
+    return jax_encode(PRESET)
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return api_streams(PRESET)
+
+
+@pytest.mark.parametrize("placement", TE.PLACEMENTS)
+def test_encode_blocks_matches_jax(jax_out, placement):
+    check_encode_blocks(jax_out, PRESET, placement)
+
+
+def test_api_compress_matches_jax(streams):
+    port, want = streams
+    assert port == want
+
+
+def test_api_round_trip(streams):
+    check_api_round_trip(PRESET, streams[0])
+
+
+def test_odd_k_packed_form_matches_jax():
+    check_odd_k_packed_form(PRESET)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_presets_on_the_card_match_jax(jax_out, cuda):
+    for placement in TE.PLACEMENTS:
+        check_encode_blocks(jax_out, PRESET, placement, cuda)

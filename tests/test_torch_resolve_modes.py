@@ -4,13 +4,15 @@ One seeded batch (the port's streams of text, b"ab" * 8000 and random
 bytes, reference_codec's b"x" * 30000, and a stream of alternating-offset
 copies that needs seven dense rounds) goes once through JAX
 decode_fragments_jit per resolve mode, and through the port's
-decode_fragments and decode_corpus under every mode it runs. Bytes and ok
-flags must be equal, with and without the periodic-run collapse. On the
-CPU, JAX's "stable" is its "plain" loop (decode.py:468 takes the
-doubling_round kernel only on a TPU) and "xla" is the same branch, so both
-are held against JAX's "plain"; collapse_runs=False is held against JAX
-decode_corpus at "plain" (every JAX mode gives the same bytes, and its
-"kernel" mode takes 16 s interpreted on this batch without the collapse).
+decode_fragments and decode_corpus under each mode of ORACLE
+(tests/test_torch_windowed.py holds "auto", "hybrid" and "windowed").
+Bytes and ok flags must be equal, with and without the periodic-run
+collapse. On the CPU, JAX's "stable" is its "plain" loop (decode.py:468
+takes the doubling_round kernel only on a TPU) and "xla" is the same
+branch, so both are held against JAX's "plain"; collapse_runs=False is
+held against JAX decode_corpus at "plain" (every JAX mode gives the same
+bytes, and its "kernel" mode takes 16 s interpreted on this batch without
+the collapse).
 """
 
 import numpy as np
@@ -25,6 +27,10 @@ from tpu_snappy.ops import decode as D
 
 from tpu_snappy_torch import api
 from tpu_snappy_torch.ops import decode as TD
+
+from torch_threads import share_cores
+
+share_cores()
 
 WAVE = 3  # the batch holds 6 fragments: two waves
 #: JAX mode each port mode is held against on the CPU (see above).
@@ -98,7 +104,7 @@ def test_jax_modes_agree(batch, oracle):
 
 
 @pytest.mark.parametrize("collapse", [True, False])
-@pytest.mark.parametrize("mode", TD.RESOLVES)
+@pytest.mark.parametrize("mode", ORACLE)
 def test_decode_fragments_matches_jax(batch, oracle, mode, collapse):
     # "xla" also takes fields="xla" (the same arithmetic as "auto").
     fields = "xla" if mode == "xla" else "auto"
@@ -143,10 +149,15 @@ def test_paratail_runs_one_dense_round(batch):
 
 
 def test_modes_the_port_does_not_run_raise(batch):
-    with pytest.raises(ValueError, match="windowed"):
-        TD.decode_fragments(*batch["t"], resolve="windowed")
-    with pytest.raises(ValueError, match="later port slice"):
-        TD.decode_fragments(*batch["t"], fields="kernel")
+    """Every JAX mode runs (tests/test_torch_windowed.py holds the newer
+    ones); an unknown resolve or fields mode, or a batch that is not a
+    whole number of waves, raises."""
+    assert set(ORACLE) | {"auto", "hybrid", "windowed"} == set(TD.RESOLVES)
+    assert TD.FIELDS == ("auto", "xla", "kernel")
+    with pytest.raises(ValueError, match="resolve 'depthtail'"):
+        TD.decode_fragments(*batch["t"], resolve="depthtail")
+    with pytest.raises(ValueError, match="fields 'pallas'"):
+        TD.decode_fragments(*batch["t"], fields="pallas")
     with pytest.raises(ValueError, match="multiple"):
         TD.decode_corpus(*batch["t"], wave=4)
 
@@ -159,7 +170,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", TD.RESOLVES)
+@pytest.mark.parametrize("mode", ORACLE)
 def test_modes_on_the_card_match_cpu(batch, mode, cuda):
     args = tuple(t.to(cuda) for t in batch["t"])
     for collapse in (True, False):

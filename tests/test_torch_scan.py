@@ -14,6 +14,10 @@ import jax.numpy as jnp
 from tpu_snappy.ops import scan as JS
 from tpu_snappy_torch.ops import scan as TS
 
+from torch_threads import share_cores
+
+share_cores()
+
 
 def _golden_committed(jump: np.ndarray) -> np.ndarray:
     out = np.zeros(len(jump), bool)

@@ -38,6 +38,10 @@ from tpu_snappy_torch import sidecar
 from tpu_snappy_torch.native import golden, realsnappy
 from tpu_snappy_torch.ops import decode
 
+from torch_threads import share_cores
+
+share_cores()
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

@@ -28,6 +28,10 @@ from tpu_snappy.ops.pallas import scatter as PS
 from tpu_snappy_torch import sidecar as SC
 from tpu_snappy_torch.ops.kernels import scatter as KS
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 
 

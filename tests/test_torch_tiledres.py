@@ -24,6 +24,10 @@ from tpu_snappy.ops.pallas import tiledres as PT
 
 from tpu_snappy_torch.ops.kernels import tiledres as KT
 
+from torch_threads import share_cores
+
+share_cores()
+
 N = 1 << 16
 
 

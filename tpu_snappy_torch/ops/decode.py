@@ -1,20 +1,25 @@
 """Fragment-parallel Snappy decoder in PyTorch (port of
 tpu_snappy/ops/decode.py).
 
-The JAX decoder at its TPU default, resolve="tiledtail": per fragment,
-speculative element fields for every compressed byte, the tag-chain parse
-(commit_general), forward fills, the windowed transport scatter, the
-periodic-run collapse, dense pointer-doubling rounds while more than
-TAIL_CAP lanes still move, and the tile-sequential resolve. The other
-resolve modes give the same bytes: "tiled" (the resolve kernel alone),
-"flagtail" (root flags steer the resolve), "paratail" (parallel in-tile
-rounds, then absorbs only), "kernel" (the fused resolve_block), "stable"
-(doubling rounds with per-tile stability) and "plain" / "xla" (dense
-doubling to the fixed point, then a byte gather). decode_corpus runs a
-batch in waves under any of them, and decode_fragments_depth is the framed
-container's depth-hinted decode ("depthtail"). The forward fills, the
-transport scatter, the gathers and every resolve run through the
-hand-written kernels (ops/kernels/).
+The JAX decoder at its TPU default, resolve="tiledtail" (what "auto"
+means here, on every device): per fragment, speculative element fields
+for every compressed byte, the tag-chain parse (commit_general), forward
+fills, the windowed transport scatter, the periodic-run collapse, dense
+pointer-doubling rounds while more than TAIL_CAP lanes still move, and the
+tile-sequential resolve. The other resolve modes give the same bytes:
+"tiled" (the resolve kernel alone), "flagtail" (root flags steer the
+resolve), "paratail" (parallel in-tile rounds, then absorbs only),
+"kernel" (the fused resolve_block), "stable" (doubling rounds with
+per-tile stability), "hybrid" (dense rounds while more than SPARSE_CAP
+lanes move, then a sparse pointer chase of the moving lanes; JAX's "auto"
+off the TPU), "windowed" (four windowed rounds, then dense doubling) and
+"plain" / "xla" (dense doubling to the fixed point, then a byte gather).
+fields="kernel" computes the element fields with elem_fields_block.
+decode_corpus runs a batch in waves under any of them, and
+decode_fragments_depth / decode_corpus_depth are the framed container's
+depth-hinted decode ("depthtail"). The forward fills, the transport
+scatter, the gathers and every resolve run through the hand-written
+kernels (ops/kernels/).
 
 As on the TPU, a transport write outside its window marks the fragment
 not-ok (the JAX CPU path scatters without a window and cannot see one);
@@ -34,7 +39,10 @@ import torch
 from .. import format as fmt
 from . import scan
 from .kernels import doubling as _doubling
+from .kernels import fields as _fields
 from .kernels import gather as _gather
+from .kernels import gatherw as _gatherw
+from .kernels import gatherwin as _gatherwin
 from .kernels import localround as _localround
 from .kernels import resolve as _resolve
 from .kernels import scatter as _scatter
@@ -64,59 +72,46 @@ PARA_CAP = 65536
 PARA_TILE = _localround.TILE
 #: "paratail"'s most local rounds a fragment runs (decode.py:453).
 MAX_LOCAL_ROUNDS = 14
-#: Every resolve mode decode_fragments takes; "xla" is "plain".
-RESOLVES = ("tiledtail", "tiled", "flagtail", "paratail", "kernel", "stable",
-            "plain", "xla")
+#: resolve="hybrid" sparse-chase width (decode.py:94): the dense rounds run
+#: until at most this many lanes of a fragment still move, and the chase
+#: takes the first SPARSE_CAP moving lanes by position.
+SPARSE_CAP = 12288
+#: Most steps of "hybrid"'s sparse chase (decode.py:561); a fragment whose
+#: chase has not converged by then is not ok.
+MAX_CHASE_STEPS = 8192
+#: "hybrid" runs its first two rounds through gather_window_anchored
+#: (decode.py:141, on the TPU only in JAX). Read at call time.
+WINDOWED_OPENING = False
+#: The windows (in 2048-position chunks) of "windowed"'s four opening
+#: rounds (decode.py:598).
+WINDOW_KS = (8, 8, 16, 16)
+#: Every resolve mode decode_fragments takes; "auto" is "tiledtail" and
+#: "xla" is "plain".
+RESOLVES = ("auto", "tiledtail", "tiled", "flagtail", "paratail", "kernel",
+            "stable", "hybrid", "windowed", "plain", "xla")
+#: Every fields mode: "auto" and "xla" are the same arithmetic, "kernel"
+#: launches elem_fields_block at widths that are a multiple of 2048.
+FIELDS = ("auto", "xla", "kernel")
 
 
-def _elem_fields(c: torch.Tensor):
-    """Speculative per-byte element decode, as if every byte were a tag.
-    c: (B, M) uint8. Returns (size, outbytes, is_lit, hdr, offset), each
-    (B, M) int32 (is_lit bool); int32 arithmetic wraps as in JAX (whose
-    `length` output equals `outbytes`)."""
-    t = c.to(torch.int32)
-    b1, b2, b3, b4 = (torch.roll(t, -s, dims=-1) for s in (1, 2, 3, 4))
-    kind = t & 3
-    code = t >> 2
-
-    extra = torch.clamp(code - 59, 0, 4)
-    ext_val = torch.where(
-        extra == 0, code,
-        torch.where(extra == 1, b1,
-                    torch.where(extra == 2, b1 | (b2 << 8),
-                                torch.where(extra == 3,
-                                            b1 | (b2 << 8) | (b3 << 16),
-                                            b1 | (b2 << 8) | (b3 << 16)
-                                            | (b4 << 24)))))
-    lit_len = ext_val + 1
-    lit_hdr = 1 + extra
-    lit_size = lit_hdr + lit_len
-
-    copy_len = torch.where(kind == 1, ((t >> 2) & 7) + 4, code + 1)
-    copy_size = torch.where(kind == 1, 2, torch.where(kind == 2, 3, 5))
-    copy_off = torch.where(
-        kind == 1, ((t >> 5) << 8) | b1,
-        torch.where(kind == 2, b1 | (b2 << 8),
-                    b1 | (b2 << 8) | (b3 << 16) | (b4 << 24)))
-
-    is_lit = kind == 0
-    size = torch.where(is_lit, lit_size, copy_size).to(torch.int32)
-    outbytes = torch.where(is_lit, lit_len, copy_len)
-    hdr = torch.where(is_lit, lit_hdr, copy_size).to(torch.int32)
-    return size, outbytes, is_lit, hdr, copy_off
-
-
-def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
+def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor,
+                    fields: str = "auto"):
     """PARSE, and the transport's scatter inputs (decode.py:183-244), for
-    (B, M) uint8 fragments. Returns (dest (B, M) int32 output cell or OUT
-    to drop, value (B, M) int32, ok (B,) bool): payload bytes ride bits
-    0-7, the element descriptor (1 for a literal, offset + 1 for a copy)
-    bits 8-24 at the element's output start."""
+    (B, M) uint8 fragments. fields="kernel" takes the element fields from
+    elem_fields_block when M is a multiple of 2048, else (as JAX does, and
+    for "auto" / "xla") from its plain arithmetic. Returns (dest (B, M)
+    int32 output cell or OUT to drop, value (B, M) int32, ok (B,) bool):
+    payload bytes ride bits 0-7, the element descriptor (1 for a literal,
+    offset + 1 for a copy) bits 8-24 at the element's output start."""
     b, m = c.shape
     dev = c.device
     iota = torch.arange(m, dtype=torch.int32, device=dev)
     clen = clen.to(torch.int32)[:, None]
-    size, outbytes, is_lit, hdr, off = _elem_fields(c)
+    if fields == "kernel" and m % _fields.WIDTH_STEP == 0:
+        size, outbytes, is_lit, hdr, off = _fields.elem_fields_block(c)
+    else:
+        size, outbytes, is_lit, hdr, off = _fields.elem_fields_block_plain(c)
+    is_lit = is_lit == 1
 
     # --- PARSE: the true tag chain ---
     jump = torch.clamp(size, min=1)
@@ -146,15 +141,16 @@ def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor):
 
 
 def parse_transport(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor,
-                    collapse_runs: bool = True):
+                    fields: str = "auto", collapse_runs: bool = True):
     """PARSE + TRANSPORT + run collapse (decode.py:183) for (B, M) uint8
-    fragments, M a multiple of 1024. collapse_runs=False leaves periodic
-    runs as plain one-step copies (deeper chains, the same bytes). Returns
-    (lit_out (B, 65536) int32 bytes, src (B, 65536) int32 one-step source
-    map with src[p] <= p, ok (B,) bool)."""
+    fragments, M a multiple of 1024. fields: one of FIELDS (the same
+    values). collapse_runs=False leaves periodic runs as plain one-step
+    copies (deeper chains, the same bytes). Returns (lit_out (B, 65536)
+    int32 bytes, src (B, 65536) int32 one-step source map with src[p] <= p,
+    ok (B,) bool)."""
     b = c.shape[0]
     dev = c.device
-    mdst, mval, ok = transport_cells(c, clen, ulen)
+    mdst, mval, ok = transport_cells(c, clen, ulen, fields)
     # One windowed scatter carries payload bytes and descriptors; they
     # share cells only in disjoint bit ranges, so the sums compose.
     merged, sovf = _scatter.scatter_windowed(mdst, mval)
@@ -209,6 +205,99 @@ def dense_rounds(src: torch.Tensor, cap: int = TAIL_CAP):
     return src, cnt, rounds
 
 
+def hybrid_rounds(src: torch.Tensor):
+    """The dense loop of resolve="hybrid" (decode.py:497-531), per fragment
+    as the vmapped while_loop runs it: fragment b doubles its map (one
+    gather_block) while cnt[b] > 0, it[b] < 16 and (it[b] < 2 or cnt[b] >
+    SPARSE_CAP), carrying the mask of the lanes its last round moved; a
+    fragment whose condition fails is frozen (map, mask and count stay).
+    With WINDOWED_OPENING, two gather_window_anchored rounds come first:
+    the mask is then "moved or out of the window" (a lane a window missed
+    is no fixed-point proof), cnt its sum and it 2. Returns (src (B, 65536)
+    int32, mask (B, 65536) bool, cnt (B,) int32, rounds: the gather_block
+    launches)."""
+    b = src.shape[0]
+    dev = src.device
+    if WINDOWED_OPENING:
+        for _ in range(2):
+            s2, inwin = _gatherwin.gather_window_anchored(src, src)
+            mask = (s2 != src) | (inwin == 0)
+            src = s2
+        cnt = mask.sum(dim=-1, dtype=torch.int32)
+        it = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    else:
+        mask = torch.ones((b, OUT), dtype=torch.bool, device=dev)
+        cnt = torch.full((b,), OUT, dtype=torch.int32, device=dev)
+        it = torch.zeros((b,), dtype=torch.int32, device=dev)
+    rounds = 0
+    while True:
+        active = ((cnt > 0) & (it < MAX_DENSE_ROUNDS)
+                  & ((it < 2) | (cnt > SPARSE_CAP)))
+        if not bool(active.any()):
+            break
+        s2 = _gather.gather_block(src, src, limbs=2)
+        moved = s2 != src
+        src = torch.where(active[:, None], s2, src)
+        mask = torch.where(active[:, None], moved, mask)
+        cnt = torch.where(active, moved.sum(dim=-1, dtype=torch.int32), cnt)
+        it += active.to(torch.int32)
+        rounds += 1
+    return src, mask, cnt, rounds
+
+
+def sparse_chase(src: torch.Tensor, mask: torch.Tensor, cnt: torch.Tensor):
+    """The sparse phase of resolve="hybrid" (decode.py:533-583) for each
+    fragment with cnt > 0: extract the first SPARSE_CAP lanes of the mask
+    by position (then unmasked lanes, JAX's sort key), chase their
+    pointers through the frozen map (one gather_block of SPARSE_CAP
+    targets a step) until they stop moving or MAX_CHASE_STEPS, and put the
+    chased values back by position. A row whose chase has converged is at
+    a fixed point, so the batch steps together. Returns (src (B, 65536)
+    int32, chase_ok (B,) bool: converged within the cap, True where no
+    chase ran, steps (B,) int32: the chase steps each fragment ran)."""
+    b = src.shape[0]
+    dev = src.device
+    chase_ok = torch.ones((b,), dtype=torch.bool, device=dev)
+    steps = torch.zeros((b,), dtype=torch.int32, device=dev)
+    enter = cnt > 0
+    if not bool(enter.any()):
+        return src, chase_ok, steps
+    rows = enter.nonzero()[:, 0]
+    s = src[rows]
+    oiota = torch.arange(OUT, dtype=torch.int32, device=dev)
+    key = torch.where(mask[rows], oiota, oiota + (1 << 17))
+    pos = torch.sort(key, dim=-1).indices[:, :SPARSE_CAP]
+    q = torch.gather(s, -1, pos)
+    done = torch.zeros((len(rows),), dtype=torch.bool, device=dev)
+    n = torch.zeros((len(rows),), dtype=torch.int32, device=dev)
+    for _ in range(MAX_CHASE_STEPS):
+        q2 = _gather.gather_block(s, q, limbs=2)
+        n += (~done).to(torch.int32)
+        done |= (q2 == q).all(dim=-1)
+        q = q2
+        if bool(done.all()):
+            break
+    src = src.clone()
+    src[rows] = s.scatter(-1, pos, q)
+    chase_ok[rows] = done
+    steps[rows] = n
+    return src, chase_ok, steps
+
+
+def _doubling_loop(src: torch.Tensor, done: torch.Tensor):
+    """Dense doubling rounds (one gather_block each) until every row is at
+    its fixed point or MAX_DENSE_ROUNDS (decode.py:604-614); `done` (B,)
+    bool: rows known to be there already. A row at its fixed point no
+    longer changes, so the batch runs together. Returns (src, rounds)."""
+    rounds = 0
+    while rounds < MAX_DENSE_ROUNDS and not bool(done.all()):
+        s2 = _gather.gather_block(src, src, limbs=2)
+        rounds += 1
+        done = (s2 == src).all(dim=-1)
+        src = s2
+    return src, rounds
+
+
 def _finish(out: torch.Tensor, ulens: torch.Tensor) -> torch.Tensor:
     """Bytes as uint8, zero past each fragment's length."""
     oiota = torch.arange(OUT, dtype=torch.int32, device=out.device)
@@ -216,11 +305,23 @@ def _finish(out: torch.Tensor, ulens: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, out.to(torch.uint8), 0)
 
 
-def _resolve_copies(lit: torch.Tensor, src: torch.Tensor, resolve: str):
+def _resolve_copies(lit: torch.Tensor, src: torch.Tensor, ok: torch.Tensor,
+                    resolve: str):
     """The copy-chain resolve of decode_fragment (decode.py:329-615) for
-    one mode. Returns (bytes (B, 65536) int32, rounds: the dense, local or
-    stability rounds launched, 0 for "tiled" and "kernel")."""
-    if resolve == "tiledtail":
+    one mode. Returns (bytes (B, 65536) int32, ok (B,) bool: `ok` and, for
+    "hybrid", each fragment's chase_ok; rounds: the dense, windowed, local
+    or stability rounds launched, 0 for "tiled" and "kernel")."""
+    if resolve == "hybrid":
+        src, mask, cnt, rounds = hybrid_rounds(src)
+        src, chase_ok, _steps = sparse_chase(src, mask, cnt)
+        return _gather.gather_block(lit, src, limbs=1), ok & chase_ok, rounds
+    out, rounds = _resolve_mode(lit, src, resolve)
+    return out, ok, rounds
+
+
+def _resolve_mode(lit: torch.Tensor, src: torch.Tensor, resolve: str):
+    """The resolve of every mode but "hybrid": (bytes, rounds)."""
+    if resolve in ("auto", "tiledtail"):
         src, cnt, rounds = dense_rounds(src)
         return _tiledres.resolve_tiled(lit, src, resolved=cnt == 0), rounds
     if resolve == "tiled":
@@ -261,88 +362,116 @@ def _resolve_copies(lit: torch.Tensor, src: torch.Tensor, resolve: str):
             src, stable = _doubling.doubling_round(src, stable)
             rounds += 1
         return _gather.gather_block(lit, src, limbs=1), rounds
-    # "plain" / "xla", decode.py:604-615: doubling until the map stops
-    # moving; a row at its fixed point no longer changes, so the batch runs
-    # together.
+    done = torch.zeros(src.shape[0], dtype=torch.bool, device=src.device)
     rounds = 0
-    while rounds < MAX_DENSE_ROUNDS:
-        s2 = _gather.gather_block(src, src, limbs=2)
-        rounds += 1
-        if torch.equal(s2, src):
-            break
-        src = s2
-    return _gather.gather_block(lit, src, limbs=1), rounds
+    if resolve == "windowed":
+        # decode.py:587-602: four windowed rounds; a fragment whose lanes
+        # were all in their window and unmoved in the last is at its fixed
+        # point and skips the dense loop.
+        tile = torch.arange(OUT, dtype=torch.int32, device=src.device) // 2048
+        for k in WINDOW_KS:
+            s2 = _gatherw.gather_window_block(src, src, k)
+            in_win = src >= (tile - (k - 1)) * 2048
+            done = (in_win & (s2 == src)).all(dim=-1)
+            src = s2
+        rounds = len(WINDOW_KS)
+    # "windowed", "plain" / "xla", decode.py:604-615: doubling until the
+    # map stops moving.
+    src, dense = _doubling_loop(src, done)
+    return _gather.gather_block(lit, src, limbs=1), rounds + dense
 
 
 def _check_modes(resolve: str, fields: str) -> None:
-    """Raise ValueError for a resolve or fields mode the port does not run
-    (yet)."""
+    """Raise ValueError for an unknown resolve or fields mode."""
     if resolve not in RESOLVES:
-        raise ValueError(f"resolve {resolve!r}: one of {', '.join(RESOLVES)}"
-                         ' ("windowed" and "hybrid" come with a later port '
-                         "slice)")
-    if fields == "kernel":
-        raise ValueError('fields="kernel" (the Pallas elem_fields_block) '
-                         'comes with a later port slice; use "auto"')
-    if fields not in ("auto", "xla"):
-        raise ValueError(f'fields {fields!r}: "auto" or "xla"')
+        raise ValueError(f"resolve {resolve!r}: one of {', '.join(RESOLVES)}")
+    if fields not in FIELDS:
+        raise ValueError(f"fields {fields!r}: one of {', '.join(FIELDS)}")
 
 
 def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
-                     ulens: torch.Tensor, resolve: str = "tiledtail",
+                     ulens: torch.Tensor, resolve: str = "auto",
                      fields: str = "auto", collapse_runs: bool = True):
     """Decode a batch of fragments (decode.py:292). frags (B, M) uint8
     zero-padded, M a multiple of 1024 (frag_width gives one); clens, ulens
     (B,) int32. resolve: one of RESOLVES, all giving the same bytes;
-    "tiledtail" (dense rounds, then the resolve kernel with each
-    fragment's `resolved` flag: cnt == 0) is the TPU default. fields:
-    "auto" or "xla" (the same arithmetic). collapse_runs: the periodic-run
-    collapse before the resolve. Returns (out (B, 65536) uint8, zero past
-    ulen; ok (B,) bool; the rounds the resolve launched: dense, local or
-    stability rounds, 0 for "tiled" and "kernel")."""
+    "auto" is the TPU default "tiledtail" (dense rounds, then the resolve
+    kernel with each fragment's `resolved` flag: cnt == 0). fields: one of
+    FIELDS. collapse_runs: the periodic-run collapse before the resolve.
+    Returns (out (B, 65536) uint8, zero past ulen; ok (B,) bool, which
+    under "hybrid" includes the sparse chase's convergence; the rounds the
+    resolve launched: dense, windowed, local or stability rounds, 0 for
+    "tiled" and "kernel")."""
     _check_modes(resolve, fields)
-    lit_out, src, ok = parse_transport(frags, clens, ulens, collapse_runs)
-    out, rounds = _resolve_copies(lit_out, src, resolve)
+    lit_out, src, ok = parse_transport(frags, clens, ulens, fields,
+                                       collapse_runs)
+    out, ok, rounds = _resolve_copies(lit_out, src, ok, resolve)
     return _finish(out, ulens), ok, rounds
 
 
+def _in_waves(name: str, decode, arrays: tuple, wave: int):
+    """`decode` over waves of `wave` fragments of `arrays` (fragments on
+    dim 0, a count that must be a multiple of `wave`, else ValueError).
+    Returns (out (F, 65536) uint8, ok (F,) bool) for the whole batch."""
+    frags = arrays[0]
+    nf = frags.shape[0]
+    if wave < 1 or nf % wave:
+        raise ValueError(f"{name}: {nf} fragments is not a multiple of the "
+                         f"wave {wave}; pad the fragment count")
+    if not nf:
+        return (torch.zeros((0, OUT), dtype=torch.uint8, device=frags.device),
+                torch.zeros((0,), dtype=torch.bool, device=frags.device))
+    res = [decode(*(a[s:s + wave] for a in arrays))
+           for s in range(0, nf, wave)]
+    return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+
 def decode_corpus(frags: torch.Tensor, clens: torch.Tensor,
-                  ulens: torch.Tensor, resolve: str = "tiledtail",
+                  ulens: torch.Tensor, resolve: str = "auto",
                   fields: str = "auto", collapse_runs: bool = True,
                   wave: int = 8):
     """Whole-corpus decode (decode.py:755): decode_fragments over waves of
     `wave` fragments. The fragment count must be a multiple of `wave` (pad
     it), else ValueError. Returns (out (F, 65536) uint8, ok (F,) bool),
     what decode_fragments gives for the whole batch."""
-    nf = frags.shape[0]
-    if wave < 1 or nf % wave:
-        raise ValueError(f"decode_corpus: {nf} fragments is not a multiple "
-                         f"of the wave {wave}; pad the fragment count")
-    outs, oks = [], []
-    for s in range(0, nf, wave):
-        out, ok, _rounds = decode_fragments(
-            frags[s:s + wave], clens[s:s + wave], ulens[s:s + wave],
-            resolve, fields, collapse_runs)
-        outs.append(out)
-        oks.append(ok)
-    if not outs:
-        return (torch.zeros((0, OUT), dtype=torch.uint8, device=frags.device),
-                torch.zeros((0,), dtype=torch.bool, device=frags.device))
-    return torch.cat(outs), torch.cat(oks)
+    return _in_waves(
+        "decode_corpus",
+        lambda f, c, u: decode_fragments(f, c, u, resolve, fields,
+                                         collapse_runs),
+        (frags, clens, ulens), wave)
 
 
 def decode_fragments_depth(frags: torch.Tensor, clens: torch.Tensor,
-                           ulens: torch.Tensor, depths: torch.Tensor):
+                           ulens: torch.Tensor, depths: torch.Tensor,
+                           fields: str = "auto", collapse_runs: bool = True):
     """Depth-hinted decode (decode.py:363-387, 632): the "tiledtail" dense
     rounds, then exactly depths[b, t] doubling rounds in each HINT_TILE
-    tile (the framed 0x81 hints; an under-declared depth gives wrong
-    bytes, which the frame's CRC catches). depths: (B, 64) int32. Same
-    arguments and results as decode_fragments."""
-    lit_out, src, ok = parse_transport(frags, clens, ulens)
+    tile (the framed 0x81 hints, which describe the pipeline with the run
+    collapse; an under-declared depth gives wrong bytes, as in JAX, which
+    the frame's CRC catches). depths: (B, 64) int32. Same arguments and
+    results as decode_fragments."""
+    _check_modes("tiledtail", fields)
+    lit_out, src, ok = parse_transport(frags, clens, ulens, fields,
+                                       collapse_runs)
     src, _cnt, rounds = dense_rounds(src)
     out = _tiledres.resolve_tiled_depth(lit_out, src,
                                         depths.to(torch.int32).contiguous())
     return _finish(out, ulens), ok, rounds
+
+
+def decode_corpus_depth(frags: torch.Tensor, clens: torch.Tensor,
+                        ulens: torch.Tensor, depths: torch.Tensor,
+                        fields: str = "auto", collapse_runs: bool = True,
+                        wave: int = 8):
+    """Depth-hinted whole-corpus decode (decode.py:646):
+    decode_fragments_depth over waves of `wave` fragments, depths (F, 64)
+    int32. The fragment count must be a multiple of `wave`, else
+    ValueError. Returns (out (F, 65536) uint8, ok (F,) bool)."""
+    return _in_waves(
+        "decode_corpus_depth",
+        lambda f, c, u, d: decode_fragments_depth(f, c, u, d, fields,
+                                                  collapse_runs),
+        (frags, clens, ulens, depths), wave)
 
 
 class FragmentFallback(Exception):

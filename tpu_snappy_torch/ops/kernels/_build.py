@@ -51,6 +51,9 @@ SIGNATURES = {
     "snk_local_round": [P, P, I, P],
     "snk_doubling_round": [P, P, P, P, I, P],
     "snk_resolve_block": [P, P, P, I, P],
+    "snk_elem_fields": [P, P, I, I, P],
+    "snk_gather_window": [P, P, P, I, I, I, P],
+    "snk_gather_window_anchored": [P, P, P, P, I, P],
 }
 
 _lock = threading.Lock()

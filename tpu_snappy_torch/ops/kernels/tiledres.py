@@ -2,8 +2,10 @@
 
 Ports tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (the "fori"
 variant with its `resolved` flag; the "pair", "tri" and "grid" variants
-give the same bytes), tiledres.py:resolve_tiled_depth and
-tiledres.py:resolve_tiled_flag. The CUDA kernels are csrc/tiledres.cu
+give the same bytes), tiledres.py:resolve_tiled_dual (two fragments in
+one call, which the batched kernel is already), tiledres.py:
+resolve_tiled_depth and tiledres.py:resolve_tiled_flag. The CUDA kernels
+are csrc/tiledres.cu
 (tiles left to right: pointer doubling in shared memory, then one absorb
 from the row's earlier, final tiles; see its note). `src[p] <= p` must
 hold, as decode guarantees: it is what makes the fixed point exist and the
@@ -24,6 +26,7 @@ from . import _build
 N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/tiledres.cu"
 REPLACES = {"resolve_tiled": "tpu_snappy/ops/pallas/tiledres.py:764",
+            "resolve_tiled_dual": "tpu_snappy/ops/pallas/tiledres.py:678",
             "resolve_tiled_depth": "tpu_snappy/ops/pallas/tiledres.py:736",
             "resolve_tiled_flag": "tpu_snappy/ops/pallas/tiledres.py:709"}
 
@@ -113,6 +116,55 @@ def resolve_tiled(lit: torch.Tensor, src: torch.Tensor,
 
 
 resolve_tiled.launches = 0
+
+
+def _check_dual(lit2: torch.Tensor, tile: int, check: int) -> None:
+    if tile != TILE or check != 1:
+        raise ValueError(f"resolve_tiled_dual: tile {tile}, check {check}; "
+                         f"the port takes tile {TILE} and check 1 only")
+    if lit2.shape[0] != 2:
+        raise ValueError(f"resolve_tiled_dual: {lit2.shape[0]} fragments; "
+                         "it takes two")
+
+
+def resolve_tiled_dual_plain(lit2: torch.Tensor, src2: torch.Tensor,
+                             resolved2: torch.Tensor | None = None,
+                             tile: int = TILE, check: int = 1) -> torch.Tensor:
+    """Plain PyTorch form of resolve_tiled_dual: resolve_tiled_plain on the
+    two rows."""
+    _check_dual(lit2, tile, check)
+    return resolve_tiled_plain(lit2, src2, resolved2)
+
+
+def resolve_tiled_dual(lit2: torch.Tensor, src2: torch.Tensor,
+                       resolved2: torch.Tensor | None = None,
+                       tile: int = TILE, check: int = 1) -> torch.Tensor:
+    """resolve_tiled on two fragments in one launch: lit2, src2 (2, 65536)
+    int32, resolved2 optional (2,) bool; each row of the result equals
+    resolve_tiled on that fragment. The TPU's variant shares one kernel's
+    fixed cost between two fragments; the CUDA kernel is batched over rows,
+    so this launches it at B = 2. tile 4096 and check 1 only (others raise
+    ValueError, as for resolve_tiled). Returns (2, 65536) int32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_dual(lit2, tile, check)
+    args = (lit2, src2) if resolved2 is None else (lit2, src2, resolved2)
+    if _build.on_cpu(*args):
+        return resolve_tiled_plain(lit2, src2, resolved2)
+    _build.require(lit2, torch.int32, (2, N), "lit2")
+    _build.require(src2, torch.int32, (2, N), "src2")
+    if resolved2 is not None:
+        _build.require(resolved2, torch.bool, (2,), "resolved2")
+    out = torch.empty_like(lit2)
+    rc = _build.lib().snk_resolve_tiled(
+        lit2.data_ptr(), src2.data_ptr(),
+        None if resolved2 is None else resolved2.data_ptr(), out.data_ptr(),
+        2, _build.stream())
+    _build.check(rc, "resolve_tiled_dual")
+    resolve_tiled_dual.launches += 1
+    return out
+
+
+resolve_tiled_dual.launches = 0
 
 
 def resolve_tiled_depth_plain(lit: torch.Tensor, src: torch.Tensor,
