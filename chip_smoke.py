@@ -10,7 +10,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the twenty kernels equals its plain
+3. kernel against plain: each of the twenty-two kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
@@ -19,7 +19,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
    with exact, over-approximate and all-zero root flags and partly stable
    tiles; the windowed gathers in chained rounds on the same maps; the
    element fields on random, all-zero and all-255 rows at three widths;
-   resolve_tiled_dual with asymmetric `resolved` flags);
+   resolve_tiled_dual with asymmetric `resolved` flags; the two prefix
+   scans at four widths and 1-D, with int32-wrapping sums and
+   next_start_block at default m, 0 and 100 on all-zero, first-only,
+   last-only and all-set flags);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -48,24 +51,33 @@ Phases, each printing its results; any failure raises (non-zero exit):
    "hybrid"'s chase steps) and launch counters (each mode's own kernel
    among them);
 8. times: raw compress / decompress throughput and peak device memory;
-   then traced raw and framed round trips, plus TURBO and flatten "off"
-   compresses, an "emit" placement wave and decode_corpus under
-   "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid" with
-   the opening and fields="kernel", with a synchronised host clock around
-   each public stage and kernel wrapper, which also capture every
-   kernel's inputs;
+   compress's peak device memory at 16 MiB and 1 GiB (the same data 64
+   times, its stream checked by the C++ golden), and the bytes of device
+   memory per input byte between the two; then traced raw and framed round trips, plus TURBO and flatten "off"
+   compresses, an "emit" and a "sort" placement wave and decode_corpus
+   under "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid"
+   with the opening and fields="kernel", with a synchronised host clock
+   around each public stage and kernel wrapper, which also capture every
+   kernel's inputs and those of the commit and prefix scans; every
+   entry-state form of commit_general and commit_bounded timed on the
+   captured jumps (each form's flags equal to the default's); the 16 MiB
+   decompressed with decode.PARSE_TREE_LEVELS 2 and 4 beside 0;
 9. main path, kernel against plain: each kernel equals its plain version
    exactly on the calls captured from the main paths (the wave shapes they
    really run at), the time of both on them (CUDA events), the least
    time the card could take for the same work, and the time of one
    PyTorch call computing the same function where there is one
    (resolve_tiled_dual, on no decode path, on the first two rows of the
-   captured resolve_tiled call). Host load averages print beside the
-   times.
+   captured resolve_tiled call; cumsum_block and next_start_block, on no
+   codec path, on the captured arguments of scan.exclusive_cumsum and
+   scan.next_element_start, each also giving that stage's result). Host
+   load averages print beside the times.
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
-0 just before it) and the nvidia-smi name/power line; the last line is
+0 just before it) and the nvidia-smi name/power line, after the run's
+own seconds (from the start of main(), the build included); the last
+line is
 {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (checked at the
 end of the run).
@@ -274,6 +286,7 @@ def check_kernels(dev) -> None:
     check_encode_kernels(dev, rng, t, report)
     check_resolve_kernels(rng, t, report)
     check_window_kernels(rng, t, report)
+    check_scan_kernels(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
 
@@ -587,13 +600,57 @@ def check_window_kernels(rng, t, report: dict) -> None:
           f"none, [T, F], [F, T]): max_abs_err={max(errs)}")
 
 
+def check_scan_kernels(rng, t, report: dict) -> None:
+    """Phase 3, the two prefix scans: cumsum_block on B rows at four widths
+    (384 is a multiple of 128 but not of the kernel's 4096 tile) and on
+    1-D rows, with sums that wrap as int32; next_start_block at default
+    m, 0 and 100 on random, all-zero, first-only, last-only and all-set
+    flags."""
+    from tpu_snappy_torch.ops.kernels import scans
+
+    errs = []
+    for m in (384, 57344, 65536, 69632):
+        x = np.concatenate([
+            rng.integers(0, 70, (BATCH - 3, m)),
+            rng.integers(-(1 << 31), 1 << 31, (2, m)),
+            np.full((1, m), 1 << 30)]).astype(np.int32)
+        x = t(x)
+        got = scans.cumsum_block(x)
+        errs.append(_exact(got, scans.cumsum_block_plain(x)))
+        errs.append(_exact(scans.cumsum_block(x[-1]),
+                           scans.cumsum_block_plain(x[-1])))
+        if int(got[-1, 1]) != -(1 << 31):
+            raise AssertionError("cumsum_block does not wrap as int32")
+    report["cumsum_block"] = max(errs)
+    print(f"kernel cumsum_block B={BATCH} M 384/57344/65536/69632 and 1-D "
+          f"(wrapping sums): max_abs_err={max(errs)}")
+
+    errs = []
+    for m in (384, 57344, 65536, 69632):
+        f = rng.random((BATCH, m)) < 0.02
+        f[1:5] = False
+        f[2, 0] = True
+        f[3, m - 1] = True
+        f[4] = True
+        f = t(f)
+        for default in (m, 0, 100):
+            errs.append(_exact(scans.next_start_block(f, default),
+                               scans.next_start_block_plain(f, default)))
+            errs.append(_exact(scans.next_start_block(f[4], default),
+                               scans.next_start_block_plain(f[4], default)))
+    report["next_start_block"] = max(errs)
+    print(f"kernel next_start_block B={BATCH} M 384/57344/65536/69632 and "
+          f"1-D, default m/0/100 (random, all-zero, first-only, last-only, "
+          f"all-set flags): max_abs_err={max(errs)}")
+
+
 def _kernel_modules() -> dict:
     """Every ported kernel: wrapper name -> module."""
     from tpu_snappy_torch.ops.kernels import (doubling, emit, ffill, fields,
                                               gather, gatherw, gatherwin,
                                               localround, matcher, place,
-                                              resolve, scatter, tiledres,
-                                              windows)
+                                              resolve, scans, scatter,
+                                              tiledres, windows)
     return {"window_keys": windows, "ffill": ffill,
             "scatter_windowed": scatter, "resolve_tiled": tiledres,
             "matcher_block_packed": matcher, "emit_block_single": emit,
@@ -604,7 +661,8 @@ def _kernel_modules() -> dict:
             "resolve_block": resolve, "doubling_round": doubling,
             "gather_window_block": gatherw,
             "gather_window_anchored": gatherwin,
-            "elem_fields_block": fields, "resolve_tiled_dual": tiledres}
+            "elem_fields_block": fields, "resolve_tiled_dual": tiledres,
+            "cumsum_block": scans, "next_start_block": scans}
 
 
 #: The kernel each resolve-mode run adds to the decode (phase 7), by
@@ -617,9 +675,16 @@ MODE_KERNEL = {("flagtail", "auto", False): "resolve_tiled_flag",
                ("hybrid", "auto", True): "gather_window_anchored",
                ("tiledtail", "kernel", False): "elem_fields_block"}
 
-#: Kernels on no decode path: held against their plain versions in
-#: phases 3 and 9 only.
-OFF_PATH = ("resolve_tiled_dual",)
+#: Kernels on no codec path: held against their plain versions in phases
+#: 3 and 9 only (the scans on the inputs the main paths hand to
+#: scan.exclusive_cumsum and scan.next_element_start).
+OFF_PATH = ("resolve_tiled_dual", "cumsum_block", "next_start_block")
+
+#: Public stages whose inputs the traced run captures too: the scan forms
+#: are timed on the captured jumps (phase 8) and the scan kernels run on
+#: the captured scan inputs (phase 9).
+CAPTURED_STAGES = ("commit_bounded", "commit_general", "exclusive_cumsum",
+                   "next_element_start")
 
 #: Kernels the raw DEFAULT round trip does not run: the framed sidecar
 #: decodes', flatten "off"'s, the "emit" placement's and the other resolve
@@ -648,6 +713,8 @@ def _public_stages() -> dict:
             "decode_fragments_depth": (decode, "decode_fragments_depth"),
             "parse_transport": (decode, "parse_transport"),
             "commit_general": (scan, "commit_general"),
+            "exclusive_cumsum": (scan, "exclusive_cumsum"),
+            "next_element_start": (scan, "next_element_start"),
             "dense_rounds": (decode, "dense_rounds"),
             "hybrid_rounds": (decode, "hybrid_rounds"),
             "sparse_chase": (decode, "sparse_chase"),
@@ -725,7 +792,7 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         # counts of the main-path run were read before this phase.
         @functools.wraps(fn)
         def run(*args, **kwargs):
-            if name in kernels:
+            if name in kernels or name in CAPTURED_STAGES:
                 scalars = tuple(a for a in (*args, *kwargs.values())
                                 if isinstance(a, (int, str)))
                 key = (name, stack[-1] if stack else "-",
@@ -760,6 +827,7 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         api.compress(data, config.TURBO_CONFIG, device="cuda")
         api.compress(data, _flat_off(), device="cuda")
         encode.encode_blocks(*wave, placement="emit")
+        encode.encode_blocks(*wave, placement="sort")
         t4 = time.perf_counter()
         modes = []
         for mode, fields, opening in MODE_KERNEL:
@@ -779,13 +847,75 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
           f" framed decompress auto + always {(t3 - t2) * 1e3} ms, TURBO and"
-          f" flatten off compresses + an emit wave {(t4 - t3) * 1e3} ms, "
+          f" flatten off compresses + an emit and a sort wave "
+          f"{(t4 - t3) * 1e3} ms, "
           f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
           f"host-clock ms per stage over all waves; load average "
           f"{os.getloadavg()} [{card}]:")
     for name in targets:
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
-    return captured
+    stages = {k: v for k, v in captured.items() if k[0] in CAPTURED_STAGES}
+    return {k: v for k, v in captured.items() if k[0] in kernels}, stages
+
+
+def scan_forms(dev, stages: dict, card: str) -> None:
+    """Phase 8, continued: every entry-state form of the two commit scans
+    on the largest captured jumps (the decode parse's for commit_general,
+    the encoder's for commit_bounded), host clock between synchronises,
+    three repetitions each; every form's flags must equal the default's."""
+    from tpu_snappy_torch.ops import scan
+
+    runs = {"commit_general": [("sequential (default)", {}),
+                               ("grouped", {"grouped": True})]
+            + [(f"tree_levels={k}", {"tree_levels": k}) for k in range(1, 5)],
+            "commit_bounded": [("log-depth (default)", {}),
+                               ("sequential", {"sequential": True})]
+            + [(f"tree_levels={k}", {"tree_levels": k}) for k in range(1, 5)]}
+    for name, forms in runs.items():
+        (jump,), _ = max((call for key, call in stages.items()
+                          if key[0] == name),
+                         key=lambda call: call[0][0].numel())
+        fn = getattr(scan, name)
+        want = None
+        for label, kw in forms:
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                flags = fn(jump, **kw)
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            want = flags if want is None else want
+            if not torch.equal(flags, want):
+                raise AssertionError(f"{name} {label}: flags differ from "
+                                     f"the default form's")
+            print(f"scan form {name} {label} on {tuple(jump.shape)}: {ms} ms"
+                  f" (3 runs), flags equal to the default's [{card}]")
+
+
+def tree_decompress(data: bytes, comp: bytes, card: str) -> None:
+    """Phase 8, continued: the 16 MiB through api.decompress with the
+    parse's entry scan as the halving tree, decode.PARSE_TREE_LEVELS 2 and
+    4, between two runs at 0 (the default, restored afterwards); each
+    timed after a warm-up run."""
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import decode
+
+    try:
+        for levels in (0, 2, 4, 0):
+            decode.PARSE_TREE_LEVELS = levels
+            api.decompress(comp, device="cuda")  # warm-up
+            t0 = time.perf_counter()
+            back = api.decompress(comp, device="cuda")
+            seconds = time.perf_counter() - t0
+            if back != data:
+                raise AssertionError(f"PARSE_TREE_LEVELS={levels}: the "
+                                     f"decompress changed the data")
+            print(f"decompress with PARSE_TREE_LEVELS={levels}: {seconds} s"
+                  f", {len(data) / seconds / 1e9} GB/s, the input's bytes; "
+                  f"load average {os.getloadavg()} [{card}]")
+    finally:
+        decode.PARSE_TREE_LEVELS = 0
 
 
 def _timed(fn, dev, reps: int) -> float:
@@ -813,7 +943,7 @@ _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "emit_block": 60, "resolve_tiled_flag": 3, "local_round": 3,
         "doubling_round": 3, "gather_window_block": 5,
         "gather_window_anchored": 6, "elem_fields_block": 40,
-        "resolve_tiled_dual": 2}
+        "resolve_tiled_dual": 2, "cumsum_block": 1, "next_start_block": 2}
 
 
 def _doubling_rounds(src: torch.Tensor) -> int:
@@ -872,15 +1002,19 @@ def _library_ms(name: str, args, dev):
     (it counts no window drops and sums instead of joining limbs), and
     `torch.gather` for gather_block, doubling_round (s o s; no stable
     tiles skipped, no flags) and the two windowed gathers (no window
-    test), with its int64 index made beforehand. None for the others: no
-    single PyTorch call computes the matcher's chain, the emission packs,
-    the window keys, a forward fill, the element fields, a local round or
-    a resolve."""
+    test), with its int64 index made beforehand, and `torch.cumsum` for
+    cumsum_block. None for the others: no single PyTorch call computes the
+    matcher's chain, the emission packs, the window keys, a forward fill,
+    the element fields, a local round, a resolve or the next-set-position
+    scan."""
     if name in ("gather_block", "doubling_round", "gather_window_block",
                 "gather_window_anchored"):
         x, idx = args[0], args[0 if name == "doubling_round" else 1]
         ix = torch.clamp(idx, 0, x.shape[-1] - 1).to(torch.int64)
         return _timed(lambda: torch.gather(x, -1, ix), dev, 20)
+    if name == "cumsum_block":
+        x = args[0]
+        return _timed(lambda: torch.cumsum(x, -1, dtype=torch.int32), dev, 20)
     if name not in ("scatter_windowed", "place_block", "scatter_block"):
         return None
     dest, values = args[0], args[1]
@@ -897,14 +1031,38 @@ def _library_ms(name: str, args, dev):
     return _timed(lambda: out.scatter_add_(1, idx, values), dev, 20)
 
 
-def check_main_path_calls(dev, captured: dict, card: str) -> dict:
+#: The scan kernel that computes each captured scan stage's function, on
+#: the stage's own arguments.
+SCAN_KERNEL = {"exclusive_cumsum": "cumsum_block",
+               "next_element_start": "next_start_block"}
+
+
+def _scan_agrees(name: str, args, out) -> bool:
+    """The scan kernel's result against the stage the main path ran on the
+    same arguments: the inclusive cumsum less x is exclusive_cumsum, and
+    next_start_block is next_element_start at the main path's default
+    (N, where the two functions agree)."""
+    from tpu_snappy_torch.ops import scan
+    if name == "cumsum_block":
+        return torch.equal(out - args[0], scan.exclusive_cumsum(args[0]))
+    return torch.equal(out, scan.next_element_start(*args))
+
+
+def check_main_path_calls(dev, captured: dict, stages: dict,
+                          card: str) -> dict:
     """Phase 9: each kernel against its plain version, exact equality (ovf
-    counts included), on the calls captured from the main path; then the
-    time of both on those tensors (CUDA events), the bound, and the
-    library call's time. Returns, per kernel, the largest absolute
-    difference over its captured calls and the numbers of its largest
-    call (by the distinct bytes its arguments hold)."""
+    counts included), on the calls captured from the main path (the scan
+    kernels on the captured scan stages' arguments, where each must also
+    give the stage's own result); then the time of both on those tensors
+    (CUDA events), the bound, and the library call's time. Returns, per
+    kernel, the largest absolute difference over its captured calls and
+    the numbers of its largest call (by the distinct bytes its arguments
+    hold)."""
     kernels = _kernel_modules()
+    captured = {**captured, **{
+        (SCAN_KERNEL[name], f"{name} in {stage}", shapes, scalars): call
+        for (name, stage, shapes, scalars), call in stages.items()
+        if name in SCAN_KERNEL}}
     # resolve_tiled_dual is on no decode path: it runs on the first two
     # rows of the largest captured resolve_tiled call.
     args, kw = max(((a, k) for (name, *_), (a, k) in captured.items()
@@ -925,6 +1083,9 @@ def check_main_path_calls(dev, captured: dict, card: str) -> dict:
             raise AssertionError(f"{name}: {len(got)} results against "
                                  f"{len(want)}")
         err = max(_exact(g, w) for g, w in zip(got, want))
+        if name in SCAN_KERNEL.values() and not _scan_agrees(name, args,
+                                                             outs):
+            raise AssertionError(f"{name} differs from {stage}'s result")
         ms = _timed(lambda: kern(*args, **kw), dev, 20)
         plain_ms = _timed(lambda: plain(*args, **kw), dev, 5)
         bound_ms, bound_by = _bound(name, (*args, *kw.values()), outs)
@@ -1201,6 +1362,33 @@ def resolve_modes(dev, data: bytes, comp: bytes, wrappers: dict, card: str):
     return total, corpus
 
 
+def compress_memory(dev, data: bytes, card: str) -> None:
+    """Phase 8, first part: compress keeps the whole corpus on the device
+    (the input, its encoded rows, the compacted stream), so its peak
+    device memory grows with the input beyond the wave's working set.
+    Measures the peak above what was allocated before at len(data) and at
+    64 times that (1 GiB), and prints the growth per input byte."""
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import decode as ops_decode
+
+    golden = ops_decode.native_golden()
+    peaks = {}
+    for k in (1, 64):
+        d = data * k
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        comp = api.compress(d, device="cuda")
+        torch.cuda.synchronize(dev)
+        peaks[len(d)] = torch.cuda.max_memory_allocated(dev) - base
+        if golden is not None and golden.uncompress(comp) != d:
+            raise AssertionError(f"the {len(d)}-byte stream does not decode")
+    (n1, p1), (n4, p4) = sorted(peaks.items())
+    print(f"compress peak device memory above the baseline: {p1} bytes at "
+          f"{n1} input bytes, {p4} bytes at {n4}; {(p4 - p1) / (n4 - n1)} "
+          f"bytes per further input byte (wave {api.API_WAVE}) [{card}]")
+
+
 def round_trip(dev, wrappers: dict):
     """Phase 4: 16 MiB through the port's API on the card, with the launch
     counters read around exactly that run."""
@@ -1346,6 +1534,7 @@ def check_goldens(data: bytes, comp: bytes, cfg=None,
 
 
 def main() -> None:
+    start = time.perf_counter()
     name, smi = _card()
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); nvidia-smi: {smi}")
@@ -1390,8 +1579,11 @@ def main() -> None:
           f"[{card}]")
     print(f"peak device memory over the round trip: {peak} bytes "
           f"(wave {api.API_WAVE}) [{card}]")
-    captured = traced_round_trip(dev, data, framed, corpus, card)
-    report = check_main_path_calls(dev, captured, card)
+    compress_memory(dev, data, card)
+    captured, stages = traced_round_trip(dev, data, framed, corpus, card)
+    scan_forms(dev, stages, card)
+    tree_decompress(data, comp, card)
+    report = check_main_path_calls(dev, captured, stages, card)
 
     kernels = []
     for k, mod in modules.items():
@@ -1406,6 +1598,8 @@ def main() -> None:
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_snappy"))
     if foreign:
         raise AssertionError(f"the port imported {foreign}")
+    print(f"chip_smoke.py: {time.perf_counter() - start} s from the start "
+          f"of main(), the build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -135,7 +135,8 @@ def test_jax_modes_agree(batch, oracle):
 
 def test_port_constants_are_jax_constants():
     for name in ("SPARSE_CAP", "WINDOWED_OPENING", "TAIL_CAP", "PARA_CAP",
-                 "TAIL_TILE", "HINT_TILE", "PARA_TILE", "FRAG_CAP", "OUT"):
+                 "TAIL_TILE", "HINT_TILE", "PARA_TILE", "FRAG_CAP", "OUT",
+                 "PARSE_TREE_LEVELS"):
         assert getattr(TD, name) == getattr(D, name), name
 
 
@@ -284,6 +285,16 @@ def test_new_modes_on_the_card_match_cpu(batch, mode, cuda):
         for fields in ("auto", "kernel"):
             _same(TD.decode_fragments(*args, mode, fields, collapse),
                   TD.decode_fragments(*batch["t"], mode, fields, collapse))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels", [2, 4])
+def test_parse_tree_on_the_card_matches_cpu(batch, levels, cuda,
+                                            monkeypatch):
+    args = tuple(t.to(cuda) for t in batch["t"])
+    want = TD.decode_fragments(*batch["t"])
+    monkeypatch.setattr(TD, "PARSE_TREE_LEVELS", levels)
+    _same(TD.decode_fragments(*args), want)
 
 
 @pytest.mark.gpu

@@ -7,7 +7,13 @@ is framing.py. The entry points run on the CUDA card (`device="cuda"`)
 unless the caller passes `device="cpu"`; with no CUDA device visible, the
 default raises instead of falling back to the CPU. Multi-block inputs run
 in waves of `wave` blocks (or fragments) per batched device call; the
-wave width bounds device memory and never changes the output bytes.
+wave width never changes the output bytes. compress runs
+encode_corpus_compact and fetches the payload from the device once, as the
+JAX API does: the whole padded input, its encoded rows and the compacted
+stream stay on the device together, so compress's device memory grows
+with the input (PERF.md §5 gives the bytes per input byte), while the
+working set of the kernels is bounded by the wave. decompress holds one
+wave at a time.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from .ops import decode as ops_decode
 from .ops import encode as ops_encode
 
 #: Blocks (or fragments) per batched device call, chosen for device
-#: memory. Peak memory grows linearly with the wave: a 16 MiB round trip
+#: memory. The kernels' working set grows linearly with the wave (compress
+#: adds buffers that grow with the whole input, see the module docstring):
+#: a 16 MiB round trip
 #: at 128 peaked at 1.69 GB (1687159808 bytes, NVIDIA H100 80GB HBM3,
 #: 700 W), about 13 MB per block, most of it the pair sort and the packed
 #: candidate table (it was 5.6 GB while the encoder's XLA-form matcher
@@ -106,16 +114,19 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
     if (small_fastpath and len(data) < SMALL_INPUT_BYTES
             and cfg == DEFAULT_CONFIG):
         return _host_compress(data)
-    w = wave or API_WAVE
     blocks, lengths = _to_blocks(data, cfg.block_size)
-    parts = [fmt.varint_encode(len(data))]
-    for s in range(0, len(lengths), w):
-        bt = torch.from_numpy(blocks[s:s + w]).to(device)
-        lt = torch.from_numpy(lengths[s:s + w]).to(device)
-        out, out_lens = ops_encode.encode_blocks(bt, lt, cfg)
-        dense, total = ops_encode.compact_blocks(out, out_lens)
-        parts.append(dense[:total].cpu().numpy().tobytes())
-    return b"".join(parts)
+    nb = len(lengths)
+    # Pad to whole waves with zero-length rows (tpu_snappy/api.py:92),
+    # encode every wave into one tensor, compact on the device and fetch
+    # exactly the payload once.
+    w = min(wave or API_WAVE, nb)
+    pad = -nb % w
+    blocks = torch.from_numpy(np.pad(blocks, ((0, pad), (0, 0))))
+    lengths = torch.from_numpy(np.pad(lengths, (0, pad)))
+    dense, _, total = ops_encode.encode_corpus_compact(
+        blocks.to(device), lengths.to(device), cfg, wave=w)
+    payload = dense[:total].cpu().numpy().tobytes()
+    return fmt.varint_encode(len(data)) + payload
 
 
 def decompress(comp: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,

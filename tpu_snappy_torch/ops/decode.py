@@ -82,6 +82,12 @@ MAX_CHASE_STEPS = 8192
 #: "hybrid" runs its first two rounds through gather_window_anchored
 #: (decode.py:141, on the TPU only in JAX). Read at call time.
 WINDOWED_OPENING = False
+#: Levels of the halving tree of the parse's entry scan
+#: (scan.entry_states_tree_general; decode.py:85): each level halves the
+#: walk over the fragment's segments. Used on CUDA tensors only, as JAX
+#: uses it on the TPU only; 0 (the walk over segments) is the default.
+#: Read at call time.
+PARSE_TREE_LEVELS = 0
 #: The windows (in 2048-position chunks) of "windowed"'s four opening
 #: rounds (decode.py:598).
 WINDOW_KS = (8, 8, 16, 16)
@@ -115,7 +121,8 @@ def transport_cells(c: torch.Tensor, clen: torch.Tensor, ulen: torch.Tensor,
 
     # --- PARSE: the true tag chain ---
     jump = torch.clamp(size, min=1)
-    tags = scan.commit_general(jump) & (iota < clen)
+    levels = PARSE_TREE_LEVELS if jump.device.type == "cuda" else 0
+    tags = scan.commit_general(jump, tree_levels=levels) & (iota < clen)
     emitted = torch.where(tags, outbytes, 0)
     opos = scan.exclusive_cumsum(emitted)
     total_out = emitted.sum(dim=-1, dtype=torch.int32)

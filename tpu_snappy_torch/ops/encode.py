@@ -604,12 +604,57 @@ def encode_blocks(blocks: torch.Tensor, lengths: torch.Tensor,
     return _sort_lanes(pack, total, cap)
 
 
+#: Rows that compact_blocks masks at once: the mask's index tensor takes
+#: 8 bytes per kept byte, so a corpus-wide mask would take about 8x the
+#: stream on the device; 128 rows keep it under 70 MB.
+_COMPACT_ROWS = 128
+
+
 def compact_blocks(out: torch.Tensor, out_lens: torch.Tensor):
     """Join each row's first out_lens bytes into one dense stream. Returns
     (dense (B*cap,) uint8 with the stream first and zeros after, total)."""
     nb, cap = out.shape
-    keep = torch.arange(cap, device=out.device) < out_lens[:, None]
-    stream = out[keep]  # row-major: the rows' payloads in order
     dense = torch.zeros(nb * cap, dtype=torch.uint8, device=out.device)
-    dense[:stream.numel()] = stream
-    return dense, int(stream.numel())
+    cols = torch.arange(cap, device=out.device)
+    total = 0
+    for s in range(0, nb, _COMPACT_ROWS):
+        rows = slice(s, s + _COMPACT_ROWS)
+        keep = (cols < out_lens[rows, None]).reshape(-1)
+        stream = out[rows].reshape(-1)[keep]  # the rows' payloads in order
+        dense[total:total + stream.numel()] = stream
+        total += stream.numel()
+    return dense, total
+
+
+def encode_corpus(blocks: torch.Tensor, lengths: torch.Tensor,
+                  cfg: CodecConfig = DEFAULT_CONFIG, placement: str = "auto",
+                  wave: int = 8):
+    """encode_blocks over a corpus in waves of `wave` blocks
+    (encode.py:971): blocks (NB, 65536) uint8 and lengths (NB,) int32, NB a
+    multiple of `wave` (ValueError otherwise; pad with zero-length rows).
+    Each wave's result is written into one (NB, cap) tensor. Returns (out,
+    out_lens (NB,) int32), the rows encode_blocks gives."""
+    nb = blocks.shape[0]
+    if wave < 1 or not nb or nb % wave:
+        raise ValueError(f"encode_corpus: {nb} blocks are not a multiple of "
+                         f"the wave {wave}; pad with zero-length rows")
+    out = lens = None
+    for s in range(0, nb, wave):
+        rows, row_lens = encode_blocks(blocks[s:s + wave],
+                                       lengths[s:s + wave], cfg, placement)
+        if out is None:  # the placement decides the row width
+            out = rows.new_empty((nb, rows.shape[1]))
+            lens = row_lens.new_empty(nb)
+        out[s:s + wave], lens[s:s + wave] = rows, row_lens
+    return out, lens
+
+
+def encode_corpus_compact(blocks: torch.Tensor, lengths: torch.Tensor,
+                          cfg: CodecConfig = DEFAULT_CONFIG,
+                          placement: str = "auto", wave: int = 8):
+    """encode_corpus, then compact_blocks (encode.py:959): returns (dense
+    (NB * cap,) uint8 with the stream first, out_lens (NB,) int32, total),
+    so that the host fetches dense[:total] once."""
+    out, lens = encode_corpus(blocks, lengths, cfg, placement, wave)
+    dense, total = compact_blocks(out, lens)
+    return dense, lens, total

@@ -54,6 +54,8 @@ SIGNATURES = {
     "snk_elem_fields": [P, P, I, I, P],
     "snk_gather_window": [P, P, P, I, I, I, P],
     "snk_gather_window_anchored": [P, P, P, P, I, P],
+    "snk_cumsum": [P, P, I, I, P],
+    "snk_next_start": [P, P, I, I, I, P],
 }
 
 _lock = threading.Lock()
