@@ -3,7 +3,12 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+With --parent DIR (a checkout of an earlier commit, for example unpacked
+with `git archive` into a git-ignored directory), phase 9 also times that
+checkout's scatter_block and gather_block beside this one's on every
+captured call, in turns, and sweeps scatter_block's tile.
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -22,7 +27,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
    resolve_tiled_dual with asymmetric `resolved` flags; the two prefix
    scans at four widths and 1-D, with int32-wrapping sums and
    next_start_block at default m, 0 and 100 on all-zero, first-only,
-   last-only and all-set flags);
+   last-only and all-set flags; gather_block at limbs 1-3, tables of 256
+   to 131072, out-of-range indices and x and idx one tensor; scatter_block
+   at limbs 1-3, out_cells 128 to 67584, M up to 65536, every source on
+   one cell and the top limb at 2^(8 limbs), at three tiles);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -64,13 +72,16 @@ Phases, each printing its results; any failure raises (non-zero exit):
    decompressed with decode.PARSE_TREE_LEVELS 2 and 4 beside 0;
 9. main path, kernel against plain: each kernel equals its plain version
    exactly on the calls captured from the main paths (the wave shapes they
-   really run at), the time of both on them (CUDA events), the least
-   time the card could take for the same work, and the time of one
-   PyTorch call computing the same function where there is one
-   (resolve_tiled_dual, on no decode path, on the first two rows of the
-   captured resolve_tiled call; cumsum_block and next_start_block, on no
-   codec path, on the captured arguments of scan.exclusive_cumsum and
-   scan.next_element_start, each also giving that stage's result). Host
+   really run at), the time of both on them (CUDA events; for the kernel
+   also graph_ms, the device time alone: 20 calls captured in one CUDA
+   graph and replayed), the least time the card could take for the same
+   work, and the time (and graph_ms) of one PyTorch call computing the
+   same function where there is one (for the scatters it allocates and
+   zeroes its output, as the kernels must). resolve_tiled_dual, on no
+   decode path, runs on the first two rows of the captured resolve_tiled
+   call; cumsum_block and next_start_block, on no codec path, on the
+   captured arguments of scan.exclusive_cumsum and
+   scan.next_element_start, each also giving that stage's result. Host
    load averages print beside the times.
 
 The second-to-last lines are a JSON object of per-kernel results (its
@@ -86,6 +97,7 @@ end of the run).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -268,20 +280,32 @@ def check_kernels(dev) -> None:
     print(f"kernel resolve_depth B={BATCH} (same maps; depths exact, over, "
           f"under): max_abs_err={max(errs)}")
 
-    # gather_block: (8, 65536) targets from tables of 65536 and 8192, limbs
-    # 1 and 2, indices 0 and S-1 at both ends.
+    # gather_block: limbs 1-3 (values up to 2^(8 limbs) - 1), tables of
+    # 8192 to 131072 (and an odd width), T 4096 to 65536 (and 4093 and
+    # 12285, the one-by-one loop) at B 1 to 64, out-of-range and negative
+    # indices, and x and idx one tensor (the dense rounds).
     errs = []
-    for s in (N, 8192):
-        for limbs in (1, 2):
-            x = t(rng.integers(0, 1 << (8 * limbs), (BATCH, s),
-                               dtype=np.int32))
-            idx = rng.integers(0, s, (BATCH, N)).astype(np.int32)
-            idx[:, :2], idx[:, -2:] = (0, s - 1), (s - 1, 0)
-            idx = t(idx)
-            errs.append(_exact(gather.gather_block(x, idx, limbs),
-                               gather.gather_block_plain(x, idx, limbs)))
+    for limbs, s, tt, b in ((1, 8192, 4096, 3), (2, 16384, 12288, 1),
+                            (3, N, 57344, 3), (1, N, N, BATCH),
+                            (2, N, N, 1), (3, 8192, 4093, 3),
+                            (2, 8190, 12288, 3), (2, 8190, 12285, 64),
+                            (2, 131072, 12288, 3)):
+        top = (1 << (8 * limbs)) - 1
+        x = rng.integers(0, top + 1, (b, s)).astype(np.int32)
+        x[:, :3] = top
+        idx = rng.integers(-100, s + 100, (b, tt)).astype(np.int32)
+        idx[:, :4] = (0, s - 1, -1, s)
+        xt, it = t(x), t(idx)
+        errs.append(_exact(gather.gather_block(xt, it, limbs),
+                           gather.gather_block_plain(xt, it, limbs)))
+    for limbs, s, b in ((2, N, BATCH), (3, N, 3), (1, 256, 1)):
+        ptr = t(np.minimum(np.arange(s), rng.integers(0, s, (b, s)))
+                .astype(np.int32))  # a map of back pointers, x is idx
+        errs.append(_exact(gather.gather_block(ptr, ptr, limbs),
+                           gather.gather_block_plain(ptr, ptr, limbs)))
     report["gather_block"] = max(errs)
-    print(f"kernel gather_block B={BATCH} T={N} S 65536/8192 limbs 1/2: "
+    print(f"kernel gather_block limbs 1-3, S 256 to 131072, T 4093 to "
+          f"65536, B 1 to 64, out-of-range indices, x is idx: "
           f"max_abs_err={max(errs)}")
     check_encode_kernels(dev, rng, t, report)
     check_resolve_kernels(rng, t, report)
@@ -445,20 +469,33 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     print(f"kernel place        B={BATCH} (encoder lanes, one broken tile): "
           f"max_abs_err={err}, ovf {govf.tolist()}")
 
-    # scatter_block: drops at out_cells and below 0, summed duplicates.
+    # scatter_block: limbs 1-3, out_cells 128 to 67584, M 1024 to 65536,
+    # drops at out_cells and below 0, summed duplicates, every source on
+    # one cell (colliding atomics), the top limb at 2^(8 limbs); the
+    # encoder's tile and tiles of one and of 128 cells.
     errs = []
-    for limbs, cells in ((1, cap), (2, N), (3, N)):
-        d = rng.integers(-50, cells + 50, (BATCH, 2048)).astype(np.int32)
+    for limbs, cells, m, b in ((1, cap, 2048, BATCH), (2, N, 2048, BATCH),
+                               (3, N, 1024, 3), (1, 128, 2048, 3),
+                               (2, 128, 65536, 1), (3, N, 65536, 1),
+                               (1, N, 65536, 1)):
+        d = rng.integers(-50, cells + 50, (b, m)).astype(np.int32)
         d[:, :64] = cells
         d[:, 64:128] = -1
-        d[:, 128:512] = rng.integers(0, 16, (BATCH, 384))  # duplicates
-        v = rng.integers(0, 1 << (8 * limbs), (BATCH, 2048)).astype(np.int32)
-        got = scatter.scatter_block(t(d), t(v), limbs, cells)
-        want = scatter.scatter_block_plain(t(d), t(v), limbs, cells)
-        errs.append(_exact(got, want))
+        d[:, 128:512] = rng.integers(0, 16, (b, 384))  # duplicates
+        v = rng.integers(0, 1 << (8 * limbs), (b, m)).astype(np.int32)
+        v[:, :256] = 1 << (8 * limbs)
+        cases = [(d, v), (np.full_like(d, cells - 1), v)]
+        for dd, vv in cases:
+            want = scatter.scatter_block_plain(t(dd), t(vv), limbs, cells)
+            for tile in (None, cells, 128):
+                if tile and tile * limbs * 4 > scatter._build.SMEM_BYTES:
+                    continue
+                errs.append(_exact(scatter.scatter_block(
+                    t(dd), t(vv), limbs, cells, tile), want))
     report["scatter_block"] = max(errs)
-    print(f"kernel scatter_block B={BATCH} M=2048 limbs 1/2/3 (drops, "
-          f"duplicates): max_abs_err={max(errs)}")
+    print(f"kernel scatter_block limbs 1-3, out_cells 128/65536/67584, M "
+          f"1024/2048/65536 (drops, duplicates, one cell, top limb 2^(8 "
+          f"limbs); tiles by rule, whole row, 128): max_abs_err={max(errs)}")
 
 
 def _resolve_maps(rng) -> np.ndarray:
@@ -771,8 +808,6 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
     scalar argument is cloned, so that phase 9 holds the kernel against
     its plain version on exactly the calls the main paths make. Returns
     those captured calls, each as (args, kwargs)."""
-    import functools
-
     from tpu_snappy_torch import api, config, framing
     from tpu_snappy_torch.ops import decode, encode
 
@@ -920,7 +955,8 @@ def tree_decompress(data: bytes, comp: bytes, card: str) -> None:
 
 def _timed(fn, dev, reps: int) -> float:
     """Milliseconds per call: CUDA events over `reps` calls after a
-    warm-up."""
+    warm-up. A call costs the larger of its device time and its host
+    cost (the wrapper's checks, allocations and launch)."""
     fn()
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
@@ -931,6 +967,60 @@ def _timed(fn, dev, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(stop) / reps
+
+
+#: Replays of a captured graph of `reps` calls that _graph_ms times.
+GRAPH_REPLAYS = 5
+
+
+def _graph_ms(fn, dev, reps: int = 20):
+    """Device milliseconds per call, the host left out: `reps` calls
+    captured in one CUDA graph (the wrapper's allocations go to the
+    graph's pool, its launches to the capture stream through
+    `_build.stream()`), replayed once to warm up, then GRAPH_REPLAYS
+    replays timed with CUDA events. A call that cannot be captured (one
+    that synchronises) gives "not capturable"."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        if "captur" not in str(exc).lower():
+            raise
+        torch.cuda.synchronize(dev)
+        return "not capturable"
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    ms = start.elapsed_time(stop) / (GRAPH_REPLAYS * reps)
+    del graph
+    return ms
+
+
+def _host_ms(fn, dev, reps: int = 200) -> float:
+    """Host milliseconds per call: the host clock around `reps` calls with
+    no synchronise between them (the wrapper's checks, allocations and
+    launch; the card runs behind)."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    return seconds * 1e3 / reps
+
+
+def _both(fn, dev) -> tuple:
+    """(ms, graph_ms) of one call: wrapper included, and device only."""
+    return _timed(fn, dev, 20), _graph_ms(fn, dev)
 
 
 #: Integer operations per element that the function needs, for the
@@ -974,10 +1064,19 @@ def _matcher_ops(k: int, sticky: str) -> int:
 def _bound(name: str, args, outs) -> tuple:
     """Least time on the card for one call: the larger of the bytes the
     function must move (each distinct input tensor read once, each output
-    written once) over the memory rate and its integer operations over the
-    integer rate. Returns (ms, "bytes" or "operations")."""
+    written once; of gather_block's table, the entries its indices name)
+    over the memory rate and its integer operations over the integer
+    rate. Returns (ms, "bytes" or "operations")."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in _distinct(_tensors(args) + _tensors(outs)))
+    if name == "gather_block" and args[0].data_ptr() != args[1].data_ptr():
+        # The table entries its indices name, not the whole table: the
+        # chase reads 12288 of 65536 a row.
+        x, idx = args[0], args[1]
+        inside = (idx >= 0) & (idx < x.shape[1])
+        rows = torch.arange(x.shape[0], device=idx.device)[:, None]
+        used = torch.unique((rows * x.shape[1] + idx)[inside]).numel()
+        nbytes += (used - x.numel()) * x.element_size()
     # Elements: positions, sources, or (gather_block) targets.
     first = _tensors(args)[1 if name == "gather_block" else 0]
     sticky = ("sig" if any(isinstance(a, str) and a == "sig" for a in args)
@@ -996,27 +1095,28 @@ def _bound(name: str, args, outs) -> tuple:
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def _library_ms(name: str, args, dev):
-    """Time of one PyTorch call computing the same function, where there
-    is one: `scatter_add_` for the three scatters, on the captured inputs
-    (it counts no window drops and sums instead of joining limbs), and
-    `torch.gather` for gather_block, doubling_round (s o s; no stable
-    tiles skipped, no flags) and the two windowed gathers (no window
-    test), with its int64 index made beforehand, and `torch.cumsum` for
-    cumsum_block. None for the others: no single PyTorch call computes the
-    matcher's chain, the emission packs, the window keys, a forward fill,
-    the element fields, a local round, a resolve or the next-set-position
-    scan."""
+def _library_ms(name: str, args, dev) -> tuple:
+    """(ms, graph_ms) of one PyTorch call computing the same function,
+    where there is one: `torch.zeros` of a fresh output and `scatter_add_`
+    into it for the three scatters, on the captured inputs (it counts no
+    window drops and sums instead of joining limbs; the kernels too must
+    hand back a fresh output), and `torch.gather` for gather_block,
+    doubling_round (s o s; no stable tiles skipped, no flags) and the two
+    windowed gathers (no window test), with its int64 index made
+    beforehand, and `torch.cumsum` for cumsum_block. (None, None) for the
+    others: no single PyTorch call computes the matcher's chain, the
+    emission packs, the window keys, a forward fill, the element fields, a
+    local round, a resolve or the next-set-position scan."""
     if name in ("gather_block", "doubling_round", "gather_window_block",
                 "gather_window_anchored"):
         x, idx = args[0], args[0 if name == "doubling_round" else 1]
         ix = torch.clamp(idx, 0, x.shape[-1] - 1).to(torch.int64)
-        return _timed(lambda: torch.gather(x, -1, ix), dev, 20)
+        return _both(lambda: torch.gather(x, -1, ix), dev)
     if name == "cumsum_block":
         x = args[0]
-        return _timed(lambda: torch.cumsum(x, -1, dtype=torch.int32), dev, 20)
+        return _both(lambda: torch.cumsum(x, -1, dtype=torch.int32), dev)
     if name not in ("scatter_windowed", "place_block", "scatter_block"):
-        return None
+        return None, None
     dest, values = args[0], args[1]
     if name == "place_block":
         cells = args[2] * 128  # out_rows
@@ -1026,9 +1126,9 @@ def _library_ms(name: str, args, dev):
         cells = N
     keep = (dest >= 0) & (dest < cells)
     idx = torch.where(keep, dest, cells).to(torch.int64)
-    out = torch.zeros((dest.shape[0], cells + 1), dtype=torch.int32,
-                      device=dev)
-    return _timed(lambda: out.scatter_add_(1, idx, values), dev, 20)
+    shape = (dest.shape[0], cells + 1)
+    return _both(lambda: torch.zeros(shape, dtype=torch.int32, device=dev)
+                 .scatter_add_(1, idx, values), dev)
 
 
 #: The scan kernel that computes each captured scan stage's function, on
@@ -1086,21 +1186,23 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
         if name in SCAN_KERNEL.values() and not _scan_agrees(name, args,
                                                              outs):
             raise AssertionError(f"{name} differs from {stage}'s result")
-        ms = _timed(lambda: kern(*args, **kw), dev, 20)
+        ms, graph_ms = _both(lambda: kern(*args, **kw), dev)
         plain_ms = _timed(lambda: plain(*args, **kw), dev, 5)
         bound_ms, bound_by = _bound(name, (*args, *kw.values()), outs)
-        library_ms = _library_ms(name, args, dev)
+        library_ms, library_graph_ms = _library_ms(name, args, dev)
         print(f"main path {name} in {stage} {shapes} {scalars}: "
-              f"max_abs_err={err}; kernel {ms} ms, plain {plain_ms} ms, "
-              f"bound {bound_ms} ms ({bound_by}), library {library_ms} ms "
+              f"max_abs_err={err}; kernel {ms} ms (graph_ms {graph_ms}), "
+              f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}), "
+              f"library {library_ms} ms (graph_ms {library_graph_ms}) "
               f"[{card}]")
         size = sum(t.numel() * t.element_size()
                    for t in _distinct(_tensors((args, kw))))
         prev = report.get(name)
         if prev is None or size > prev["size"]:
-            report[name] = {"size": size, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms, "bound_by": bound_by,
-                            "library_ms": library_ms,
+            report[name] = {"size": size, "ms": ms, "graph_ms": graph_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms,
+                            "library_graph_ms": library_graph_ms,
                             "err": max(err, prev["err"] if prev else 0)}
         else:
             prev["err"] = max(prev["err"], err)
@@ -1136,6 +1238,84 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     print(f"time resolve_block ({batch}, {N}) on the same chain, 16 "
           f"rounds: kernel {ms} ms [{card}]")
     return report
+
+
+#: The kernels whose earlier design `--parent` times beside this one.
+REDESIGNED = ("scatter_block", "gather_block")
+
+
+def _parent_kernels(parent: str) -> dict:
+    """The wrappers of REDESIGNED in another checkout's kernel package
+    (for example the parent commit unpacked with `git archive`), loaded
+    under the package name `parent_kernels` so that they build their own
+    library from their own sources beside this checkout's."""
+    import importlib
+    import importlib.util
+    import pathlib
+
+    pkg = pathlib.Path(parent).resolve() / "tpu_snappy_torch/ops/kernels"
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = module
+    spec.loader.exec_module(module)
+    mods = {"scatter_block": "scatter", "gather_block": "gather"}
+    return {name: getattr(importlib.import_module(f"parent_kernels.{m}"),
+                          name) for name, m in mods.items()}
+
+
+def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
+    """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
+    this one on every captured main-path call, timed in turns (parent,
+    this, this, parent), each turn giving ms (wrapper included), graph_ms
+    (device only) and host_ms (the wrapper's host cost); the two outputs
+    must be equal."""
+    old = _parent_kernels(parent)
+    kernels = _kernel_modules()
+    for (name, stage, shapes, scalars), (args, kw) in captured.items():
+        if name not in REDESIGNED:
+            continue
+        new = getattr(kernels[name], name)
+        if _exact(old[name](*args, **kw), new(*args, **kw)):
+            raise AssertionError(f"{name}: the parent's output differs")
+        turns = []
+        for label, fn in (("parent", old[name]), ("this", new),
+                          ("this", new), ("parent", old[name])):
+            ms, graph_ms = _both(lambda: fn(*args, **kw), dev)
+            host_ms = _host_ms(lambda: fn(*args, **kw), dev)
+            turns.append(f"{label} {ms} ms (graph_ms {graph_ms}, host_ms "
+                         f"{host_ms})")
+        print(f"parent against this: {name} in {stage} {shapes} {scalars}: "
+              f"{'; '.join(turns)} [{card}]")
+
+
+def tile_sweep(dev, captured: dict, card: str) -> None:
+    """With `--parent DIR`, the measurement behind scatter_block's tile
+    rule: each captured call at 1 to 66 tiles a row (the rule's tile among
+    them), device only (graph_ms), each output equal to the wrapper's."""
+    from tpu_snappy_torch.ops.kernels import scatter
+
+    for (name, stage, shapes, scalars), (args, kw) in captured.items():
+        if name != "scatter_block":
+            continue
+        dest, values, limbs, cells = args
+        want = scatter.scatter_block(*args)
+        rule = scatter.block_tile(cells, dest.shape[1], limbs, dest.shape[0])
+        units = cells // scatter.LO
+        res = []
+        for tiles in (1, 2, 4, 8, 9, 16, 33, 66):
+            tile = -(-units // tiles) * scatter.LO
+            if tile * limbs * 4 > scatter._build.SMEM_BYTES:
+                continue
+            fn = functools.partial(scatter.scatter_block, *args, tile=tile)
+            if _exact(fn(), want):
+                raise AssertionError(f"scatter_block tile {tile} differs")
+            res.append(f"tile {tile} ({-(-cells // tile)} a row"
+                       f"{', the rule' if tile == rule else ''}) "
+                       f"{_graph_ms(fn, dev)} ms")
+        print(f"sweep scatter_block in {stage} {shapes} {scalars}, "
+              f"graph_ms: {'; '.join(res)} [{card}]")
 
 
 def _flat_off():
@@ -1534,6 +1714,15 @@ def check_goldens(data: bytes, comp: bytes, cfg=None,
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier commit: time its "
+                         f"{' and '.join(REDESIGNED)} beside this one's on "
+                         "the captured main-path calls, then sweep "
+                         "scatter_block's tile")
+    opts = ap.parse_args()
     start = time.perf_counter()
     name, smi = _card()
     print(f"device: {name} (torch {torch.__version__}, CUDA "
@@ -1584,6 +1773,9 @@ def main() -> None:
     scan_forms(dev, stages, card)
     tree_decompress(data, comp, card)
     report = check_main_path_calls(dev, captured, stages, card)
+    if opts.parent:
+        compare_parent(dev, captured, opts.parent, card)
+        tile_sweep(dev, captured, card)
 
     kernels = []
     for k, mod in modules.items():
@@ -1591,9 +1783,11 @@ def main() -> None:
         kernels.append({"name": k, "route": "cuda", "source": mod.SOURCE,
                         "replaces": _replaces(mod, k),
                         "launches": launches[k], "max_abs_err": r["err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "ms": r["ms"], "graph_ms": r["graph_ms"],
+                        "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "library_graph_ms": r["library_graph_ms"]})
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_snappy"))
     if foreign:

@@ -7,8 +7,13 @@ lane, and on a tile that breaks the window contract (counted once and
 dropped), as tests/test_pallas.py:97-126 runs it. scatter_block's plain
 version must equal the Pallas scatter_block on permutations with dropped
 writes, at limbs 1-3, on a sparse scatter, on summed duplicates, and on
-the encoder's 2048 overflow entries. All comparisons are exact. The `gpu`
-tests hold the CUDA kernels against their plain versions on the card.
+the encoder's 2048 overflow entries, on every source onto one cell at
+out_cells 128, and at the top limb's 2^(8 limbs). All comparisons are
+exact. scatter_block's tile rule is checked on the CPU. The `gpu` tests
+hold the CUDA kernels against their plain versions on the card:
+scatter_block at limbs 1-3, out_cells 128, 65536 and 67584, M 1024, 2048
+and 65536, colliding atomics, drops at out_cells and below 0, the top limb
+at 2^(8 limbs), with the rule's tile and others.
 """
 
 import numpy as np
@@ -115,6 +120,50 @@ def _scatter_cases():
     return cases
 
 
+def _one_cell_case(limbs: int, cells: int, m: int):
+    """Every source onto cell cells - 1 (the atomics collide), values at
+    the top limb's 2^(8 limbs) and below."""
+    rng = np.random.default_rng(limbs * cells + m)
+    vals = rng.integers(0, 1 << (8 * limbs), m).astype(np.int32)
+    vals[:16] = 1 << (8 * limbs)
+    return np.full(m, cells - 1, np.int32), vals
+
+
+@pytest.mark.parametrize("limbs", [1, 2, 3])
+def test_scatter_block_plain_matches_pallas_one_cell(limbs):
+    dest, vals = _one_cell_case(limbs, 128, 1024)
+    got = KS.scatter_block(_t(dest[None]), _t(vals[None]), limbs, 128)
+    want = PS.scatter_block(jnp.asarray(dest), jnp.asarray(vals), limbs, 128)
+    assert (got[0].numpy() == np.asarray(want)).all()
+    assert int(got[0, -1]) != 0 and not got[0, :-1].any()
+
+
+@pytest.mark.parametrize("cells,m,limbs,batch,want", [
+    (CAPACITY, 2048, 1, 128, 7552),   # the encoder: 9 tiles of 30 KB
+    (CAPACITY, 2048, 1, 8, 4224),     # few rows: 16 tiles, re-reads cap
+    (N, 2048, 3, 128, 7296),          # 9 tiles a row, 86 KB each
+    (N, N, 1, 1, 58112),              # many sources: shared memory rules
+    (N, N, 3, 1, 19328),              # 227 KB of three limbs
+    (128, 1024, 2, 1, 128),           # one tile
+])
+def test_scatter_block_tile(cells, m, limbs, batch, want):
+    """The tile rule: aim at 8 blocks an SM, re-read the sources (8 bytes
+    each a tile) no more than the row writes, fit in 227 KB."""
+    tile = KS.block_tile(cells, m, limbs, batch)
+    assert tile == want
+    assert tile % 128 == 0 and tile * limbs * 4 <= 227 * 1024
+
+
+def test_scatter_block_refuses_bad_tiles():
+    d = torch.zeros((1, 1024), dtype=torch.int32)
+    for tile in (100, 0, 19456):  # not of 128, empty, above 227 KB at 3
+        with pytest.raises(ValueError, match="tile"):
+            KS.scatter_block(d, d, 3, N, tile=tile)
+    with pytest.raises(ValueError, match="out_cells"):
+        KS.scatter_block(d, d, 1, 1 << 30)
+    assert not KS.scatter_block(d, d, 1, 256, tile=128).any()
+
+
 @pytest.mark.parametrize("case", range(6))
 def test_scatter_block_plain_matches_pallas(case):
     dest, vals, limbs, cells = _scatter_cases()[case]
@@ -170,3 +219,33 @@ def test_scatter_block_kernel_matches_plain(cuda):
         d, v = _t(dest[None]).to(cuda), _t(vals[None]).to(cuda)
         assert torch.equal(KS.scatter_block(d, v, limbs, cells),
                            KS.scatter_block_plain(d, v, limbs, cells))
+
+
+#: (limbs, out_cells, M, B) for the `gpu` scatter_block tests.
+SCATTER_CASES = [(1, CAPACITY, 2048, 128), (2, N, 2048, 3), (3, N, 1024, 3),
+                 (1, 128, 2048, 1), (2, 128, 65536, 1), (3, N, N, 1),
+                 (1, N, N, 3), (3, CAPACITY, 2048, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limbs,cells,m,batch", SCATTER_CASES)
+def test_scatter_block_cases_match_plain(limbs, cells, m, batch, cuda):
+    """Drops at out_cells and below 0, duplicates, the top limb at
+    2^(8 limbs), and every source on one cell, with the rule's tile, one
+    tile a row where it fits, and tiles of 128 cells."""
+    rng = np.random.default_rng(limbs + cells + m + batch)
+    d = rng.integers(-50, cells + 50, (batch, m)).astype(np.int32)
+    d[:, :64] = cells
+    d[:, 64:128] = -1
+    d[:, 128:512] = rng.integers(0, 16, (batch, 384))
+    v = rng.integers(0, 1 << (8 * limbs), (batch, m)).astype(np.int32)
+    v[:, :256] = 1 << (8 * limbs)
+    one = np.full_like(d, cells - 1)
+    for dest in (d, one):
+        dt, vt = _t(dest).to(cuda), _t(v).to(cuda)
+        want = KS.scatter_block_plain(dt, vt, limbs, cells)
+        for tile in (None, cells, 128):
+            if tile and tile * limbs * 4 > 227 * 1024:
+                continue
+            assert torch.equal(KS.scatter_block(dt, vt, limbs, cells, tile),
+                               want), tile

@@ -46,7 +46,7 @@ SIGNATURES = {
     "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
     "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
     "snk_place": [P, P, P, P, I, I, I, P],
-    "snk_scatter_block": [P, P, P, P, I, I, I, I, P],
+    "snk_scatter_block": [P, P, P, I, I, I, I, I, P],
     "snk_resolve_tiled_flag": [P, P, P, P, I, P],
     "snk_local_round": [P, P, I, P],
     "snk_doubling_round": [P, P, P, P, I, P],
@@ -57,6 +57,11 @@ SIGNATURES = {
     "snk_cumsum": [P, P, I, I, P],
     "snk_next_start": [P, P, I, I, I, P],
 }
+
+#: The H100's streaming multiprocessors, and the shared memory one block
+#: may take (227 KB, as dynamic shared memory after opting in).
+SMS = 132
+SMEM_BYTES = 227 * 1024
 
 _lock = threading.Lock()
 _lib = None
@@ -140,8 +145,11 @@ def build(force: bool = False) -> pathlib.Path:
 
 
 def lib(force_build: bool = False):
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; once loaded, no lock
+    is taken)."""
     global _lib
+    if _lib is not None and not force_build:
+        return _lib
     with _lock:
         if _lib is None or force_build:
             so = build(force=force_build)
@@ -164,7 +172,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream() -> int:
-    """PyTorch's current CUDA stream, as the integer the C side takes."""
+    """PyTorch's current CUDA stream, as the integer the C side takes
+    (under CUDA graph capture, the capture stream)."""
     import torch
     return torch.cuda.current_stream().cuda_stream
 
@@ -193,3 +202,10 @@ def require(t, dtype, shape: tuple, name: str) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def require_aligned(name: str, *tensors) -> None:
+    """Raise unless every tensor starts 16-byte aligned (the kernels that
+    load and store 16 bytes a thread; a fresh PyTorch allocation is)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must start 16-byte aligned")

@@ -24,12 +24,25 @@
 //
 // scatter_block replaces scatter.py:scatter_block, whose TPU kernel builds
 // one-hots over the whole output height per source tile (MAC-bound in
-// limbs x cells x sources). Here every source adds its limbs with integer
-// atomics: a destination outside [0, cells) drops, duplicates sum per limb,
-// and the limbs join by shift-OR as above. With one limb (the encoder's
-// 2048 overflow entries) the adds go straight into the zeroed output and
-// no join runs. Bound on this card: bytes, i.e. zeroing and writing the
-// output; the encoder's entries are almost all dropped sentinels.
+// limbs x cells x sources). What it computes, and what this kernel keeps
+// exactly: a destination outside [0, cells) drops, each limb of a value
+// (the top one unmasked) sums per cell, and the limbs join by shift-OR.
+//
+// Bound on this card: bytes, i.e. writing the (batch, cells) output once.
+// The encoder's call, (128, 2048) sources onto 67584 cells, writes 34.6 MB
+// and reads 2 MB; almost all of its sources are dropped sentinels. So the
+// output is written once and never zeroed or read in device memory: the
+// grid is (tile, row), each block owns one tile of its row's output as
+// one int32 accumulator per limb in shared memory, zeroes it there,
+// streams all m (dest, value) pairs of its row with 16-byte loads (from
+// L2 after the first tile's block has read them) and adds the limbs of
+// those that fall in its tile with shared-memory atomics, then joins the
+// limbs and writes the tile with 16-byte stores. One launch, no scratch,
+// no zero pass. The cost is that every tile reads all m sources: tiles x
+// m x 8 bytes of L2 reads a row, against cells x 4 bytes written. The
+// wrapper (scatter.py:block_tile) picks the tile: large enough to fit in
+// shared memory and to keep those reads at or below the row's output
+// bytes, small enough that the grid fills the card.
 #include "common.cuh"
 
 #include <climits>
@@ -38,6 +51,7 @@ namespace {
 
 constexpr int kTile = 1024;  // sources per window (the TPU kernel's grid step)
 constexpr int kScatterThreads = 256;
+constexpr int kSrcUnroll = 4;  // scatter_block: 16-byte loads a thread
 
 __global__ void __launch_bounds__(kTile)
 scatter_windowed_kernel(const int32_t* __restrict__ dest,
@@ -72,23 +86,100 @@ scatter_windowed_kernel(const int32_t* __restrict__ dest,
   atomicAdd(a + 2 * cells + d, x & 0xFF);
 }
 
+// One limb of x: the top limb (j == 0) unmasked, the others 8 bits.
+template <int LIMBS>
+__device__ __forceinline__ int limb(int x, int j) {
+  const int sh = 8 * (LIMBS - 1 - j);
+  return j == 0 ? x >> sh : (x >> sh) & 0xFF;
+}
+
+// Shift-OR join of the sums so far and the next limb's sum.
+__device__ __forceinline__ int join_limb(int hi, int lo) {
+  return static_cast<int>(static_cast<unsigned>(hi) << 8
+                          | static_cast<unsigned>(lo));
+}
+
+template <int LIMBS>
+__device__ __forceinline__ void add_limbs(int32_t* acc, int tile, int c,
+                                          int x) {
+#pragma unroll
+  for (int j = 0; j < LIMBS; ++j)
+    atomicAdd(acc + j * tile + c, limb<LIMBS>(x, j));
+}
+
+// Grid (tiles, batch). acc: LIMBS planes of `tile` int32 cells (dynamic
+// shared memory). tile and cells are multiples of 128 and m of 1024, so
+// every row, plane and tile starts 16-byte aligned.
+template <int LIMBS>
 __global__ void __launch_bounds__(kScatterThreads)
 scatter_block_kernel(const int32_t* __restrict__ dest,
                      const int32_t* __restrict__ vals, int m, int cells,
-                     int limbs, int32_t* __restrict__ acc) {
-  const int row = blockIdx.y;
-  const int i = blockIdx.x * kScatterThreads + threadIdx.x;
-  if (i >= m) return;
-  const size_t src = static_cast<size_t>(row) * m + i;
-  const int d = dest[src];
-  if (d < 0 || d >= cells) return;
-  const int x = vals[src];
-  int32_t* a = acc + static_cast<size_t>(row) * limbs * cells + d;
-  for (int j = 0; j < limbs; ++j) {
-    const int sh = 8 * (limbs - 1 - j);
-    atomicAdd(a + static_cast<size_t>(j) * cells,
-              j == 0 ? x >> sh : (x >> sh) & 0xFF);  // top limb unmasked
+                     int tile, int32_t* __restrict__ out) {
+  extern __shared__ int4 acc4[];
+  int32_t* acc = reinterpret_cast<int32_t*>(acc4);
+  const size_t row = blockIdx.y;
+  const unsigned lo = blockIdx.x * tile;
+  const unsigned n = min(static_cast<unsigned>(tile), cells - lo);
+  for (int i = threadIdx.x; i < LIMBS * tile / 4; i += kScatterThreads)
+    acc4[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int4* d4 = reinterpret_cast<const int4*>(dest + row * m);
+  const int4* v4 = reinterpret_cast<const int4*>(vals + row * m);
+  const int m4 = m / 4;
+  for (int k0 = threadIdx.x; k0 < m4; k0 += kScatterThreads * kSrcUnroll) {
+    int4 d[kSrcUnroll];
+#pragma unroll
+    for (int u = 0; u < kSrcUnroll; ++u) {
+      const int k = k0 + u * kScatterThreads;
+      d[u] = k < m4 ? __ldg(d4 + k) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < kSrcUnroll; ++u) {
+      // Unsigned: a destination below 0 or below the tile wraps past n
+      // (cells < 2^30, checked by the wrapper).
+      const unsigned c0 = static_cast<unsigned>(d[u].x) - lo;
+      const unsigned c1 = static_cast<unsigned>(d[u].y) - lo;
+      const unsigned c2 = static_cast<unsigned>(d[u].z) - lo;
+      const unsigned c3 = static_cast<unsigned>(d[u].w) - lo;
+      if (min(min(c0, c1), min(c2, c3)) >= n) continue;
+      const int4 v = __ldg(v4 + k0 + u * kScatterThreads);
+      if (c0 < n) add_limbs<LIMBS>(acc, tile, c0, v.x);
+      if (c1 < n) add_limbs<LIMBS>(acc, tile, c1, v.y);
+      if (c2 < n) add_limbs<LIMBS>(acc, tile, c2, v.z);
+      if (c3 < n) add_limbs<LIMBS>(acc, tile, c3, v.w);
+    }
   }
+  __syncthreads();
+  int4* o4 = reinterpret_cast<int4*>(out + row * cells + lo);
+  for (int i = threadIdx.x; i < static_cast<int>(n / 4);
+       i += kScatterThreads) {
+    int4 r = acc4[i];
+#pragma unroll
+    for (int j = 1; j < LIMBS; ++j) {
+      const int4 a = acc4[j * tile / 4 + i];
+      r = make_int4(join_limb(r.x, a.x), join_limb(r.y, a.y),
+                    join_limb(r.z, a.z), join_limb(r.w, a.w));
+    }
+    o4[i] = r;
+  }
+}
+
+template <int LIMBS>
+int launch_scatter_block(const void* dest, const void* vals, void* out,
+                         int m, int cells, int tile, int batch,
+                         cudaStream_t s) {
+  const int bytes = LIMBS * tile * 4;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        scatter_block_kernel<LIMBS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid((cells + tile - 1) / tile, batch);
+  scatter_block_kernel<LIMBS><<<grid, kScatterThreads, bytes, s>>>(
+      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(vals), m,
+      cells, tile, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void join_limbs_kernel(const int32_t* __restrict__ acc,
@@ -136,18 +227,25 @@ SNK_EXPORT int snk_scatter_windowed(const void* dest, const void* vals,
   return join(acc, out, cells, 3, batch, s);
 }
 
-// dest, vals: (batch, m) int32; acc: zeroed (batch, limbs, cells) int32
-// scratch, or the zeroed output itself when limbs == 1; out: (batch,
-// cells) int32; 1 <= limbs <= 3.
+// dest, vals: (batch, m) int32, m a multiple of 1024; out: (batch, cells)
+// int32, every cell written; cells and tile multiples of 128, cells <
+// 2^30, limbs * tile * 4 bytes of shared memory at most 227 KB; 1 <= limbs
+// <= 3.
 SNK_EXPORT int snk_scatter_block(const void* dest, const void* vals,
-                                 void* acc, void* out, int m, int cells,
-                                 int limbs, int batch, void* stream) {
+                                 void* out, int m, int cells, int limbs,
+                                 int tile, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((m + kScatterThreads - 1) / kScatterThreads, batch);
-  scatter_block_kernel<<<grid, kScatterThreads, 0, s>>>(
-      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(vals), m,
-      cells, limbs, static_cast<int32_t*>(acc));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || limbs == 1) return static_cast<int>(err);
-  return join(acc, out, cells, limbs, batch, s);
+  switch (limbs) {
+    case 1:
+      return launch_scatter_block<1>(dest, vals, out, m, cells, tile, batch,
+                                     s);
+    case 2:
+      return launch_scatter_block<2>(dest, vals, out, m, cells, tile, batch,
+                                     s);
+    case 3:
+      return launch_scatter_block<3>(dest, vals, out, m, cells, tile, batch,
+                                     s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,12 +1,14 @@
 """Row-wise table gather: y[b, t] = x[b, idx[b, t]].
 
 Port of tpu_snappy/ops/pallas/gather.py:gather_block, which the decoder's
-dense pointer-doubling rounds (resolve="tiledtail" and the depth-hinted
-decode) and the framed sidecar's byte gather call. The CUDA kernel is
-csrc/gather.cu: one thread per target, an indexed load, no one-hot
+dense pointer-doubling rounds, the "hybrid" chase, the final byte gathers
+and the framed sidecar's byte gather call. The CUDA kernel is
+csrc/gather.cu: four targets a thread, each an indexed load, no one-hot
 decomposition (see its note). `limbs` keeps the TPU kernel's value-width
 contract: values of x must fit 8 * limbs bits, which the plain version
-checks; an index outside [0, S) gives 0, as the TPU's one-hot does.
+checks; an index outside [0, S) gives 0, as the TPU's one-hot does at
+limbs 1 (at limbs 2-3 the Pallas kernel returns its limb bias there; no
+caller passes such an index).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ def gather_block(x: torch.Tensor, idx: torch.Tensor,
     _build.require(x, torch.int32, (batch, s), "x")
     _build.require(idx, torch.int32, (batch, t), "idx")
     out = torch.empty((batch, t), dtype=torch.int32, device=x.device)
+    _build.require_aligned("gather_block", x, idx, out)
     if batch and t:
         rc = _build.lib().snk_gather(x.data_ptr(), idx.data_ptr(),
                                      out.data_ptr(), s, t, limbs, batch,

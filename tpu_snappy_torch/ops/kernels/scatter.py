@@ -6,9 +6,12 @@ at limbs=3, out_cells=65536 and any `wrows` up to 512: 192 for the decode
 transport, the buckets of sidecar.PARENT_WROWS for the framed sidecar's
 pieces. `scatter_block` ports scatter.py:scatter_block at limbs 1-3 and
 any out_cells that is a multiple of 128. The CUDA kernels are in
-csrc/scatter.cu (integer atomics per limb, then a shift-OR join, see its
-note). The plain versions reproduce the window drop and the drop count
-exactly, so kernel and plain agree bit for bit, counts included.
+csrc/scatter.cu: scatter_windowed adds per limb with global atomics, then
+joins the limbs by shift-OR in a second pass; scatter_block gives each
+block one tile of a row's output in shared memory and writes it once
+(`block_tile` sizes the tile; see the file's note). The plain versions
+reproduce the window drop and the drop count exactly, so kernel and plain
+agree bit for bit, counts included.
 """
 
 from __future__ import annotations
@@ -113,6 +116,25 @@ scatter_windowed.launches = 0
 #: Limb counts scatter_block takes (the encoder's 1, the default 2, the
 #: decoder's 3).
 MAX_LIMBS = 3
+#: Blocks scatter_block aims to launch: eight on each of the card's SMs.
+FILL_BLOCKS = 8 * _build.SMS
+#: Largest out_cells: the kernel tests destinations in unsigned 32 bits.
+MAX_CELLS = 1 << 30
+
+
+def block_tile(out_cells: int, m: int, limbs: int, batch: int) -> int:
+    """Cells of one scatter_block tile, a multiple of LO. A row is cut
+    into tiles so that the grid reaches FILL_BLOCKS blocks, but no further
+    than keeps the sources every tile re-reads (tiles x m x 8 bytes) at or
+    below the row's output bytes (out_cells x 4): at M = 65536 sources
+    onto 65536 cells that is one tile. The tile's accumulators (limbs x 4
+    bytes a cell) must fit a block's shared memory, which can force more
+    tiles than that."""
+    units = out_cells // LO
+    tiles = max(1, min(-(-FILL_BLOCKS // max(batch, 1)),
+                       out_cells // (2 * max(m, 1)), units))
+    per = min(-(-units // tiles), _build.SMEM_BYTES // (limbs * 4 * LO))
+    return max(per, 1) * LO
 
 
 def scatter_block_plain(dest: torch.Tensor, values: torch.Tensor,
@@ -130,33 +152,40 @@ def scatter_block_plain(dest: torch.Tensor, values: torch.Tensor,
 
 
 def scatter_block(dest: torch.Tensor, values: torch.Tensor, limbs: int = 2,
-                  out_cells: int = N) -> torch.Tensor:
+                  out_cells: int = N, tile: int | None = None
+                  ) -> torch.Tensor:
     """Full-height additive scatter of (B, M) int32 `values` to (B, M)
     int32 `dest` cells (M a multiple of 1024; a destination outside
     [0, out_cells) drops; duplicates sum per limb). Returns out
     (B, out_cells) int32, unwritten cells 0. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, with `block_tile`'s tile
+    unless `tile` (cells, a multiple of 128) is given."""
     batch, m = dest.shape
-    if m % TILE or out_cells % LO or not 1 <= limbs <= MAX_LIMBS:
+    if (m % TILE or out_cells % LO or not 1 <= limbs <= MAX_LIMBS
+            or out_cells >= MAX_CELLS):
         raise ValueError(f"scatter_block: width {m} (a multiple of {TILE}),"
-                         f" out_cells {out_cells} (of {LO}), limbs {limbs} "
-                         f"(1 to {MAX_LIMBS})")
+                         f" out_cells {out_cells} (of {LO}, below "
+                         f"{MAX_CELLS}), limbs {limbs} (1 to {MAX_LIMBS})")
+    tile = block_tile(out_cells, m, limbs, batch) if tile is None else tile
+    if tile % LO or not 0 < tile * limbs * 4 <= _build.SMEM_BYTES:
+        raise ValueError(f"scatter_block: tile {tile} (a multiple of {LO}, "
+                         f"{limbs} x 4 bytes a cell in at most "
+                         f"{_build.SMEM_BYTES})")
     if _build.on_cpu(dest, values):
         return scatter_block_plain(dest, values, limbs, out_cells)
     _build.require(dest, torch.int32, (batch, m), "dest")
     _build.require(values, torch.int32, (batch, m), "values")
-    dev = dest.device
-    out = torch.zeros((batch, out_cells), dtype=torch.int32, device=dev)
-    # One limb adds straight into the output; more need per-limb sums.
-    acc = (out if limbs == 1 else
-           torch.zeros((batch, limbs, out_cells), dtype=torch.int32,
-                       device=dev))
-    if batch and m:
+    out = torch.empty((batch, out_cells), dtype=torch.int32,
+                      device=dest.device)
+    _build.require_aligned("scatter_block", dest, values, out)
+    if batch and m and out_cells:
         rc = _build.lib().snk_scatter_block(
-            dest.data_ptr(), values.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), m, out_cells, limbs, batch, _build.stream())
+            dest.data_ptr(), values.data_ptr(), out.data_ptr(), m, out_cells,
+            limbs, tile, batch, _build.stream())
         _build.check(rc, "scatter_block")
         scatter_block.launches += 1
+    else:
+        out.zero_()
     return out
 
 
