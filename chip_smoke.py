@@ -7,8 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
-checkout's scatter_block and gather_block beside this one's on every
-captured call, in turns, and sweeps scatter_block's tile.
+checkout's scatter_windowed and ffill beside this one's on every captured
+call, in turns (their outputs must be equal), and sweeps the tiles of the
+two scatters and ffill's chunk.
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -30,7 +31,13 @@ Phases, each printing its results; any failure raises (non-zero exit):
    last-only and all-set flags; gather_block at limbs 1-3, tables of 256
    to 131072, out-of-range indices and x and idx one tensor; scatter_block
    at limbs 1-3, out_cells 128 to 67584, M up to 65536, every source on
-   one cell and the top limb at 2^(8 limbs), at three tiles);
+   one cell and the top limb at 2^(8 limbs), at three tiles;
+   scatter_windowed at wrows 1, 7, 40, 72, 136, 192 and 512 on piece
+   starts padded at 65536, rows with no active or no kept dest, a source
+   tile over three output tiles and random dests, at tiles 512 to 8192;
+   ffill at B 2, 126 and 128, widths 57344 and 65536, 1 to 4 payloads,
+   masks set only at 0, only at m - 1, only at each chunk's last position,
+   empty and full, at every chunk size);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -86,7 +93,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
-0 just before it) and the nvidia-smi name/power line, after the run's
+0 just before it; `worst_library_ratio` is the largest graph_ms over the
+library call's and `least_bound_share` the smallest bound over graph_ms,
+over the kernel's captured calls; the other numbers are its largest
+call's) and the nvidia-smi name/power line, after the run's
 own seconds (from the start of main(), the build included); the last
 line is
 {"ok": true, "device": ...}.
@@ -207,6 +217,7 @@ def check_kernels(dev) -> None:
             errs += [_exact(g, w) for g, w in zip(got, want)]
         print(f"kernel ffill        B={BATCH} M={m} k=1..4: "
               f"max_abs_err={max(errs)}")
+    errs += _ffill_edges(ffill, rng, t)
     report["ffill"] = max(errs)
 
     # scatter_windowed: transport-shaped dests (nondecreasing, dropped
@@ -237,9 +248,10 @@ def check_kernels(dev) -> None:
     errs += [_exact(got, want), _exact(govf, wovf)]
     if govf.tolist() != [1] * BATCH or int(got[0, 40000]) != 0:
         raise AssertionError(f"overflow not counted once: {govf.tolist()}")
-    report["scatter_windowed"] = max(errs)
     print(f"kernel scatter_win  overflow case: counts {govf.tolist()}, "
           f"max_abs_err={max(errs)}")
+    errs += _scatter_windowed_edges(scatter, rng, t)
+    report["scatter_windowed"] = max(errs)
 
     # resolve_tiled: random decreasing maps, identity, period-1 chain,
     # tile-straddling hops.
@@ -313,6 +325,125 @@ def check_kernels(dev) -> None:
     check_scan_kernels(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
+
+
+def _ffill_edge_masks(m: int) -> list:
+    """Phase 3's fill masks at width m: set only at position 0, only at m
+    - 1, only at the last position of each chunk (one row per chunk size
+    the kernel takes), empty, full, and random at four densities."""
+    from tpu_snappy_torch.ops.kernels import ffill
+
+    rows = [np.zeros(m, bool) for _ in range(2)]
+    rows[0][0] = True
+    rows[1][m - 1] = True
+    for chunk in ffill.CHUNKS:
+        row = np.zeros(m, bool)
+        row[chunk - 1::chunk] = True
+        rows.append(row)
+    rows += [np.zeros(m, bool), np.ones(m, bool)]
+    rng = np.random.default_rng(SEED + m)
+    rows += [rng.random(m) < p for p in (0.0005, 0.03, 0.3, 0.9)]
+    return rows
+
+
+def _ffill_edges(ffill, rng, t) -> list:
+    """Phase 3, the fill at the main path's shapes: B 2, 126 and 128 at
+    widths 57344 and 65536, 1 to 4 payloads, _ffill_edge_masks' rows (each
+    in a call of its own pair at B 2), every chunk size at 1 and 4
+    payloads. Returns the differences."""
+    errs = []
+    for m in (57344, N):
+        edges = _ffill_edge_masks(m)
+        for b in (2, 126, 128):
+            if b == 2:
+                masks = [np.stack([edges[i], edges[(i + 1) % len(edges)]])
+                         for i in range(0, len(edges), 2)]
+            else:
+                mask = np.stack([edges[i % len(edges)] for i in range(b)])
+                masks = [mask]
+            for mask in masks:
+                mk = t(mask)
+                for k in (1, 2, 3, 4):
+                    vals = tuple(t(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                                (b, m), dtype=np.int64)
+                                   .astype(np.int32)) for _ in range(k))
+                    want = ffill.ffill_plain(mk, vals)
+                    chunks = ((None, *ffill.CHUNKS) if k in (1, 4)
+                              else (None,))
+                    for chunk in chunks:
+                        got = ffill.ffill(mk, vals, chunk=chunk)
+                        errs += [_exact(g, w) for g, w in zip(got, want)]
+        print(f"kernel ffill        B 2/126/128 M={m} k=1..4, masks at 0 "
+              f"only, m-1 only, each chunk's last position, empty, full, "
+              f"random; chunks {ffill.CHUNKS}: max_abs_err={max(errs)}")
+    return errs
+
+
+def _piece_rows(rng, b: int, m: int, wrows: int) -> np.ndarray:
+    """Sidecar-shaped piece starts: ascending with gaps that fit `wrows`
+    (the widest a 1024-piece tile can span with its 8 rows of slop),
+    padded with 65536 from a random length on."""
+    step = max(1, (wrows - 9) * 128 // 1024)
+    rows = np.minimum(np.cumsum(rng.integers(1, step + 1, (b, m)), axis=1),
+                      N)
+    for r in range(b):
+        rows[r, rng.integers(m // 4, m + 1):] = N
+    return rows.astype(np.int32)
+
+
+def _scatter_windowed_edges(scatter, rng, t) -> list:
+    """Phase 3, the windowed scatter at the sidecar's and the transport's
+    window heights: piece starts padded at 65536 at wrows 40, 72, 136, 192
+    and 512 (B 2, 8 and 128); beside them a row of only padding and
+    out-of-range dests, a row whose every active dest the window drops
+    (wrows 1 and 7), a source tile whose kept dests straddle three output
+    tiles, and random dests at wrows 512 (every source tile meets every
+    output tile); each at the wrapper's tile and at every tile from 512 to
+    8192 cells. Returns the differences."""
+    errs = []
+    for wrows in (40, 72, 136, 192, 512):
+        for b, m in ((2, 4096), (8, 32768), (128, 28672)):
+            d = _piece_rows(rng, b, m, wrows)
+            d[0] = np.where(np.arange(m) % 3 == 0, -7, N + 5)  # no active
+            if b > 2:
+                # One tile's kept dests straddle three output tiles; the
+                # next row's first tile overflows its window.
+                d[1, :1024] = 100 + np.arange(1024) * (
+                    min(wrows - 9, 80) * 128 // 1024)
+                d[1, 1024:] = np.maximum(d[1, 1024:], d[1, 1023])
+                d[2, :1024] = np.minimum(
+                    np.arange(1024) * (wrows * 128 // 1024 + 16), N - 1)
+                d[2, 1024:] = np.maximum(d[2, 1024:], d[2, 1023])
+            v = rng.integers(0, 1 << 24, (b, m)).astype(np.int32)
+            v[:, ::7] = -1  # the top limb unmasked: -1 >> 16 == -1
+            dt, vt = t(d), t(v)
+            want, wovf = scatter.scatter_windowed_plain(dt, vt, wrows)
+            for tile in (None, 512, 1024, 2048, 4096, 8192):
+                got, govf = scatter.scatter_windowed(dt, vt, wrows, tile)
+                errs += [_exact(got, want), _exact(govf, wovf)]
+        print(f"kernel scatter_win  wrows={wrows} piece starts (B 2/8/128, "
+              f"padding, a row with no active dest, a tile over three "
+              f"output tiles, an overflowing tile), tiles 512-8192: "
+              f"max_abs_err={max(errs)} (drops {wovf.tolist()[:4]})")
+    for wrows in (1, 7):
+        # Each tile's least dest sits at 128 past its window base: wrows
+        # 1 drops every active dest, wrows 7 those 7 rows further.
+        d = np.tile(128 + np.arange(1024, dtype=np.int32) * 8, (2, 4))
+        d[:, 1024:] += np.arange(1, 4).repeat(1024)[None, :] * 8192
+        dt, vt = t(d), t(np.full_like(d, 3))
+        want, wovf = scatter.scatter_windowed_plain(dt, vt, wrows)
+        got, govf = scatter.scatter_windowed(dt, vt, wrows)
+        errs += [_exact(got, want), _exact(govf, wovf)]
+        if wrows == 1 and (wovf.tolist() != [4096, 4096] or want.any()):
+            raise AssertionError(f"wrows 1 kept a write: {wovf.tolist()}")
+    d = rng.integers(-5, N + 5, (128, 32768)).astype(np.int32)
+    dt, vt = t(d), t(rng.integers(0, 1 << 24, d.shape).astype(np.int32))
+    want, wovf = scatter.scatter_windowed_plain(dt, vt, 512)
+    got, govf = scatter.scatter_windowed(dt, vt, 512)
+    errs += [_exact(got, want), _exact(govf, wovf)]
+    print(f"kernel scatter_win  every active dest dropped (wrows 1, 7), "
+          f"random dests (128, 32768) at wrows 512: max_abs_err={max(errs)}")
+    return errs
 
 
 def _matcher_rows(rng):
@@ -1064,11 +1195,19 @@ def _matcher_ops(k: int, sticky: str) -> int:
 def _bound(name: str, args, outs) -> tuple:
     """Least time on the card for one call: the larger of the bytes the
     function must move (each distinct input tensor read once, each output
-    written once; of gather_block's table, the entries its indices name)
-    over the memory rate and its integer operations over the integer
-    rate. Returns (ms, "bytes" or "operations")."""
+    written once; of gather_block's table, the entries its indices name;
+    of ffill's payloads, the entries the fill reads: the set positions and
+    those before a row's first) over the memory rate and its integer
+    operations over the integer rate. Returns (ms, "bytes" or
+    "operations")."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in _distinct(_tensors(args) + _tensors(outs)))
+    if name == "ffill":
+        mask, payloads = args[0], _distinct(list(args[1]))
+        first = torch.where(mask.any(-1), mask.to(torch.int8).argmax(-1),
+                            mask.shape[-1])
+        used = int(mask.sum()) + int(first.sum())
+        nbytes += (used - mask.numel()) * 4 * len(payloads)
     if name == "gather_block" and args[0].data_ptr() != args[1].data_ptr():
         # The table entries its indices name, not the whole table: the
         # chase reads 12288 of 65536 a row.
@@ -1190,22 +1329,31 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
         plain_ms = _timed(lambda: plain(*args, **kw), dev, 5)
         bound_ms, bound_by = _bound(name, (*args, *kw.values()), outs)
         library_ms, library_graph_ms = _library_ms(name, args, dev)
-        print(f"main path {name} in {stage} {shapes} {scalars}: "
-              f"max_abs_err={err}; kernel {ms} ms (graph_ms {graph_ms}), "
-              f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}), "
-              f"library {library_ms} ms (graph_ms {library_graph_ms}) "
-              f"[{card}]")
         size = sum(t.numel() * t.element_size()
                    for t in _distinct(_tensors((args, kw))))
+        timed = isinstance(graph_ms, float) and graph_ms > 0
+        share = bound_ms / graph_ms if timed else None
+        ratio = (graph_ms / library_graph_ms
+                 if timed and isinstance(library_graph_ms, float) else None)
         prev = report.get(name)
         if prev is None or size > prev["size"]:
             report[name] = {"size": size, "ms": ms, "graph_ms": graph_ms,
                             "plain_ms": plain_ms, "bound_ms": bound_ms,
                             "bound_by": bound_by, "library_ms": library_ms,
                             "library_graph_ms": library_graph_ms,
-                            "err": max(err, prev["err"] if prev else 0)}
+                            "err": max(err, prev["err"] if prev else 0),
+                            "shares": prev["shares"] if prev else [],
+                            "ratios": prev["ratios"] if prev else []}
         else:
             prev["err"] = max(prev["err"], err)
+        report[name]["shares"].append(share)
+        report[name]["ratios"].append(ratio)
+        print(f"main path {name} in {stage} {shapes} {scalars}: "
+              f"max_abs_err={err}; kernel {ms} ms (graph_ms {graph_ms}), "
+              f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}), "
+              f"library {library_ms} ms (graph_ms "
+              f"{library_graph_ms}); bound / graph_ms {share}, graph_ms / "
+              f"library graph_ms {ratio} [{card}]")
     missing = set(kernels) - set(report)
     if missing:
         raise AssertionError(f"no main-path call captured for {missing}")
@@ -1240,8 +1388,16 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     return report
 
 
+def _extreme(pick, values: list):
+    """pick (min or max) over the measured values (None where a call has
+    no library call or could not be captured in a graph); None if none
+    was."""
+    values = [v for v in values if v is not None]
+    return pick(values) if values else None
+
+
 #: The kernels whose earlier design `--parent` times beside this one.
-REDESIGNED = ("scatter_block", "gather_block")
+REDESIGNED = ("scatter_windowed", "ffill")
 
 
 def _parent_kernels(parent: str) -> dict:
@@ -1260,7 +1416,7 @@ def _parent_kernels(parent: str) -> dict:
     module = importlib.util.module_from_spec(spec)
     sys.modules["parent_kernels"] = module
     spec.loader.exec_module(module)
-    mods = {"scatter_block": "scatter", "gather_block": "gather"}
+    mods = {"scatter_windowed": "scatter", "ffill": "ffill"}
     return {name: getattr(importlib.import_module(f"parent_kernels.{m}"),
                           name) for name, m in mods.items()}
 
@@ -1270,14 +1426,18 @@ def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
     this one on every captured main-path call, timed in turns (parent,
     this, this, parent), each turn giving ms (wrapper included), graph_ms
     (device only) and host_ms (the wrapper's host cost); the two outputs
-    must be equal."""
+    (every tensor of them: scatter_windowed's drop counts too) must be
+    equal."""
     old = _parent_kernels(parent)
     kernels = _kernel_modules()
     for (name, stage, shapes, scalars), (args, kw) in captured.items():
         if name not in REDESIGNED:
             continue
         new = getattr(kernels[name], name)
-        if _exact(old[name](*args, **kw), new(*args, **kw)):
+        was, now = _tensors(old[name](*args, **kw)), _tensors(new(*args,
+                                                                  **kw))
+        if len(was) != len(now) or any(_exact(a, b)
+                                       for a, b in zip(was, now)):
             raise AssertionError(f"{name}: the parent's output differs")
         turns = []
         for label, fn in (("parent", old[name]), ("this", new),
@@ -1291,31 +1451,45 @@ def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
 
 
 def tile_sweep(dev, captured: dict, card: str) -> None:
-    """With `--parent DIR`, the measurement behind scatter_block's tile
-    rule: each captured call at 1 to 66 tiles a row (the rule's tile among
-    them), device only (graph_ms), each output equal to the wrapper's."""
-    from tpu_snappy_torch.ops.kernels import scatter
+    """With `--parent DIR`, the measurements behind the tile and chunk
+    rules: scatter_block's captured calls at 1 to 66 tiles a row,
+    scatter_windowed's at tiles of 512 to 16384 cells and ffill's at every
+    chunk size (each rule's choice among them), device only (graph_ms),
+    each output equal to the wrapper's."""
+    from tpu_snappy_torch.ops.kernels import ffill, scatter
 
     for (name, stage, shapes, scalars), (args, kw) in captured.items():
-        if name != "scatter_block":
+        if name == "scatter_block":
+            dest, values, limbs, cells = args
+            rule = scatter.block_tile(cells, dest.shape[1], limbs,
+                                      dest.shape[0])
+            units = cells // scatter.LO
+            tiles = [-(-units // n) * scatter.LO
+                     for n in (1, 2, 4, 8, 9, 16, 33, 66)]
+            tiles = [c for c in tiles
+                     if c * limbs * 4 <= scatter._build.SMEM_BYTES]
+            key = "tile"
+        elif name == "scatter_windowed":
+            rule = scatter.windowed_tile(args[0].shape[0])
+            tiles = [512, 1024, 2048, 4096, 8192, 16384]
+            key = "tile"
+        elif name == "ffill":
+            rule = ffill.fill_chunk(*args[0].shape)
+            tiles = list(ffill.CHUNKS)
+            key = "chunk"
+        else:
             continue
-        dest, values, limbs, cells = args
-        want = scatter.scatter_block(*args)
-        rule = scatter.block_tile(cells, dest.shape[1], limbs, dest.shape[0])
-        units = cells // scatter.LO
+        kern = getattr(_kernel_modules()[name], name)
+        want = _tensors(kern(*args, **kw))
         res = []
-        for tiles in (1, 2, 4, 8, 9, 16, 33, 66):
-            tile = -(-units // tiles) * scatter.LO
-            if tile * limbs * 4 > scatter._build.SMEM_BYTES:
-                continue
-            fn = functools.partial(scatter.scatter_block, *args, tile=tile)
-            if _exact(fn(), want):
-                raise AssertionError(f"scatter_block tile {tile} differs")
-            res.append(f"tile {tile} ({-(-cells // tile)} a row"
-                       f"{', the rule' if tile == rule else ''}) "
-                       f"{_graph_ms(fn, dev)} ms")
-        print(f"sweep scatter_block in {stage} {shapes} {scalars}, "
-              f"graph_ms: {'; '.join(res)} [{card}]")
+        for size in tiles:
+            fn = functools.partial(kern, *args, **kw, **{key: size})
+            if any(_exact(a, b) for a, b in zip(_tensors(fn()), want)):
+                raise AssertionError(f"{name} {key} {size} differs")
+            res.append(f"{key} {size}{' (the rule)' if size == rule else ''}"
+                       f" {_graph_ms(fn, dev)} ms")
+        print(f"sweep {name} in {stage} {shapes} {scalars}, graph_ms: "
+              f"{'; '.join(res)} [{card}]")
 
 
 def _flat_off():
@@ -1720,8 +1894,8 @@ def main() -> None:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit: time its "
                          f"{' and '.join(REDESIGNED)} beside this one's on "
-                         "the captured main-path calls, then sweep "
-                         "scatter_block's tile")
+                         "the captured main-path calls, then sweep the "
+                         "scatters' tiles and ffill's chunk")
     opts = ap.parse_args()
     start = time.perf_counter()
     name, smi = _card()
@@ -1787,7 +1961,9 @@ def main() -> None:
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        "library_graph_ms": r["library_graph_ms"]})
+                        "library_graph_ms": r["library_graph_ms"],
+                        "worst_library_ratio": _extreme(max, r["ratios"]),
+                        "least_bound_share": _extreme(min, r["shares"])})
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_snappy"))
     if foreign:

@@ -28,6 +28,7 @@ from tpu_snappy.ops.pallas import tiledres as PT
 from tpu_snappy.ops.pallas import windows as PW
 
 from tpu_snappy_torch import config as TC
+from tpu_snappy_torch import sidecar as SC
 from tpu_snappy_torch.ops import decode as TD
 from tpu_snappy_torch.ops import encode as TE
 from tpu_snappy_torch.ops.kernels import ffill as KF
@@ -104,9 +105,28 @@ def test_window_keys_kernel_matches_plain(cuda):
 
 # --- ffill -----------------------------------------------------------------
 
+def _chunk_edge_masks(m: int) -> np.ndarray:
+    """Masks set only at the last position of each chunk, one row per
+    chunk size the kernel takes, then only at each chunk's first position,
+    only at 0 and only at m - 1."""
+    rows = []
+    for chunk in KF.CHUNKS:
+        row = np.zeros(m, bool)
+        row[chunk - 1::chunk] = True
+        rows.append(row)
+    row = np.zeros(m, bool)
+    row[::KF.SEGMENT] = True
+    rows.append(row)
+    rows += [np.zeros(m, bool), np.zeros(m, bool)]
+    rows[-2][0] = rows[-1][m - 1] = True
+    return np.stack(rows)
+
+
 def _ffill_cases():
     """(mask, payloads) at the encode width and two decode widths: sparse
-    masks, leading unmasked positions, an empty mask."""
+    masks, leading unmasked positions, an empty mask; then the chunk-edge
+    masks at 8192 and 69632 (17 chunks of 4096, each chunk's last position
+    set in its own row)."""
     rng = np.random.default_rng(7)
     out = []
     for m, k in ((N, 1), (8192, 4), (68 * 1024, 2)):
@@ -117,10 +137,15 @@ def _ffill_cases():
         vals = tuple(rng.integers(-(1 << 19), 1 << 19, (3, m)).astype(np.int32)
                      for _ in range(k))
         out.append((mask, vals))
+    for m, k in ((8192, 1), (68 * 1024, 3)):
+        mask = _chunk_edge_masks(m)
+        vals = tuple(rng.integers(-(1 << 31), (1 << 31) - 1, mask.shape)
+                     .astype(np.int32) for _ in range(k))
+        out.append((mask, vals))
     return out
 
 
-@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("case", range(5))
 def test_ffill_plain_matches_pallas_and_scan(case):
     mask, vals = _ffill_cases()[case]
     got = KF.ffill(_t(mask), tuple(_t(v) for v in vals))
@@ -146,6 +171,64 @@ def test_ffill_kernel_matches_plain(cuda):
         vs = tuple(_t(v).to(cuda) for v in vals)
         for g, w in zip(KF.ffill(m, vs), KF.ffill_plain(m, vs)):
             assert torch.equal(g, w)
+
+
+def test_fill_chunk_rule():
+    """The chunk fills the card at the main path's batches (the largest
+    chunk whose grid reaches FILL_BLOCKS), and falls to one segment for
+    few rows."""
+    assert KF.fill_chunk(128, N) == KF.fill_chunk(126, 57344) == 4096
+    assert KF.fill_chunk(2, N) == KF.fill_chunk(1, 8192) == KF.SEGMENT
+    for batch in (1, 2, 3, 8, 16, 33, 64, 126, 128, 512):
+        for m in (1024, 8192, 57344, N, 68 * 1024):
+            chunk = KF.fill_chunk(batch, m)
+            assert chunk in KF.CHUNKS
+            blocks = batch * -(-m // chunk)
+            assert blocks >= KF.FILL_BLOCKS or chunk == KF.SEGMENT
+            larger = [c for c in KF.CHUNKS if c > chunk]
+            assert all(batch * -(-m // c) < KF.FILL_BLOCKS for c in larger)
+
+
+def test_ffill_refuses_what_the_kernel_does_not_take():
+    mask = torch.zeros((2, 1000), dtype=torch.bool)
+    val = torch.zeros((2, 1000), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        KF.ffill(mask, (val,))
+    mask, val = mask[:, :896], val[:, :896].contiguous()
+    with pytest.raises(ValueError, match="chunk"):
+        KF.ffill(mask, (val,), chunk=3072)
+    with pytest.raises(ValueError, match="payloads"):
+        KF.ffill(mask, (val,) * 5)
+    assert torch.equal(KF.ffill(mask, (val,), chunk=2048)[0], val)
+
+
+def _ffill_card_masks(batch: int, m: int) -> np.ndarray:
+    """Main-path-sized masks for the card: the chunk-edge rows, an empty
+    and a full row, then random rows from sparse to dense."""
+    rng = np.random.default_rng(batch + m)
+    rows = list(_chunk_edge_masks(m)) + [np.zeros(m, bool), np.ones(m, bool)]
+    rows += [rng.random(m) < p for p in (0.001, 0.03, 0.3, 0.9)]
+    return np.stack([rows[i % len(rows)] for i in range(batch)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [2, 126, 128])
+def test_ffill_kernel_matches_plain_at_main_path_shapes(cuda, batch):
+    """B 2, 126 and 128 at widths 57344 and 65536 (and 57344 + 128: a
+    ragged last chunk and segment), 1 to 4 payloads, at the rule's chunk
+    and at every chunk size."""
+    rng = np.random.default_rng(batch)
+    for m in (57344, N, 57344 + 128):
+        mask = _t(_ffill_card_masks(batch, m)).to(cuda)
+        for k in range(1, KF.MAX_PAYLOADS + 1):
+            vals = tuple(_t(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                         (batch, m)).astype(np.int32))
+                         .to(cuda) for _ in range(k))
+            want = KF.ffill_plain(mask, vals)
+            for chunk in (None, *KF.CHUNKS):
+                got = KF.ffill(mask, vals, chunk=chunk)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                    m, k, chunk)
 
 
 # --- scatter_windowed ------------------------------------------------------
@@ -195,6 +278,96 @@ def test_scatter_windowed_kernel_matches_plain(cuda):
     got, govf = KS.scatter_windowed(dest, vals)
     want, wovf = KS.scatter_windowed_plain(dest, vals)
     assert torch.equal(got, want) and torch.equal(govf, wovf)
+
+
+def _sidecar_rows(wrows: int, m: int = 8192):
+    """Sidecar-shaped piece starts at `wrows` (ascending with gaps that fit
+    the window, padded with 65536 from half the row on), a row with no
+    active dest (all at or past 65536: the TPU kernel takes a negative
+    dest as active, the port drops it, and no caller passes one), a tile
+    whose kept dests straddle three 4096-cell output tiles (at the larger
+    windows), a tile that overflows its window, and values whose top limb
+    is negative."""
+    rng = np.random.default_rng(100 + wrows)
+    step = max(1, (wrows - 9) * 128 // 1024)
+    fit = np.minimum(np.cumsum(rng.integers(1, step + 1, m)), N)
+    pad = fit.copy()
+    pad[m // 2:] = N
+    none = np.where(np.arange(m) % 3 == 0, N, N + 5)
+    straddle = fit.copy()
+    straddle[:1024] = 100 + np.arange(1024) * (min(wrows - 9, 80) * 128
+                                               // 1024)
+    straddle[1024:] = np.maximum(straddle[1024:], straddle[1023])
+    wide = fit.copy()
+    wide[:1024] = np.minimum(np.arange(1024) * (wrows * 128 // 1024 + 16),
+                             N - 1)
+    wide[1024:] = np.maximum(wide[1024:], wide[1023])
+    dest = np.stack([pad, none, np.minimum(straddle, N),
+                     np.minimum(wide, N)]).astype(np.int32)
+    vals = rng.integers(0, 1 << 24, dest.shape).astype(np.int32)
+    vals[:, ::7] = -1
+    return dest, vals
+
+
+@pytest.mark.parametrize("wrows", SC.PARENT_WROWS)
+def test_scatter_windowed_plain_matches_pallas_wrows(wrows):
+    dest, vals = _sidecar_rows(wrows)
+    out, ovf = KS.scatter_windowed(_t(dest), _t(vals), wrows)
+    for row in range(len(dest)):
+        want, wovf = PS.scatter_windowed(jnp.asarray(dest[row]),
+                                         jnp.asarray(vals[row]), 3, N,
+                                         wrows=wrows)
+        assert (out[row].numpy() == np.asarray(want)).all(), (wrows, row)
+        assert int(ovf[row]) == int(wovf), (wrows, row)
+    assert not out[1].any() and int(ovf[1]) == 0
+    assert (int(ovf[3]) > 0) == (wrows < N // KS.LO)
+
+
+def test_windowed_tile_rule():
+    """WINDOWED_TILE while the grid reaches WINDOWED_BLOCKS, halved for few
+    rows down to MIN_WINDOWED_TILE; every tile a power of two that fits
+    shared memory with the source-tile list."""
+    assert KS.windowed_tile(128) == KS.windowed_tile(126) == 4096
+    assert KS.windowed_tile(2) == KS.MIN_WINDOWED_TILE == 512
+    for batch in (1, 2, 3, 8, 16, 33, 64, 126, 128, 1024):
+        tile = KS.windowed_tile(batch)
+        assert KS.MIN_WINDOWED_TILE <= tile <= KS.WINDOWED_TILE
+        assert tile & (tile - 1) == 0 and tile % KS.LO == 0
+        assert (batch * (N // tile) >= KS.WINDOWED_BLOCKS
+                or tile == KS.MIN_WINDOWED_TILE)
+        assert (tile == KS.WINDOWED_TILE
+                or batch * (N // (2 * tile)) < KS.WINDOWED_BLOCKS)
+
+
+def test_scatter_windowed_refuses_bad_tiles():
+    d = torch.full((1, 1024), N, dtype=torch.int32)
+    for tile in (100, 0, 2 * N, 20480):
+        with pytest.raises(ValueError, match="tile"):
+            KS.scatter_windowed(d, d, tile=tile)
+    out, ovf = KS.scatter_windowed(d, d, tile=16384)
+    assert not out.any() and int(ovf[0]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrows", [*SC.PARENT_WROWS, KS.WROWS])
+def test_scatter_windowed_kernel_matches_plain_wrows(cuda, wrows):
+    """The sidecar rows at B 4 and tiled to B 128 at M 8192 and 32768, at
+    the rule's tile and at tiles of 512 to 8192 cells; random dests at
+    wrows 512 meet every output tile."""
+    dest, vals = _sidecar_rows(wrows)
+    cases = [(dest, vals), (np.tile(dest, (32, 4)), np.tile(vals, (32, 4)))]
+    if wrows == 512:
+        rng = np.random.default_rng(5)
+        cases.append((rng.integers(-5, N + 5, (128, 32768)).astype(np.int32),
+                      rng.integers(0, 1 << 24, (128, 32768))
+                      .astype(np.int32)))
+    for d, v in cases:
+        dt, vt = _t(d).to(cuda), _t(v).to(cuda)
+        want = KS.scatter_windowed_plain(dt, vt, wrows)
+        for tile in (None, 512, 1024, 2048, 4096, 8192):
+            got = KS.scatter_windowed(dt, vt, wrows, tile)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                d.shape, tile)
 
 
 # --- resolve_tiled ---------------------------------------------------------

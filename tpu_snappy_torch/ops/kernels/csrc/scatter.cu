@@ -13,14 +13,32 @@
 //   * each limb (value >> 16 unmasked, (value >> 8) & 255, value & 255) is
 //     summed per cell, and the limbs are joined by shift-OR,
 //     (l0 << 16) | (l1 << 8) | l2, not by addition.
-// One block per source tile takes the block minimum, then every thread
-// adds its limbs with integer atomics into a (batch, 3, cells) scratch the
-// wrapper zeroes; a second pass joins the limbs. Integer atomics make the
-// result independent of the order of the adds.
+// Since base <= m >> 7, an active dest is kept exactly when it lies below
+// limit = (base + wrows) << 7, so a tile's kept writes are one range of
+// cells.
 //
-// Bound on this card: atomics and bytes. Transport destinations are
-// nearly all distinct and monotone, so the atomics seldom collide; the
-// scratch is 768 KB per row, read once by the join pass.
+// Bound on this card: bytes, reading (dest, value) once and writing the
+// (batch, cells) output once. Two launches, no scratch, no zero fill:
+//   1. window_summary_kernel, grid (source tile, row): per 1024-source
+//      tile, (base, lowest kept dest, highest kept dest, drops), four
+//      int32 a tile, every entry written (16-byte loads).
+//   2. scatter_windowed_kernel, grid (output tile, row): a block owns
+//      `tile` cells of its row as three int32 limb planes in shared memory,
+//      zeroes them there, reads its row's summaries, lists the source tiles
+//      whose kept range meets its cells, streams those tiles' (dest, value)
+//      pairs with 16-byte loads, adds the limbs of the kept writes in its
+//      cells with shared-memory atomics, joins the limbs and writes its
+//      cells once with 16-byte stores (untouched cells 0). The block of
+//      output tile 0 also sums its row's drops into ovf.
+// Integer atomics make the sums independent of the order of the adds.
+// Transport destinations are nearly monotone, so a source tile meets one
+// or two output tiles and the sources are read about once (from L2 after
+// the summary pass). Destinations spread over the whole row (random ones
+// at wrows 512) make every source tile meet every output tile: still
+// exact, but each block then reads the row's m sources, tiles x m x 8
+// bytes of L2 reads a row. The wrapper (scatter.py:windowed_tile) picks
+// the tile: 4096 cells (48 KB, four blocks an SM) while the grid fills the
+// card, smaller for few rows.
 //
 // scatter_block replaces scatter.py:scatter_block, whose TPU kernel builds
 // one-hots over the whole output height per source tile (MAC-bound in
@@ -50,40 +68,66 @@
 namespace {
 
 constexpr int kTile = 1024;  // sources per window (the TPU kernel's grid step)
+constexpr int kSummaryThreads = kTile / 4;  // four sources a thread
+constexpr int kWindowThreads = 2 * kTile / 4;  // two source tiles at a time
+// scatter_windowed_kernel's static shared memory (the list of source tiles
+// and its two counters), rounded up.
+constexpr int kListBytes = 2 * kWindowThreads * 4 + 64;
 constexpr int kScatterThreads = 256;
 constexpr int kSrcUnroll = 4;  // scatter_block: 16-byte loads a thread
 
-__global__ void __launch_bounds__(kTile)
-scatter_windowed_kernel(const int32_t* __restrict__ dest,
-                        const int32_t* __restrict__ vals, int m, int cells,
-                        int wrows, int32_t* __restrict__ acc,
-                        int32_t* __restrict__ ovf) {
-  __shared__ int warp_min[32];
-  const int row = blockIdx.y;
-  const size_t src = static_cast<size_t>(row) * m
-                   + static_cast<size_t>(blockIdx.x) * kTile + threadIdx.x;
-  const int d = dest[src];
-  const bool active = d >= 0 && d < cells;
-  const int wmin = __reduce_min_sync(0xffffffffu, active ? d : INT_MAX);
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = wmin;
+// Grid (m / 1024, batch), 256 threads: four sources a thread. summary
+// gets (base, lowest kept dest, highest kept dest, drops) per source tile;
+// a tile with no kept write gets lowest INT_MAX and highest -1.
+__global__ void __launch_bounds__(kSummaryThreads)
+window_summary_kernel(const int32_t* __restrict__ dest, int m, int cells,
+                      int wrows, int4* __restrict__ summary) {
+  __shared__ int warp_min[kSummaryThreads / 32];
+  __shared__ int4 warp_sum[kSummaryThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t tile = static_cast<size_t>(blockIdx.y) * (m / kTile)
+                    + blockIdx.x;
+  const int4 d4 = __ldg(reinterpret_cast<const int4*>(dest + tile * kTile)
+                        + threadIdx.x);
+  const int d[4] = {d4.x, d4.y, d4.z, d4.w};
+  int mn = INT_MAX;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (d[e] >= 0 && d[e] < cells) mn = min(mn, d[e]);
+  mn = __reduce_min_sync(0xffffffffu, mn);
+  if (lane == 0) warp_min[warp] = mn;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    const int t = __reduce_min_sync(0xffffffffu, warp_min[threadIdx.x]);
-    if (threadIdx.x == 0) warp_min[0] = t;
-  }
-  __syncthreads();
-  if (!active) return;
-  const int mn = warp_min[0];
+#pragma unroll
+  for (int w = 0; w < kSummaryThreads / 32; ++w) mn = min(mn, warp_min[w]);
   const int base = min((mn >> 10) << 3, cells / 128 - wrows);
-  if ((d >> 7) - base >= wrows) {
-    atomicAdd(ovf + row, 1);
-    return;
+  const int limit = (base + wrows) << 7;
+  int lo = INT_MAX, hi = -1, drops = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (d[e] < 0 || d[e] >= cells) continue;
+    if (d[e] < limit) {
+      lo = min(lo, d[e]);
+      hi = max(hi, d[e]);
+    } else {
+      ++drops;
+    }
   }
-  const int x = vals[src];
-  int32_t* a = acc + static_cast<size_t>(row) * 3 * cells;
-  atomicAdd(a + d, x >> 16);
-  atomicAdd(a + cells + d, (x >> 8) & 0xFF);
-  atomicAdd(a + 2 * cells + d, x & 0xFF);
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  drops = __reduce_add_sync(0xffffffffu, drops);
+  if (lane == 0) warp_sum[warp] = make_int4(0, lo, hi, drops);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int4 s = make_int4(base, INT_MAX, -1, 0);
+#pragma unroll
+    for (int w = 0; w < kSummaryThreads / 32; ++w) {
+      s.y = min(s.y, warp_sum[w].y);
+      s.z = max(s.z, warp_sum[w].z);
+      s.w += warp_sum[w].w;
+    }
+    summary[tile] = s;
+  }
 }
 
 // One limb of x: the top limb (j == 0) unmasked, the others 8 bits.
@@ -182,49 +226,145 @@ int launch_scatter_block(const void* dest, const void* vals, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void join_limbs_kernel(const int32_t* __restrict__ acc,
-                                  int32_t* __restrict__ out, int cells,
-                                  int limbs, size_t total) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x
-                   + threadIdx.x;
-  if (idx >= total) return;
-  const size_t row = idx / cells;
-  const size_t c = idx % cells;
-  const int32_t* a = acc + row * limbs * cells;
-  uint32_t v = static_cast<uint32_t>(a[c]);
-  for (int j = 1; j < limbs; ++j)
-    v = v << 8 | static_cast<uint32_t>(a[j * cells + c]);
-  out[idx] = static_cast<int32_t>(v);
-}
-
-int join(const void* acc, void* out, int cells, int limbs, int batch,
-         cudaStream_t s) {
-  const size_t total = static_cast<size_t>(batch) * cells;
-  const int threads = 256;
-  join_limbs_kernel<<<static_cast<unsigned>((total + threads - 1) / threads),
-                      threads, 0, s>>>(static_cast<const int32_t*>(acc),
-                                       static_cast<int32_t*>(out), cells,
-                                       limbs, total);
-  return static_cast<int>(cudaGetLastError());
+// Grid (cells / tile rounded up, batch). acc: three planes of `tile` int32
+// cells (dynamic shared memory). Each pass over the summaries lists up to
+// kWindowThreads source tiles whose kept range meets this block's cells,
+// with each one's effective end (the smaller of the window limit and the
+// block's end); the list is then streamed two source tiles at a time, one
+// per half of the block. Four blocks an SM at the wrapper's 4096-cell tile
+// (52 KB of shared memory each), so at most 32 registers a thread.
+__global__ void __launch_bounds__(kWindowThreads, 4)
+scatter_windowed_kernel(const int32_t* __restrict__ dest,
+                        const int32_t* __restrict__ vals,
+                        const int4* __restrict__ summary, int m, int cells,
+                        int wrows, int tile, int32_t* __restrict__ out,
+                        int32_t* __restrict__ ovf) {
+  extern __shared__ int4 acc4[];
+  __shared__ int list_tile[kWindowThreads];
+  __shared__ int list_end[kWindowThreads];
+  __shared__ int listed;
+  __shared__ int row_drops;
+  int32_t* acc = reinterpret_cast<int32_t*>(acc4);
+  const int row = blockIdx.y;
+  const int lo = blockIdx.x * tile;
+  const int n = min(tile, cells - lo);
+  const int end = lo + n;
+  const bool counts = blockIdx.x == 0;
+  for (int i = threadIdx.x; i < 3 * tile / 4; i += kWindowThreads)
+    acc4[i] = make_int4(0, 0, 0, 0);
+  if (threadIdx.x == 0) row_drops = 0;
+  const int tiles = m / kTile;
+  const int4* sum = summary + static_cast<size_t>(row) * tiles;
+  const int4* d4 = reinterpret_cast<const int4*>(dest
+                                                 + static_cast<size_t>(row) * m);
+  const int4* v4 = reinterpret_cast<const int4*>(vals
+                                                 + static_cast<size_t>(row) * m);
+  const int half = threadIdx.x / (kTile / 4);
+  const int k4 = threadIdx.x % (kTile / 4);
+  int drops = 0;
+  for (int t0 = 0; t0 < tiles; t0 += kWindowThreads) {
+    if (threadIdx.x == 0) listed = 0;
+    __syncthreads();  // listed reset; the zeroed planes before any add
+    const int t = t0 + threadIdx.x;
+    if (t < tiles) {
+      const int4 s = __ldg(sum + t);
+      if (counts) drops += s.w;
+      if (s.y < end && s.z >= lo) {
+        const int slot = atomicAdd(&listed, 1);
+        list_tile[slot] = t;
+        list_end[slot] = min(end, (s.x + wrows) << 7);
+      }
+    }
+    __syncthreads();
+    const int count = listed;
+    // Each half streams every other listed tile, the next one's loads
+    // issued before this one's adds.
+    int i = half;
+    int4 d = make_int4(-1, -1, -1, -1), v = d;
+    if (i < count) {
+      const size_t k = static_cast<size_t>(list_tile[i]) * (kTile / 4) + k4;
+      d = __ldg(d4 + k);
+      v = __ldg(v4 + k);
+    }
+    while (i < count) {
+      const int next = i + 2;
+      int4 dn = make_int4(-1, -1, -1, -1), vn = dn;
+      if (next < count) {
+        const size_t k = static_cast<size_t>(list_tile[next]) * (kTile / 4)
+                       + k4;
+        dn = __ldg(d4 + k);
+        vn = __ldg(v4 + k);
+      }
+      // Kept and in this block's cells: lo <= dest < list_end, one
+      // unsigned compare (a dest below lo wraps past the span).
+      const unsigned ulo = static_cast<unsigned>(lo);
+      const unsigned span = static_cast<unsigned>(list_end[i]) - ulo;
+      const unsigned c0 = static_cast<unsigned>(d.x) - ulo;
+      const unsigned c1 = static_cast<unsigned>(d.y) - ulo;
+      const unsigned c2 = static_cast<unsigned>(d.z) - ulo;
+      const unsigned c3 = static_cast<unsigned>(d.w) - ulo;
+      if (c0 < span) add_limbs<3>(acc, tile, c0, v.x);
+      if (c1 < span) add_limbs<3>(acc, tile, c1, v.y);
+      if (c2 < span) add_limbs<3>(acc, tile, c2, v.z);
+      if (c3 < span) add_limbs<3>(acc, tile, c3, v.w);
+      d = dn;
+      v = vn;
+      i = next;
+    }
+    __syncthreads();  // the list is rewritten by the next pass
+  }
+  if (counts) {
+    drops = __reduce_add_sync(0xffffffffu, drops);
+    if ((threadIdx.x & 31) == 0 && drops) atomicAdd(&row_drops, drops);
+  }
+  __syncthreads();
+  if (counts && threadIdx.x == 0) ovf[row] = row_drops;
+  int4* o4 = reinterpret_cast<int4*>(out + static_cast<size_t>(row) * cells
+                                     + lo);
+  for (int i = threadIdx.x; i < n / 4; i += kWindowThreads) {
+    int4 r = acc4[i];
+#pragma unroll
+    for (int j = 1; j < 3; ++j) {
+      const int4 a = acc4[j * tile / 4 + i];
+      r = make_int4(join_limb(r.x, a.x), join_limb(r.y, a.y),
+                    join_limb(r.z, a.z), join_limb(r.w, a.w));
+    }
+    o4[i] = r;
+  }
 }
 
 }  // namespace
 
-// dest, vals: (batch, m) int32, m a multiple of 1024; acc: zeroed
-// (batch, 3, cells) int32 scratch; out: (batch, cells) int32; ovf: zeroed
-// (batch,) int32 drop counts. cells is a multiple of 128, >= 128 * wrows.
+// dest, vals: (batch, m) int32, m a multiple of 1024, 16-byte aligned;
+// summary: (batch, m / 1024, 4) int32 scratch, every entry written; out:
+// (batch, cells) int32, every cell written; ovf: (batch,) int32 drop
+// counts, every entry written. cells is a multiple of 128, >= 128 * wrows;
+// tile a multiple of 128 with 3 * tile * 4 bytes at most 227 KB less the
+// list's 4 KB.
 SNK_EXPORT int snk_scatter_windowed(const void* dest, const void* vals,
-                                    void* acc, void* out, void* ovf, int m,
-                                    int cells, int wrows, int batch,
-                                    void* stream) {
+                                    void* summary, void* out, void* ovf,
+                                    int m, int cells, int wrows, int tile,
+                                    int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(m / kTile, batch);
-  scatter_windowed_kernel<<<grid, kTile, 0, s>>>(
-      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(vals), m,
-      cells, wrows, static_cast<int32_t*>(acc), static_cast<int32_t*>(ovf));
+  window_summary_kernel<<<dim3(m / kTile, batch), kSummaryThreads, 0, s>>>(
+      static_cast<const int32_t*>(dest), m, cells, wrows,
+      static_cast<int4*>(summary));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return join(acc, out, cells, 3, batch, s);
+  // The 48 KB a block gets without opting in counts the static list too.
+  const int bytes = 3 * tile * 4;
+  if (bytes + kListBytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(scatter_windowed_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  scatter_windowed_kernel<<<dim3((cells + tile - 1) / tile, batch),
+                            kWindowThreads, bytes, s>>>(
+      static_cast<const int32_t*>(dest), static_cast<const int32_t*>(vals),
+      static_cast<const int4*>(summary), m, cells, wrows, tile,
+      static_cast<int32_t*>(out), static_cast<int32_t*>(ovf));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dest, vals: (batch, m) int32, m a multiple of 1024; out: (batch, cells)

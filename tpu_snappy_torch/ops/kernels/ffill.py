@@ -1,9 +1,11 @@
 """Multi-payload forward fill from the latest set mask position.
 
 Port of tpu_snappy/ops/pallas/ffill.py:ffill_block (without `max_gap`,
-which only the framed sidecar uses); the CUDA kernel is csrc/ffill.cu (a
-block-wide max-scan of set indices, then one gather per payload, see its
-note). Positions before the first set mask keep their own entry.
+which only the framed sidecar uses); the CUDA kernel is csrc/ffill.cu:
+each row is cut into chunks (`fill_chunk`), a first pass writes each
+chunk's latest set index, and a second max-scans each chunk from the
+carry of the earlier chunks and gathers every payload (see its note).
+Positions before the first set mask keep their own entry.
 """
 
 from __future__ import annotations
@@ -28,26 +30,60 @@ def ffill_plain(mask: torch.Tensor, vals: tuple) -> tuple:
     return tuple(torch.gather(v, -1, take) for v in vals)
 
 
-def ffill(mask: torch.Tensor, vals: tuple) -> tuple:
+#: Positions of one fill segment (256 threads x 4); a chunk is 1, 2 or 4
+#: segments.
+SEGMENT = 1024
+CHUNKS = (4 * SEGMENT, 2 * SEGMENT, SEGMENT)
+#: Blocks ffill aims for: four on each SM.
+FILL_BLOCKS = 4 * _build.SMS
+#: Widths the kernel takes are multiples of this (the TPU kernel's rule).
+WIDTH_UNIT = 128
+
+
+def fill_chunk(batch: int, m: int) -> int:
+    """Positions of one ffill chunk: the largest of CHUNKS whose grid
+    (batch x chunks a row) reaches FILL_BLOCKS, else the smallest. At 126
+    or 128 rows of 57344 or 65536 that is 4096 (1764 to 2048 blocks); at 2
+    rows of 65536, 1024 (128 blocks)."""
+    for chunk in CHUNKS:
+        if batch * -(-m // chunk) >= FILL_BLOCKS:
+            return chunk
+    return CHUNKS[-1]
+
+
+def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None) -> tuple:
     """Fill each (B, M) int32 payload in `vals` (1 to 4 of them) from the
-    latest position where the (B, M) bool `mask` holds. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    latest position where the (B, M) bool `mask` holds (M a multiple of
+    128). CPU tensors take the plain version; CUDA tensors launch the
+    kernel, with `fill_chunk`'s chunk unless `chunk` (one of CHUNKS) is
+    given."""
     vals = tuple(vals)
-    if _build.on_cpu(mask, *vals):
-        return ffill_plain(mask, vals)
+    m = mask.shape[-1]
     if not 1 <= len(vals) <= MAX_PAYLOADS:
         raise ValueError(f"ffill takes 1 to {MAX_PAYLOADS} payloads")
-    batch, m = mask.shape
+    if m % WIDTH_UNIT:
+        raise ValueError(f"ffill: width {m} is not a multiple of "
+                         f"{WIDTH_UNIT}")
+    if chunk is not None and chunk not in CHUNKS:
+        raise ValueError(f"ffill: chunk {chunk} (one of {CHUNKS})")
+    if _build.on_cpu(mask, *vals):
+        return ffill_plain(mask, vals)
+    batch = mask.shape[0]
+    chunk = fill_chunk(batch, m) if chunk is None else chunk
     _build.require(mask, torch.bool, (batch, m), "mask")
     for v in vals:
         _build.require(v, torch.int32, (batch, m), "payload")
+    _build.require_aligned("ffill", mask, *vals)
     outs = tuple(torch.empty_like(v) for v in vals)
     if batch and m:
+        last = torch.empty((batch, -(-m // chunk)), dtype=torch.int32,
+                           device=mask.device)
         pad = [None] * (MAX_PAYLOADS - len(vals))
         ins = [v.data_ptr() for v in vals] + pad
         ptrs = [o.data_ptr() for o in outs] + pad
-        rc = _build.lib().snk_ffill(mask.data_ptr(), *ins, *ptrs, len(vals),
-                                    m, batch, _build.stream())
+        rc = _build.lib().snk_ffill(mask.data_ptr(), *ins, *ptrs,
+                                    last.data_ptr(), len(vals), m, chunk,
+                                    batch, _build.stream())
         _build.check(rc, "ffill")
         ffill.launches += 1
     return outs

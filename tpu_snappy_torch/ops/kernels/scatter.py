@@ -6,10 +6,11 @@ at limbs=3, out_cells=65536 and any `wrows` up to 512: 192 for the decode
 transport, the buckets of sidecar.PARENT_WROWS for the framed sidecar's
 pieces. `scatter_block` ports scatter.py:scatter_block at limbs 1-3 and
 any out_cells that is a multiple of 128. The CUDA kernels are in
-csrc/scatter.cu: scatter_windowed adds per limb with global atomics, then
-joins the limbs by shift-OR in a second pass; scatter_block gives each
-block one tile of a row's output in shared memory and writes it once
-(`block_tile` sizes the tile; see the file's note). The plain versions
+csrc/scatter.cu: both give each block one tile of a row's output in
+shared memory and write it once (`windowed_tile` and `block_tile` size the
+tiles); scatter_windowed first summarises each 1024-source tile (window
+base, kept range, drops) so that a block reads only the source tiles that
+meet its cells (see the file's note). The plain versions
 reproduce the window drop and the drop count exactly, so kernel and plain
 agree bit for bit, counts included.
 """
@@ -77,36 +78,67 @@ def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor,
     return _join(acc), ovf
 
 
+#: Cells of a scatter_windowed tile while the grid fills the card (three
+#: int32 limb planes: 48 KB, four blocks an SM), and the least it is cut to.
+WINDOWED_TILE = 4096
+MIN_WINDOWED_TILE = 512
+#: Blocks scatter_windowed aims for: four on each SM.
+WINDOWED_BLOCKS = 4 * _build.SMS
+#: Shared memory a scatter_windowed block keeps beside its planes (the
+#: list of source tiles that meet it; kListBytes in csrc/scatter.cu).
+_WINDOWED_LIST_BYTES = 4 * 1024 + 64
+
+
+def windowed_tile(batch: int) -> int:
+    """Cells of one scatter_windowed output tile: WINDOWED_TILE, halved
+    while the grid (batch x 65536 / tile blocks) stays below
+    WINDOWED_BLOCKS, down to MIN_WINDOWED_TILE. At 126 or 128 rows that is
+    4096 (2016 or 2048 blocks); at 2 rows 512."""
+    tile = WINDOWED_TILE
+    while tile > MIN_WINDOWED_TILE and batch * (N // tile) < WINDOWED_BLOCKS:
+        tile //= 2
+    return tile
+
+
 def scatter_windowed(dest: torch.Tensor, values: torch.Tensor,
-                     wrows: int = WROWS):
+                     wrows: int = WROWS, tile: int | None = None):
     """Additive scatter of (B, M) int32 `values` to (B, M) int32 `dest`
     cells (M a multiple of 1024; a destination outside [0, 65536) drops).
     Per 1024-source tile, writes `wrows` or more 128-cell rows past the
     tile's window base are dropped and counted. Returns (out (B, 65536)
     int32, ovf (B,) int32). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, with `windowed_tile`'s output tile unless
+    `tile` (cells, a multiple of 128) is given."""
     batch, m = dest.shape
     _check_wrows(wrows)
     if m % TILE:
         raise ValueError(f"scatter_windowed: width {m} is not a multiple "
                          f"of {TILE}")
+    tile = windowed_tile(batch) if tile is None else tile
+    if (tile % LO or not 0 < tile <= N
+            or 3 * tile * 4 + _WINDOWED_LIST_BYTES > _build.SMEM_BYTES):
+        raise ValueError(f"scatter_windowed: tile {tile} (a multiple of "
+                         f"{LO} up to {N}, 12 bytes a cell in shared memory)")
     if _build.on_cpu(dest, values):
         return scatter_windowed_plain(dest, values, wrows)
     _build.require(dest, torch.int32, (batch, m), "dest")
     _build.require(values, torch.int32, (batch, m), "values")
+    _build.require_aligned("scatter_windowed", dest, values)
     dev = dest.device
-    acc = torch.zeros((batch, 3, N), dtype=torch.int32, device=dev)
     out = torch.empty((batch, N), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    ovf = torch.empty((batch,), dtype=torch.int32, device=dev)
     if batch and m:
+        summary = torch.empty((batch, m // TILE, 4), dtype=torch.int32,
+                              device=dev)
         rc = _build.lib().snk_scatter_windowed(
-            dest.data_ptr(), values.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), ovf.data_ptr(), m, N, wrows, batch,
+            dest.data_ptr(), values.data_ptr(), summary.data_ptr(),
+            out.data_ptr(), ovf.data_ptr(), m, N, wrows, tile, batch,
             _build.stream())
         _build.check(rc, "scatter_windowed")
         scatter_windowed.launches += 1
     else:
         out.zero_()
+        ovf.zero_()
     return out, ovf
 
 
