@@ -7,9 +7,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
-checkout's scatter_windowed and ffill beside this one's on every captured
-call, in turns (their outputs must be equal), and sweeps the tiles of the
-two scatters and ffill's chunk.
+checkout's kernels named in REDESIGNED (the two matchers and the two
+emissions) beside this one's on every captured call, in turns (their
+outputs must be equal, every tensor), and sweeps the tiles of the two
+scatters and ffill's chunk.
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -20,7 +21,14 @@ Phases, each printing its results; any failure raises (non-zero exit):
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
-   planted with signature collisions; the resolve kernels on the JAX
+   planted with signature collisions, and on rows at their tile edges at
+   K 2, 3, 8, 14, 15 and 16, both sticky modes, lazy 0, 1 and 2: ties in
+   the propagation window, copies at every halo and tile edge, n at a tile
+   boundary and one past; the emissions on real and synthetic parses and
+   on parses at their tile edges: a 65536-byte literal run,
+   runs of 60, 61, 256 and 257 on tile boundaries, 3-byte copies whose
+   header bytes cross one, n inside a run, an all-copy row, a
+   block-opening literal; the resolve kernels on the JAX
    tests' maps, the period-1 chain and a depth-10000 chain among them,
    with exact, over-approximate and all-zero root flags and partly stable
    tiles; the windowed gathers in chained rounds on the same maps; the
@@ -68,8 +76,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
 8. times: raw compress / decompress throughput and peak device memory;
    compress's peak device memory at 16 MiB and 1 GiB (the same data 64
    times, its stream checked by the C++ golden), and the bytes of device
-   memory per input byte between the two; then traced raw and framed round trips, plus TURBO and flatten "off"
-   compresses, an "emit" and a "sort" placement wave and decode_corpus
+   memory per input byte between the two; then traced raw and framed
+   round trips, plus FAST, TURBO and flatten "off" compresses (FAST for
+   the packed matcher at K=8 "exact" among the captured calls), an "emit"
+   and a "sort" placement wave and decode_corpus
    under "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid"
    with the opening and fields="kernel", with a synchronised host clock
    around each public stage and kernel wrapper, which also capture every
@@ -117,7 +127,13 @@ import time
 import numpy as np
 import torch
 
-SEED = 20261016
+# The seeded inputs (the round-trip data, the synthetic parses and the rows
+# at the matcher's and the emission's tile edges), shared with the tests.
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from torch_edges import (SEED, emit_edge_parses, make_data,  # noqa: E402
+                         matcher_edge_rows, synthetic_parse)
+
 ROUND_TRIP_BYTES = 16 << 20
 BATCH = 8  # rows for the kernel-against-plain checks
 N = 1 << 16
@@ -137,38 +153,6 @@ def _card() -> tuple[str, str]:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     return torch.cuda.get_device_name(0), smi.splitlines()[0]
-
-
-def make_data(size: int, seed: int = SEED) -> bytes:
-    """Seeded mix: Zipf-drawn words with numbers, random printable ASCII,
-    incompressible bytes (literal runs over 60 and over 256 bytes), runs
-    of one byte, and a partial last block."""
-    rng = np.random.default_rng(seed)
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
-    vocab = [bytes(letters[rng.integers(0, 26, rng.integers(2, 11))])
-             for _ in range(5000)]
-    target = size - 12345  # the last block stays partial
-    pieces, total = [], 0
-    while total < target:
-        kind = rng.choice(4, p=[0.55, 0.15, 0.15, 0.15])
-        if kind == 0:
-            words = [vocab[i % len(vocab)]
-                     for i in rng.zipf(1.3, rng.integers(200, 3000))]
-            for j in np.flatnonzero(rng.random(len(words)) < 0.08):
-                words[j] = str(int(rng.integers(0, 1_000_000))).encode()
-            piece = b" ".join(words) + b".\n"
-        elif kind == 1:
-            piece = rng.integers(32, 127, rng.integers(100, 20000),
-                                 dtype=np.uint8).tobytes()
-        elif kind == 2:
-            piece = rng.integers(0, 256, rng.integers(61, 5000),
-                                 dtype=np.uint8).tobytes()
-        else:
-            piece = bytes([int(rng.integers(0, 256))]) * int(
-                rng.integers(10, 30000))
-        pieces.append(piece)
-        total += len(piece)
-    return b"".join(pieces)[:target]
 
 
 def _exact(a, b) -> int:
@@ -467,30 +451,6 @@ def _matcher_rows(rng):
     return blocks, np.array([n for _, n in rows], np.int32)
 
 
-def _synthetic_parse(rng, n: int):
-    """A committed parse (cj, off) of n positions with literal runs over 60
-    and over 256 bytes, copies of every length 4-64 with near and far
-    offsets, and a block-opening literal."""
-    cj = np.full(N, -1, np.int32)
-    off = rng.integers(0, N, N).astype(np.int32)
-    pos, lit = 0, True
-    while pos < n:
-        if lit:
-            run = int(rng.choice([1, 5, 61, 70, 257, 300]))
-            cj[pos:min(pos + run, n)] = 1
-            pos += run
-        else:
-            j = int(rng.integers(4, 65))
-            if pos + j > n:
-                cj[pos:n] = 1
-                break
-            cj[pos] = j
-            off[pos] = int(rng.choice([1, 3, 2047, 2048, 40000]))
-            pos += j
-        lit = not lit
-    return cj, off
-
-
 def _sig_collision_row(rng) -> np.ndarray:
     """A random row with planted signature collisions: at each planted p
     the window at p-4 occurs only a bytes back and the window at p only b
@@ -550,11 +510,34 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
                 errs += [_exact(g, w) for g, w in zip(got, want)]
                 got = matcher.matcher_block(cands, m, lazy, sticky)
                 errs_u += [_exact(g, w) for g, w in zip(got, want)]
-    report["matcher_block_packed"] = max(errs)
-    report["matcher_block"] = max(errs_u)
     print(f"kernel matcher      B={BATCH} (wrap row, period 17, ab ladder, "
           f"random, text; n edges; the collision row; K 3/8/14/15, stride "
           f"1/2, random tables; sticky exact/sig, lazy 2/0): packed "
+          f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
+    # The tile edges of the matcher kernel: ties in the propagation window,
+    # copies at every halo and tile edge, n at a tile boundary and one past,
+    # at K 2, 3, 8, 14, 15, 16, both sticky modes, lazy 0, 1 and 2.
+    eb, en = (t(x) for x in matcher_edge_rows())
+    for k in (2, 3, 8, 14, 15, 16):
+        cfg = dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
+                                  probes=k)
+        pr, wd = encode._candidate_offsets(encode._window_keys(eb, en), en,
+                                           cfg)
+        cands = matcher.unpack_table(pr, wd, k).contiguous()
+        for sticky in ("exact", "sig"):
+            for lazy in (0, 1, 2):
+                want = matcher.matcher_block_packed_plain(pr, wd, en, k, lazy,
+                                                          sticky)
+                got = matcher.matcher_block_packed(pr, wd, en, k, lazy,
+                                                   sticky)
+                errs += [_exact(g, w) for g, w in zip(got, want)]
+                got = matcher.matcher_block(cands, en, lazy, sticky)
+                errs_u += [_exact(g, w) for g, w in zip(got, want)]
+    report["matcher_block_packed"] = max(errs)
+    report["matcher_block"] = max(errs_u)
+    print(f"kernel matcher      tile edges B={len(en)} (ties, copies at the "
+          f"halo and tile edges, n at and past a tile boundary; K 2/3/8/14/"
+          f"15/16, sticky exact/sig, lazy 0/1/2): packed "
           f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
 
     # emit: the committed parses of those rows, and synthetic parses with
@@ -568,20 +551,25 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     cj = torch.where(scan.commit_bounded(jump) & (iota < n[:, None]),
                      jump, -1)
     syn_n = [N, N - 1, 1000, 300]
-    syn = [_synthetic_parse(rng, m) for m in syn_n]
+    syn = [synthetic_parse(rng, m) for m in syn_n]
     cj_s = t(np.stack([c for c, _ in syn]))
     off_s = t(np.stack([o for _, o in syn]))
     blk_s = t(rng.integers(0, 256, (len(syn), N), dtype=np.uint8))
+    edges = tuple(t(x) for x in emit_edge_parses())
     for name in ("emit_block_single", "emit_block"):
         errs = []
         for args in ((cj, off, blocks, n),
-                     (cj_s, off_s, blk_s, t(np.array(syn_n, np.int32)))):
-            got = getattr(emit, name)(*args)
+                     (cj_s, off_s, blk_s, t(np.array(syn_n, np.int32))),
+                     edges):
             want = getattr(emit, name + "_plain")(*args)
+            got = getattr(emit, name)(*args)
             errs += [_exact(g, w) for g, w in zip(got, want)]
         report[name] = max(errs)
-        print(f"kernel {name:18s} B={BATCH}+{len(syn)} (real and synthetic "
-              f"parses, runs > 60 and > 256): max_abs_err={max(errs)}")
+        print(f"kernel {name:18s} B={BATCH}+{len(syn)}+{len(edges[3])} (real "
+              f"and synthetic parses, runs > 60 and > 256; tile edges: a "
+              f"65536-byte run, runs of 60/61/256/257 on boundaries, 3-byte "
+              f"copies across them, n inside a run, all copies, a "
+              f"block-opening literal): max_abs_err={max(errs)}")
 
     # place: the encoder's main lanes, plus one tile that breaks the window
     # contract (counted once and dropped).
@@ -930,8 +918,8 @@ def _clone(x, memo: dict | None = None):
 def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
                       card: str):
     """Phase 8: one more raw round trip through the public API, the framed
-    decodes of the "auto" and "always" streams, TURBO and flatten "off"
-    compresses, one "emit" placement wave and decode_corpus of phase 7's
+    decodes of the "auto" and "always" streams, FAST, TURBO and flatten
+    "off" compresses, one "emit" placement wave and decode_corpus of phase 7's
     fragments (`corpus`) under each resolve-mode run of MODE_KERNEL, with
     every public stage and every kernel wrapper wrapped in place. Each
     wrapped call is timed on the host clock between two synchronises, and
@@ -990,6 +978,7 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         backs = [framing.decompress(framed[p], device="cuda")
                  for p in ("auto", "always")]
         t3 = time.perf_counter()
+        api.compress(data, config.FAST_CONFIG, device="cuda")
         api.compress(data, config.TURBO_CONFIG, device="cuda")
         api.compress(data, _flat_off(), device="cuda")
         encode.encode_blocks(*wave, placement="emit")
@@ -1012,8 +1001,8 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         raise AssertionError("the traced resolve modes disagree")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
-          f" framed decompress auto + always {(t3 - t2) * 1e3} ms, TURBO and"
-          f" flatten off compresses + an emit and a sort wave "
+          f" framed decompress auto + always {(t3 - t2) * 1e3} ms, FAST, "
+          f"TURBO and flatten off compresses + an emit and a sort wave "
           f"{(t4 - t3) * 1e3} ms, "
           f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
           f"host-clock ms per stage over all waves; load average "
@@ -1182,14 +1171,16 @@ def _doubling_rounds(src: torch.Tensor) -> int:
 
 def _matcher_ops(k: int, sticky: str) -> int:
     """Integer operations a position of the matcher needs: per sticky
-    level (4 levels), at "exact" each of K+1 shifted offsets against K own
-    ones (840 compares at K=14), at "sig" K bucket bits into the mask and
-    K+1 tests (2K+1), plus K compares to verify; then about 72 more (16
-    link compares, 3 phases, the 16-wide filter, 7 propagation levels,
-    lazy, jump)."""
+    level, at "exact" each of K+1 shifted offsets against K own ones, at
+    "sig" K bucket bits into the mask and K+1 tests (2K+1), but at the
+    last of the 4 levels only the default's test (K compares; at "sig" the
+    mask and one test), since nothing reads the last level's keeps (644
+    compares a position at K=14, where the 4 full levels would be 840);
+    at "sig" K compares to verify; then about 72 more (16 link compares,
+    3 phases, the 16-wide filter, 7 propagation levels, lazy, jump)."""
     if sticky == "sig":
-        return 4 * (2 * k + 1) + k + 72
-    return 4 * (k + 1) * k + 72
+        return 3 * (2 * k + 1) + (k + 1) + k + 72
+    return 3 * (k + 1) * k + k + 72
 
 
 def _bound(name: str, args, outs) -> tuple:
@@ -1397,28 +1388,31 @@ def _extreme(pick, values: list):
 
 
 #: The kernels whose earlier design `--parent` times beside this one.
-REDESIGNED = ("scatter_windowed", "ffill")
+REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
+              "emit_block")
 
 
 def _parent_kernels(parent: str) -> dict:
-    """The wrappers of REDESIGNED in another checkout's kernel package
-    (for example the parent commit unpacked with `git archive`), loaded
-    under the package name `parent_kernels` so that they build their own
-    library from their own sources beside this checkout's."""
+    """The wrappers of REDESIGNED in another checkout's port (for example
+    the parent commit unpacked with `git archive`), its package loaded
+    under the name `parent_port` (the kernel modules import the port's
+    `format`), so that they build their own library from their own sources
+    beside this checkout's."""
     import importlib
     import importlib.util
     import pathlib
 
-    pkg = pathlib.Path(parent).resolve() / "tpu_snappy_torch/ops/kernels"
+    pkg = pathlib.Path(parent).resolve() / "tpu_snappy_torch"
     spec = importlib.util.spec_from_file_location(
-        "parent_kernels", pkg / "__init__.py",
+        "parent_port", pkg / "__init__.py",
         submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
-    sys.modules["parent_kernels"] = module
+    sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
-    mods = {"scatter_windowed": "scatter", "ffill": "ffill"}
-    return {name: getattr(importlib.import_module(f"parent_kernels.{m}"),
-                          name) for name, m in mods.items()}
+    mods = {"matcher_block_packed": "matcher", "matcher_block": "matcher",
+            "emit_block_single": "emit", "emit_block": "emit"}
+    return {name: getattr(importlib.import_module(
+        f"parent_port.ops.kernels.{m}"), name) for name, m in mods.items()}
 
 
 def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
@@ -1453,9 +1447,9 @@ def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
 def tile_sweep(dev, captured: dict, card: str) -> None:
     """With `--parent DIR`, the measurements behind the tile and chunk
     rules: scatter_block's captured calls at 1 to 66 tiles a row,
-    scatter_windowed's at tiles of 512 to 16384 cells and ffill's at every
-    chunk size (each rule's choice among them), device only (graph_ms),
-    each output equal to the wrapper's."""
+    scatter_windowed's at tiles of 512 to 16384 cells and ffill's at
+    every chunk size (each rule's choice among them), device only
+    (graph_ms), each output equal to the wrapper's."""
     from tpu_snappy_torch.ops.kernels import ffill, scatter
 
     for (name, stage, shapes, scalars), (args, kw) in captured.items():

@@ -1,0 +1,198 @@
+"""Seeded inputs shared by chip_smoke.py and the port's tests.
+
+`make_data` is the mixed round-trip input; `synthetic_parse` a committed
+parse with long literal runs and far copies; `matcher_edge_rows` and
+`emit_edge_parses` the rows that land on the tiles of the matcher and
+emission kernels (ops/kernels/matcher.py:TILE, emit.py:TILE), read from
+the kernel modules so that a change of tiling moves the rows with it.
+chip_smoke.py holds the CUDA kernels against their plain versions on
+them; tests/test_torch_matcher.py and tests/test_torch_emit.py hold the
+kernels' tile restatements against the plain versions and the Pallas
+kernels on the CPU. numpy only, besides the two kernel modules.
+"""
+
+import numpy as np
+
+from tpu_snappy_torch.ops.kernels import emit, matcher
+
+SEED = 20261016
+N = 1 << 16
+
+
+def make_data(size: int, seed: int = SEED) -> bytes:
+    """Seeded mix: Zipf-drawn words with numbers, random printable ASCII,
+    incompressible bytes (literal runs over 60 and over 256 bytes), runs
+    of one byte, and a partial last block."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    vocab = [bytes(letters[rng.integers(0, 26, rng.integers(2, 11))])
+             for _ in range(5000)]
+    target = size - 12345  # the last block stays partial
+    pieces, total = [], 0
+    while total < target:
+        kind = rng.choice(4, p=[0.55, 0.15, 0.15, 0.15])
+        if kind == 0:
+            words = [vocab[i % len(vocab)]
+                     for i in rng.zipf(1.3, rng.integers(200, 3000))]
+            for j in np.flatnonzero(rng.random(len(words)) < 0.08):
+                words[j] = str(int(rng.integers(0, 1_000_000))).encode()
+            piece = b" ".join(words) + b".\n"
+        elif kind == 1:
+            piece = rng.integers(32, 127, rng.integers(100, 20000),
+                                 dtype=np.uint8).tobytes()
+        elif kind == 2:
+            piece = rng.integers(0, 256, rng.integers(61, 5000),
+                                 dtype=np.uint8).tobytes()
+        else:
+            piece = bytes([int(rng.integers(0, 256))]) * int(
+                rng.integers(10, 30000))
+        pieces.append(piece)
+        total += len(piece)
+    return b"".join(pieces)[:target]
+
+
+def synthetic_parse(rng, n: int):
+    """A committed parse (cj, off) of n positions with literal runs over 60
+    and over 256 bytes, copies of every length 4-64 with near and far
+    offsets, and a block-opening literal."""
+    cj = np.full(N, -1, np.int32)
+    off = rng.integers(0, N, N).astype(np.int32)
+    pos, lit = 0, True
+    while pos < n:
+        if lit:
+            run = int(rng.choice([1, 5, 61, 70, 257, 300]))
+            cj[pos:min(pos + run, n)] = 1
+            pos += run
+        else:
+            j = int(rng.integers(4, 65))
+            if pos + j > n:
+                cj[pos:n] = 1
+                break
+            cj[pos] = j
+            off[pos] = int(rng.choice([1, 3, 2047, 2048, 40000]))
+            pos += j
+        lit = not lit
+    return cj, off
+
+
+def matcher_edge_rows(seed: int = SEED + 7):
+    """Encoder rows at the matcher's tile edges: a row of twelve 10-byte
+    words from a small vocabulary (equal propagation values at different
+    positions and offsets: ties), random rows with 70-byte copies planted
+    to start at each halo and tile edge (t0 - 204, t0 - 203, t0 - 143,
+    t0 - 127, t0 - 68, t0 - 64, t0 - 1, t0, t0 + 1, t0 + 63, t0 + 67, t0 +
+    68 around tile starts t0 = k x matcher.TILE) and at n = N, one at n = a tile
+    boundary and one past it, text at n = 20 tiles and one past, a byte
+    run over a tile boundary, and the wrap row (last 68 bytes = first 68).
+    Returns (blocks (8, N) uint8, n (8,) int32)."""
+    rng = np.random.default_rng(seed)
+    vocab = rng.integers(97, 123, (12, 10), dtype=np.uint8)
+    ties = []
+    while sum(map(len, ties)) < N:
+        ties.append(vocab[int(rng.integers(0, 12))])
+        ties.append(rng.integers(32, 48, int(rng.integers(1, 4)),
+                                 dtype=np.uint8))
+    ties = np.concatenate(ties)[:N]
+    edges = (-204, -203, -143, -127, -68, -64, -1, 0, 1, 63, 67, 68)
+    planted = rng.integers(0, 256, N, dtype=np.uint8)
+    for k in range(1, N // matcher.TILE + 1):
+        at = k * matcher.TILE + edges[k % len(edges)]
+        src = at - int(rng.integers(100, 3000))
+        if src >= 0 and at + 70 <= N:
+            planted[at:at + 70] = planted[src:src + 70]
+    text = np.frombuffer(make_data(2 * N, SEED + 3)[:N], np.uint8)
+    run = rng.integers(0, 256, N, dtype=np.uint8)
+    for k in range(1, 36, 5):
+        t0 = k * matcher.TILE
+        run[t0 - 150:t0 + 90] = run[t0 - 151]
+    wrap = rng.integers(0, 256, N, dtype=np.uint8)
+    wrap[-68:] = wrap[:68]
+    last = (N // matcher.TILE) * matcher.TILE
+    rows = [(ties, N), (planted, N), (planted, last), (planted, last + 1),
+            (text, 20 * matcher.TILE), (text, 20 * matcher.TILE + 1),
+            (run, N), (wrap, N)]
+    blocks = np.zeros((len(rows), N), np.uint8)
+    for i, (row, n) in enumerate(rows):
+        blocks[i, :n] = row[:n]
+    return blocks, np.array([n for _, n in rows], np.int32)
+
+
+def emit_edge_parses(seed: int = SEED + 8):
+    """Committed parses (cj, off, block, n) at the emission's tile edges: an
+    incompressible row (one 65536-byte literal run: every tile's run end
+    comes from the last tile or from n); literal runs of 60, 61, 256 and
+    257 starting or ending on tile boundaries and half-tile points
+    (multiples of emit.TILE / 2), between copies; 3-byte copies starting
+    one and two positions before such a point (at tile boundaries their
+    2nd and 3rd header bytes ride the next tile's first positions; one
+    before and two before alternate from tile to tile) and element starts
+    exactly at tile starts; a literal run cut by n = 50000; an all-copy row; and a
+    block-opening literal followed by the synthetic mix of long runs and
+    far copies. Returns numpy arrays (8, N) int32, (8, N) int32, (8, N)
+    uint8, (8,) int32."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    half = emit.TILE // 2
+
+    def copies(cj, off, start, stop, far=False):
+        pos = start
+        while pos + 4 <= stop:
+            j = int(rng.integers(4, min(64, stop - pos) + 1))
+            cj[pos] = j
+            off[pos] = int(rng.integers(2048, 40000)) if far else int(
+                rng.integers(1, 2048))
+            pos += j
+        cj[pos:stop] = 1
+        return cj
+
+    def row():
+        return np.full(N, -1, np.int32), rng.integers(0, N, N).astype(
+            np.int32)
+
+    cj, off = row()
+    cj[:] = 1
+    rows.append((cj, off, N))
+    for lens in ((60, 61, 256, 257), (257, 256, 61, 60)):
+        cj, off = row()
+        pos, k = 0, 0
+        for b in range(half, N, half):
+            run = lens[k % 4]
+            start = b if k % 2 == 0 else b - run  # starts or ends at b
+            if start < pos + 4:
+                continue
+            copies(cj, off, pos, start)
+            cj[start:start + run] = 1
+            pos, k = start + run, k + 1
+        copies(cj, off, pos, N)
+        rows.append((cj, off, N))
+    cj, off = row()
+    pos = 0
+    for b in range(half, N, half):
+        at = b - 1 - (b // emit.TILE) % 2  # one or two before the point
+        copies(cj, off, pos, at, far=True)
+        cj[at] = int(rng.integers(12, 65))  # a 3-byte copy
+        off[at] = int(rng.integers(2048, 40000))
+        pos = at + int(cj[at])
+        cj[at + 1:pos] = -1
+    copies(cj, off, pos, N)
+    rows.append((cj, off, N))
+    cj, off = row()
+    copies(cj, off, 0, 49900)
+    cj[49900:50000] = 1
+    rows.append((cj, off, 50000))
+    cj, off = row()
+    cj[::4] = 4
+    rows.append((cj, off, N))
+    cj, off = synthetic_parse(rng, N - 3)
+    rows.append((cj, off, N - 3))
+    cj, off = row()
+    cj[:300] = 1
+    copies(cj, off, 300, 40000, far=True)
+    rows.append((cj, off, N))
+    cj = np.stack([r[0] for r in rows])
+    off = np.stack([r[1] for r in rows])
+    n = np.array([r[2] for r in rows], np.int32)
+    iota = np.arange(N)
+    cj = np.where(iota[None] < n[:, None], cj, -1).astype(np.int32)
+    block = rng.integers(0, 256, (len(rows), N), dtype=np.uint8)
+    return cj, off, block, n

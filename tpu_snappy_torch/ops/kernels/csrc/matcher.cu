@@ -27,277 +27,412 @@
 // and keeps 1.. are the 16-bit halves of the words in order (low first;
 // at even K the last word's high half is not a keep); unpacked, keep j is
 // column j of the (N, K) table.
-// Each output needs a bounded neighbourhood: 203 positions to the left
-// (sticky 60, filter 16, propagation 127) and 68 to the right (lengths
-// and lazy). So one block owns one row's tile of 1024 outputs, loads the
-// tile plus halos (1296 positions) into shared memory as 16-bit offsets,
-// and runs every stage there, the halos recomputed by each tile.
 //
-// Bound on this card: integer operations. The exact membership test
-// compares each of K+1 shifted offsets with K own offsets per level
-// (840 compares a position at K = 14), the signature test builds K bucket
-// bits and tests K+1 (about 2K+1 per level, plus K to verify); the kernel
-// reads 4 + 2K bytes a position (packed) and writes 8. It keeps every
-// intermediate on chip, so device memory sees one read of the table (two
-// of the verified positions' at "sig") and one write of (jump, off).
+// Bound on this card: integer operations, in the sticky levels. The exact
+// membership test compares each of K+1 shifted offsets with K own offsets
+// per level (at K = 14, 630 compares a position over the first three
+// levels and 14 at the last, which only the default needs); the signature
+// test builds K bucket bits and tests K+1 (about 2K+1 per level, plus K to
+// verify); the kernel reads 4 + 2K bytes a position (packed) and writes 8.
+// Each output needs a bounded neighbourhood: 203 positions to the left
+// (sticky 60, filter 16, propagation 127) and 68 to the right (lengths and
+// lazy). The design, for this card:
+//   * One block of 512 threads owns a row's tile of 1776 outputs and loads
+//     it with its halos, 2048 positions, four consecutive positions a
+//     thread (16-byte loads and stores, no partial trip; the halos are 15%
+//     of the positions, against 27% at the earlier 1024-output tile).
+//   * Sticky planes are single-buffered in shared memory (K + 1 planes of
+//     16-bit offsets): a thread computes its positions' new values into
+//     registers (two to a register), the block synchronises, and the thread
+//     writes them in place. The last level computes only the default. At
+//     "sig" the keeps' bucket mask (the OR of the kept members' buckets)
+//     stays in registers from level to level, and the original keeps stay
+//     in shared memory for the verification, so the table is read from
+//     device memory once.
+//   * The stages after sticky are restated as few passes, positions kept in
+//     registers: link counts are runs of a warp ballot of the stride-4
+//     equalities (four chains a warp, the next warp's ballot for runs that
+//     cross it); the phase max reads the next thread's offsets; the filter
+//     counts a 20-bit window of per-thread match nibbles; the 7 propagation
+//     levels are a sliding max over [i - 127, i] of the key (value + 1) <<
+//     11 | region index (the largest key is the rightmost argmax, which the
+//     strict > keeps), as per-warp prefix and suffix maxima (van Herk /
+//     Gil-Werman: a warp holds one 128-position block). Eleven barriers a
+//     tile in all (four in the stages after sticky).
+// Blocks an SM: two at K >= 9 (64 registers a thread), three at K 5-8,
+// four at K <= 4.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kN = 1 << 16;
-constexpr int kTile = 1024;
-constexpr int kLeft = 204;   // >= 60 + 16 + 127 positions of left context
-constexpr int kRight = 68;   // 64 (links) + 3 (phases) + 1 (lazy)
-constexpr int kLen = kLeft + kTile + kRight;
 constexpr int kThreads = 512;
-constexpr int kLevels = 4;   // encode.STICKY_LEVELS
-constexpr int kC1 = 2048;    // fmt.COPY1_MAX_OFFSET
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 4;                // consecutive positions a thread
+constexpr int kLen = kThreads * kPer;  // a tile with its halos
+// Left context: at least 60 + 16 + 127 positions; right: 64 (links) + 3
+// (phases) + 1 (lazy).
+constexpr int kLeft = 204;
+constexpr int kRight = 68;
+constexpr int kTile = kLen - kLeft - kRight;  // outputs a block
+constexpr int kTiles = (kN + kTile - 1) / kTile;
+constexpr int kLevels = 4;      // encode.STICKY_LEVELS
+constexpr int kC1 = 2048;       // fmt.COPY1_MAX_OFFSET
+constexpr int kBlock = 32 * kPer;  // a warp's positions, a max block
+constexpr int kIdxBits = 11;    // region index bits of a window key
+constexpr unsigned kFull = 0xffffffffu;
 
-// Shared memory: the sticky double buffer (K + 1 planes of 16-bit values:
-// the K keeps and the default), then the sticky offsets. The later stages'
-// int32 arrays reuse the double buffer's space.
-template <int K>
+static_assert(kLen == 1 << kIdxBits, "a window key holds a region index");
+static_assert(kLeft % kPer == 0 && kTile % kPer == 0,
+              "a thread's positions are all outputs or none");
+static_assert(kLeft >= 60 + 16 + 127 && kBlock == 128,
+              "the propagation window is one warp block");
+
+// Shared memory: the sticky planes (K + 1 planes of 16-bit values: the K
+// keeps and the default), at "sig" the original keeps (K planes), then the
+// sticky offsets. The later stages' arrays reuse the planes' space.
+template <int K, bool kSig>
 struct Smem {
-  static constexpr size_t kSticky = 2u * (K + 1) * kLen * sizeof(uint16_t);
-  static constexpr size_t kStage = 6u * kLen * sizeof(int32_t);
-  static constexpr size_t kBig = kSticky > kStage ? kSticky : kStage;
-  static constexpr size_t kTotal = kBig + kLen * sizeof(int32_t);
+  static constexpr size_t kPlanes = (K + 1) * kLen * sizeof(uint16_t);
+  static constexpr size_t kOrig = kSig ? K * kLen * sizeof(uint16_t) : 0;
+  static constexpr size_t kOffs = kLen * sizeof(uint16_t);
+  static constexpr size_t kPost =
+      (kLen + kThreads + 4 + kWarps * kPer + kWarps) * sizeof(int32_t);
+  static_assert(kPost <= kPlanes, "the later stages fit in the planes");
+  static constexpr size_t kTotal = kPlanes + kOrig + kOffs;
 };
 
 __device__ __forceinline__ uint32_t sig_bit(uint32_t x) {
   return 1u << ((x * 0x9E3779B1u) >> 27);
 }
 
-// Keep j of the original table at global position gm of row `row`.
-// Packed: `table` is the words (row, K/2, N), `pref` keep 0. Unpacked:
-// `table` is (row, N, K).
-template <int K>
-__device__ __forceinline__ uint16_t orig_keep(const int32_t* pref,
-                                              const int32_t* table,
-                                              bool packed, int row, int gm,
-                                              int j) {
-  if (!packed)
-    return static_cast<uint16_t>(
-        table[(static_cast<size_t>(row) * kN + gm) * K + j]);
-  if (j == 0)
-    return static_cast<uint16_t>(pref[static_cast<size_t>(row) * kN + gm]);
-  const uint32_t w = static_cast<uint32_t>(
-      table[(static_cast<size_t>(row) * (K / 2) + (j - 1) / 2) * kN + gm]);
-  return static_cast<uint16_t>((j - 1) % 2 ? w >> 16 : w & 0xFFFFu);
+// Four consecutive 16-bit values, one 8-byte store.
+__device__ __forceinline__ void store4(uint16_t* at, uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  *reinterpret_cast<uint2*>(at) =
+      make_uint2((a & 0xFFFFu) | (b & 0xFFFFu) << 16,
+                 (c & 0xFFFFu) | (d & 0xFFFFu) << 16);
 }
 
 template <int K, bool kSig>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, K <= 4 ? 4 : (K <= 8 ? 3 : 2))
 matcher_kernel(const int32_t* __restrict__ pref,
                const int32_t* __restrict__ table, bool packed,
                const int32_t* __restrict__ nlen, int32_t* __restrict__ jump,
                int32_t* __restrict__ offo, int lazy) {
   extern __shared__ __align__(16) unsigned char smem[];
+  using S = Smem<K, kSig>;
   constexpr int kP = K + 1;  // planes: keeps 0..K-1, default at K
   constexpr int kW = K / 2;
-  uint16_t* bufa = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* bufb = bufa + kP * kLen;
-  int32_t* offs = reinterpret_cast<int32_t*>(smem + Smem<K>::kBig);
+  uint16_t* planes = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* orig = planes + kP * kLen;  // "sig" only: the original keeps
+  uint16_t* offs = reinterpret_cast<uint16_t*>(smem + S::kPlanes + S::kOrig);
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int row = blockIdx.y;
   const int t0 = blockIdx.x * kTile;
-  const int g0 = t0 - kLeft;  // global position of region index 0
   const int n = nlen[row];
   const size_t rbase = static_cast<size_t>(row) * kN;
+  const int p0 = kPer * tid;  // my first region position
+  // Its global position; my kPer positions never straddle the wrap.
+  const int gb = (t0 - kLeft + p0) & (kN - 1);
 
   // --- load the table: keeps 0..K-1, and the default = keep 0 ---
   if (packed) {
-    for (int p = tid; p < kLen; p += kThreads) {
-      const int gm = (g0 + p) & (kN - 1);
-      const uint16_t pr = static_cast<uint16_t>(pref[rbase + gm]);
-      bufa[p] = pr;
-      bufa[K * kLen + p] = pr;  // default
+    const int4 pr = __ldg(reinterpret_cast<const int4*>(pref + rbase + gb));
+    store4(planes + p0, pr.x, pr.y, pr.z, pr.w);
+    store4(planes + K * kLen + p0, pr.x, pr.y, pr.z, pr.w);
+    if constexpr (kSig) store4(orig + p0, pr.x, pr.y, pr.z, pr.w);
 #pragma unroll
-      for (int j = 0; j < kW; ++j) {
-        const uint32_t w = static_cast<uint32_t>(
-            table[(static_cast<size_t>(row) * kW + j) * kN + gm]);
-        bufa[(1 + 2 * j) * kLen + p] = static_cast<uint16_t>(w & 0xFFFFu);
-        if (2 + 2 * j < K)  // at even K the last high half is not a keep
-          bufa[(2 + 2 * j) * kLen + p] = static_cast<uint16_t>(w >> 16);
+    for (int j = 0; j < kW; ++j) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(
+          table + (static_cast<size_t>(row) * kW + j) * kN + gb));
+      const uint32_t x = w.x, y = w.y, z = w.z, v = w.w;
+      store4(planes + (1 + 2 * j) * kLen + p0, x, y, z, v);
+      if constexpr (kSig) store4(orig + (1 + 2 * j) * kLen + p0, x, y, z, v);
+      if (2 + 2 * j < K) {  // at even K the last high half is not a keep
+        store4(planes + (2 + 2 * j) * kLen + p0, x >> 16, y >> 16, z >> 16,
+               v >> 16);
+        if constexpr (kSig)
+          store4(orig + (2 + 2 * j) * kLen + p0, x >> 16, y >> 16, z >> 16,
+                 v >> 16);
       }
     }
   } else {
-    // Consecutive threads read consecutive entries of the (N, K) rows.
-    for (int f = tid; f < kLen * K; f += kThreads) {
-      const int p = f / K;
-      const int j = f - p * K;
-      const int gm = (g0 + p) & (kN - 1);
-      const uint16_t v = static_cast<uint16_t>(
-          table[(rbase + gm) * K + j]);
-      bufa[j * kLen + p] = v;
-      if (j == 0) bufa[K * kLen + p] = v;
+    // My positions' K entries each: 4K consecutive int32.
+    const int4* src = reinterpret_cast<const int4*>(
+        table + (rbase + gb) * K);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int4 x = __ldg(src + i);
+      const int vals[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = (4 * i + e) / K;
+        const int j = (4 * i + e) % K;
+        const uint16_t v = static_cast<uint16_t>(vals[e]);
+        planes[j * kLen + p0 + q] = v;
+        if (j == 0) planes[K * kLen + p0 + q] = v;
+        if constexpr (kSig) orig[j * kLen + p0 + q] = v;
+      }
     }
   }
   __syncthreads();
 
   // --- sticky offsets: keep the offset from i - s where it is one of my
-  // keeps, per keep and for the default ---
-  uint16_t* cur = bufa;
-  uint16_t* nxt = bufb;
+  // keeps, per keep and for the default. New values wait in registers
+  // (two to a register) until the block has read the level. At "sig" the
+  // keeps' bucket mask stays in registers: the next level's mask is the OR
+  // of the buckets of the members kept. ---
+  uint32_t msk[kPer];
+  if constexpr (kSig) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      msk[q] = 0;
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        const uint32_t own = planes[m * kLen + p0 + q];
+        if (own != 0) msk[q] |= sig_bit(own);
+      }
+    }
+  }
 #pragma unroll 1
-  for (int lvl = 0; lvl < kLevels; ++lvl) {
+  for (int lvl = 0; lvl < kLevels - 1; ++lvl) {
     const int s = 4 << lvl;
-    for (int p = tid; p < kLen; p += kThreads) {
-      const int gm = (g0 + p) & (kN - 1);
-      if (gm < s || p < s) {  // window edge (p < s: context never read)
+    // Window edge (gidx < s), or context the tile never reads (p < s).
+    const bool ident = gb < s || p0 < s;
+    uint32_t nv[kP][2];
+    uint32_t nm[kPer];
+    if (!ident) {
 #pragma unroll
-        for (int j = 0; j < kP; ++j) nxt[j * kLen + p] = cur[j * kLen + p];
-        continue;
-      }
-      uint32_t own[K];
-      uint32_t mask = 0;
+      for (int q = 0; q < kPer; ++q) {
+        const int p = p0 + q;
+        uint32_t own[K];
+        if constexpr (!kSig) {
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        own[j] = cur[j * kLen + p];
-        if constexpr (kSig) {
-          if (own[j] != 0) mask |= sig_bit(own[j]);
+          for (int m = 0; m < K; ++m) own[m] = planes[m * kLen + p];
         }
-      }
+        nm[q] = 0;
 #pragma unroll
-      for (int j = 0; j < kP; ++j) {
-        const uint32_t x = cur[j * kLen + p - s];
-        bool hit = false;
-        if constexpr (kSig) {
-          hit = (mask & sig_bit(x)) != 0;
-        } else {
+        for (int j = 0; j < kP; ++j) {
+          const uint32_t x = planes[j * kLen + p - s];
+          bool hit = false;
+          if constexpr (kSig) {
+            const uint32_t b = sig_bit(x);
+            hit = (msk[q] & b) != 0 && x != 0;
+            if (j < K && hit) nm[q] |= b;
+          } else {
 #pragma unroll
-          for (int m = 0; m < K; ++m) hit |= x == own[m];
+            for (int m = 0; m < K; ++m) hit |= x == own[m];
+            hit &= x != 0;
+          }
+          // keeps drop a non-member to 0; the default keeps its own value
+          const uint32_t v = hit ? x : (j == K ? planes[K * kLen + p] : 0u);
+          if (q & 1)
+            nv[j][q >> 1] |= v << 16;
+          else
+            nv[j][q >> 1] = v;
         }
-        hit &= x != 0;
-        // keeps drop a non-member to 0; the default keeps its own value
-        nxt[j * kLen + p] = static_cast<uint16_t>(
-            hit ? x : (j == K ? cur[K * kLen + p] : 0u));
       }
     }
     __syncthreads();
-    uint16_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int p = tid; p < kLen; p += kThreads) {
-    uint32_t d = cur[K * kLen + p];
-    if constexpr (kSig) {
-      // Exact re-verification against the original table (the double
-      // buffer no longer holds it), falling back to the original keep 0.
-      const int gm = (g0 + p) & (kN - 1);
-      const uint16_t c0 = orig_keep<K>(pref, table, packed, row, gm, 0);
-      bool ver = d == c0;
+    if (!ident) {
 #pragma unroll
-      for (int j = 1; j < K; ++j)
-        ver |= d == orig_keep<K>(pref, table, packed, row, gm, j);
-      d = ver && d != 0 ? d : c0;
+      for (int j = 0; j < kP; ++j)
+        *reinterpret_cast<uint2*>(planes + j * kLen + p0) =
+            make_uint2(nv[j][0], nv[j][1]);
+      if constexpr (kSig) {
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) msk[q] = nm[q];
+      }
     }
-    offs[p] = static_cast<int32_t>(d);
+    __syncthreads();
   }
+  // The last level: only the default is read after it.
+  uint32_t d[kPer];
+  {
+    constexpr int s = 4 << (kLevels - 1);
+    const bool ident = gb < s || p0 < s;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int p = p0 + q;
+      d[q] = planes[K * kLen + p];
+      if (ident) continue;
+      const uint32_t x = planes[K * kLen + p - s];
+      bool hit = false;
+      if constexpr (kSig) {
+        hit = (msk[q] & sig_bit(x)) != 0;
+      } else {
+#pragma unroll
+        for (int m = 0; m < K; ++m) hit |= x == planes[m * kLen + p];
+      }
+      if (hit && x != 0) d[q] = x;
+    }
+  }
+  if constexpr (kSig) {
+    // Exact re-verification against the original table, falling back to
+    // the original keep 0.
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int p = p0 + q;
+      const uint32_t c0 = orig[p];
+      bool ver = d[q] == c0;
+#pragma unroll
+      for (int j = 1; j < K; ++j) ver |= d[q] == orig[j * kLen + p];
+      d[q] = ver && d[q] != 0 ? d[q] : c0;
+    }
+  }
+  store4(offs + p0, d[0], d[1], d[2], d[3]);
   __syncthreads();
 
-  // Stage arrays in the (now dead) sticky buffer.
-  int32_t* mlq = reinterpret_cast<int32_t*>(smem);
-  int32_t* ml = mlq + kLen;
-  int32_t* pva = ml + kLen;
-  int32_t* poa = pva + kLen;
-  int32_t* pvb = poa + kLen;
-  int32_t* pob = pvb + kLen;
+  // The later stages' arrays, in the (now dead) planes.
+  int32_t* hs = reinterpret_cast<int32_t*>(smem);  // suffix-max keys
+  uint32_t* hasw = reinterpret_cast<uint32_t*>(hs + kLen);  // match nibbles
+  uint32_t* bal = hasw + kThreads + 4;  // stride-4 equality ballots
+  int32_t* kfirst = reinterpret_cast<int32_t*>(bal + kWarps * kPer);
 
-  // --- quantised lengths: consecutive equal offsets at stride 4 ---
-  constexpr int kMl0 = kLeft - 127 - 16;  // first position the filter reads
-  for (int p = kMl0 + tid; p < kLen - 64; p += kThreads) {
-    const int o = offs[p];
-    int r = 0;
-    if (o != 0) {
-      while (r < 16 && offs[p + 4 * (r + 1)] == o) ++r;
+  // --- quantised lengths: runs of equal offsets along the four stride-4
+  // chains. Equality with the next thread's offsets, balloted per chain;
+  // a run is the trailing ones of this warp's ballot and the next's. ---
+  uint32_t oq[kPer + 3];  // offsets at p0 .. p0 + 6
+  {
+    const bool last = tid + 1 == kThreads;
+    const uint2 w = last ? make_uint2(0u, 0u)
+                         : *reinterpret_cast<const uint2*>(offs + p0 + kPer);
+    const uint32_t on[kPer] = {w.x & 0xFFFFu, w.x >> 16, w.y & 0xFFFFu,
+                               w.y >> 16};
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      oq[q] = d[q];
+      const uint32_t b = __ballot_sync(kFull, !last && on[q] == d[q]);
+      if (lane == 0) bal[warp * kPer + q] = b;
     }
-    mlq[p] = o != 0 ? 4 + 4 * r : 0;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) oq[kPer + q] = on[q];
   }
+  if (tid < 4) hasw[tid] = 0;
   __syncthreads();
+  int mlq[kPer + 3];
+#pragma unroll
+  for (int c = 0; c < kPer + 3; ++c) {
+    const int q = c % kPer;
+    const uint32_t lo = bal[warp * kPer + q];
+    const uint32_t hi = warp + 1 < kWarps ? bal[(warp + 1) * kPer + q] : 0u;
+    // The chain's equalities from my lane (or the next) on; trailing ones,
+    // capped at 16.
+    const uint32_t ahead = __funnelshift_rc(lo, hi, lane + c / kPer);
+    const int run = __ffs(~ahead | 1u << 16) - 1;
+    mlq[c] = oq[c] != 0 ? 4 + 4 * run : 0;
+  }
 
-  // --- phase max over p = 1..3, masked, capped at n - i ---
-  constexpr int kEnd = kLeft + kTile + 1;  // one past the lazy look-ahead
-  for (int p = kMl0 + tid; p < kEnd; p += kThreads) {
-    const int gm = (g0 + p) & (kN - 1);
-    const int o = offs[p];
+  // --- phase max over p = 1..3, capped at n - i ---
+  int ml[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const uint32_t o = oq[q];
     int v = 0;
     if (o != 0) {
-      v = mlq[p];
+      v = mlq[q];
 #pragma unroll
-      for (int q = 1; q <= 3; ++q)
-        if (offs[p + q] == o) v = max(v, q + mlq[p + q]);
+      for (int e = 1; e <= 3; ++e)
+        if (oq[q + e] == o) v = max(v, e + mlq[q + e]);
     }
-    ml[p] = min(v, n - gm);
+    ml[q] = min(v, n - (gb + q));
   }
-  __syncthreads();
 
-  // --- profitability filter, then propagation's level-0 values ---
-  constexpr int kPv0 = kLeft - 127;
-  for (int p = kPv0 + tid; p < kEnd; p += kThreads) {
-    const int gm = (g0 + p) & (kN - 1);
-    const int v = ml[p];
-    int before = 0;
+  // --- profitability filter: match starts in [i - 16, i - 1], none
+  // before the row (tile 0's left halo has no positions) ---
+  const bool neg = t0 == 0 && p0 < kLeft;
+  uint32_t nib = 0;
+  if (!neg) {
 #pragma unroll
-    for (int d = 1; d <= 16; ++d)
-      if (d <= gm) before += ml[p - d] > 0;
-    const bool isolated = before == 0;
-    const bool near = offs[p] < kC1;
+    for (int q = 0; q < kPer; ++q) nib |= static_cast<uint32_t>(ml[q] > 0) << q;
+  }
+  hasw[4 + tid] = nib;
+  __syncthreads();
+  const uint32_t win = hasw[tid] | hasw[tid + 1] << 4 | hasw[tid + 2] << 8 |
+                       hasw[tid + 3] << 12 | nib << 16;
+  int key[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int v = ml[q];
+    const bool isolated = __popc((win >> q) & 0xFFFFu) == 0;
+    const bool near = d[q] < kC1;
     const bool keep = (v >= 5 || near) && (v >= 6 || near || !isolated);
-    pva[p] = (keep ? v : 0) + gm;
-    poa[p] = offs[p];
+    const int pva = (keep ? v : 0) + gb + q;
+    key[q] = neg ? p0 + q : (pva + 1) << kIdxBits | (p0 + q);
   }
+
+  // --- suffix propagation: the sliding max of the keys over [p - 127, p],
+  // a warp's prefix maxima with the previous warp's suffix maxima ---
+  int g[kPer], h[kPer];
+  g[0] = key[0];
+#pragma unroll
+  for (int q = 1; q < kPer; ++q) g[q] = max(g[q - 1], key[q]);
+  h[kPer - 1] = key[kPer - 1];
+#pragma unroll
+  for (int q = kPer - 2; q >= 0; --q) h[q] = max(h[q + 1], key[q]);
+  {
+    const int pre = snk::warp_scan_max(g[kPer - 1]);
+    int before = __shfl_up_sync(kFull, pre, 1);
+    if (lane == 0) before = -1;
+    int suf = h[0];
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      const int o = __shfl_down_sync(kFull, suf, dd);
+      if (lane + dd < 32) suf = max(suf, o);
+    }
+    int after = __shfl_down_sync(kFull, suf, 1);
+    if (lane == 31) after = -1;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      g[q] = max(g[q], before);
+      h[q] = max(h[q], after);
+    }
+  }
+  *reinterpret_cast<int4*>(hs + p0) = make_int4(h[0], h[1], h[2], h[3]);
+  if (lane == 0) kfirst[warp] = key[0];
   __syncthreads();
 
-  // --- suffix propagation: windowed max-plus, 7 levels ---
-#pragma unroll 1
-  for (int lvl = 0; lvl < 7; ++lvl) {
-    const int s = 1 << lvl;
-    for (int p = kPv0 + tid; p < kEnd; p += kThreads) {
-      const int gm = (g0 + p) & (kN - 1);
-      int v = pva[p];
-      int o = poa[p];
-      // p - s < kPv0 only feeds positions left of the tile's context
-      if (gm >= s && p - s >= kPv0) {
-        const int av = pva[p - s];
-        if (av > v) {
-          v = av;
-          o = poa[p - s];
-        }
-      }
-      pvb[p] = v;
-      pob[p] = o;
-    }
-    __syncthreads();
-    int32_t* t = pva; pva = pvb; pvb = t;
-    t = poa; poa = pob; pob = t;
-  }
-
-  // --- lazy deferral and the greedy jump ---
-  for (int q = tid; q < kTile; q += kThreads) {
-    const int p = kLeft + q;
-    const int gm = t0 + q;
-    int mlp = min(pva[p] - gm, 68);
+  // --- lazy deferral and the greedy jump, on my outputs ---
+  int gn = __shfl_down_sync(kFull, g[0], 1);  // the window at p0 + kPer
+  if (lane == 31) gn = warp + 1 < kWarps ? kfirst[warp + 1] : -1;
+  const int q0 = p0 - kLeft;  // my first output of the tile
+  if (q0 < 0 || q0 >= kTile || t0 + q0 >= kN) return;
+  int wk[kPer + 1];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) wk[q] = max(g[q], hs[p0 + q - (kBlock - 1)]);
+  wk[kPer] = max(gn, hs[p0 + kPer - (kBlock - 1)]);
+  int jv[kPer], ov[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int gm = gb + q;
+    int mlp = min((wk[q] >> kIdxBits) - 1 - gm, 68);
     if (lazy) {
-      const int nx = gm == kN - 1 ? 0 : min(pva[p + 1] - (gm + 1), 68);
+      const int nx = gm == kN - 1
+          ? 0 : min((wk[q + 1] >> kIdxBits) - 1 - (gm + 1), 68);
       if (mlp >= 4 && mlp < 64 && nx >= mlp + lazy) mlp = 0;
     }
-    const int j = mlp < 4 ? 1 : (mlp <= 64 ? mlp : (mlp < 68 ? 60 : 64));
-    jump[rbase + gm] = j;
-    offo[rbase + gm] = poa[p];
+    jv[q] = mlp < 4 ? 1 : (mlp <= 64 ? mlp : (mlp < 68 ? 60 : 64));
+    ov[q] = offs[wk[q] & (kLen - 1)];
   }
+  *reinterpret_cast<int4*>(jump + rbase + gb) =
+      make_int4(jv[0], jv[1], jv[2], jv[3]);
+  *reinterpret_cast<int4*>(offo + rbase + gb) =
+      make_int4(ov[0], ov[1], ov[2], ov[3]);
 }
 
 template <int K, bool kSig>
 int launch(const void* pref, const void* table, bool packed, const void* n,
            void* jump, void* off, int lazy, int batch, cudaStream_t s) {
-  const size_t bytes = Smem<K>::kTotal;
+  const size_t bytes = Smem<K, kSig>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(
       matcher_kernel<K, kSig>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(kN / kTile, batch);
+  dim3 grid(kTiles, batch);
   matcher_kernel<K, kSig><<<grid, kThreads, bytes, s>>>(
       static_cast<const int32_t*>(pref), static_cast<const int32_t*>(table),
       packed, static_cast<const int32_t*>(n), static_cast<int32_t*>(jump),

@@ -2,8 +2,14 @@
 
 Port of tpu_snappy/ops/pallas/emit.py: `emit_block_single` (the Pallas
 `_single_kernel`) and `emit_block` (the two-lane `_kernel`). The CUDA
-kernel is csrc/emit.cu, one template for both (one block per row, two
-walks over 1024-wide chunks for the three row-wide scans, see its note).
+kernels are csrc/emit.cu, one template for both. On this card one block
+walking a whole row was latency-bound (128 blocks at B = 128, a chain of
+dependent chunk steps each) and wrote a row-sized run-length scratch; now
+a row is cut into tiles of TILE positions: a summary launch writes
+each tile's first element starts (and resets the look-back state), then
+one block a tile takes its output offset and literal-base carry from the
+earlier tiles by a decoupled look-back and writes every pack once (see the
+source note). The scratch is `scratch_ints(batch)` int32, not a row.
 The plain single-lane version below is the torch form of
 `_single_kernel`; the plain two-lane version is the encoder's XLA
 emission lanes (encode._emit_lanes), which the JAX suite proves
@@ -39,6 +45,15 @@ REPLACES = {"emit_block_single": "tpu_snappy/ops/pallas/emit.py:305",
 SENT = 1 << 20
 #: Width of `head` (one row of the TPU kernel's (8, 128) output block).
 HEAD = 128
+#: Positions a block of the kernel emits (csrc/emit.cu: kTile, 8 a thread).
+TILE = 2048
+
+
+def scratch_ints(batch: int) -> int:
+    """int32 entries of the kernels' scratch: per row and tile a look-back
+    status word (two int32) and a summary pair, then one ticket counter.
+    The kernels reset it themselves (no memset)."""
+    return 4 * (N // TILE) * batch + 1
 
 
 def _rollz(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -139,17 +154,19 @@ def emit_block_single(cj: torch.Tensor, off: torch.Tensor,
     _build.require(off, torch.int32, (batch, N), "off")
     _build.require(block, torch.uint8, (batch, N), "block")
     _build.require(n, torch.int32, (batch,), "n")
+    _build.require_aligned("emit_block_single", cj, off, block)
     dev = cj.device
     pm = torch.empty((batch, N), dtype=torch.int32, device=dev)
     pa = torch.empty_like(pm)
     pb = torch.empty_like(pm)
-    lit_len = torch.empty_like(pm)  # scratch: the first walk's run lengths
+    scratch = torch.empty(scratch_ints(batch), dtype=torch.int32,
+                          device=dev)
     head = torch.empty((batch, HEAD), dtype=torch.int32, device=dev)
     total = torch.empty((batch,), dtype=torch.int32, device=dev)
     if batch:
         rc = _build.lib().snk_emit_single(
             cj.data_ptr(), off.data_ptr(), block.data_ptr(), n.data_ptr(),
-            lit_len.data_ptr(), pm.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+            scratch.data_ptr(), pm.data_ptr(), pa.data_ptr(), pb.data_ptr(),
             head.data_ptr(), total.data_ptr(), batch, _build.stream())
         _build.check(rc, "emit_block_single")
         emit_block_single.launches += 1
@@ -180,14 +197,16 @@ def emit_block(cj: torch.Tensor, off: torch.Tensor, block: torch.Tensor,
     _build.require(off, torch.int32, (batch, N), "off")
     _build.require(block, torch.uint8, (batch, N), "block")
     _build.require(n, torch.int32, (batch,), "n")
+    _build.require_aligned("emit_block", cj, off, block)
     pack_a = torch.empty((batch, N), dtype=torch.int32, device=cj.device)
     pack_b = torch.empty_like(pack_a)
-    lit_len = torch.empty_like(pack_a)  # scratch: the first walk's lengths
+    scratch = torch.empty(scratch_ints(batch), dtype=torch.int32,
+                          device=cj.device)
     total = torch.empty((batch,), dtype=torch.int32, device=cj.device)
     if batch:
         rc = _build.lib().snk_emit_two_lane(
             cj.data_ptr(), off.data_ptr(), block.data_ptr(), n.data_ptr(),
-            lit_len.data_ptr(), pack_a.data_ptr(), pack_b.data_ptr(),
+            scratch.data_ptr(), pack_a.data_ptr(), pack_b.data_ptr(),
             total.data_ptr(), batch, _build.stream())
         _build.check(rc, "emit_block")
         emit_block.launches += 1

@@ -5,10 +5,17 @@ packed form: the gated default plus 16-bit halves in int32 words) and
 `matcher_block` (the unpacked (B, N, K) table, column 0 the default), at
 sticky "exact" and "sig" and any K from 2 to 16. The CUDA kernel is
 csrc/matcher.cu, one template for both forms that differ only in the load
-stage (one block per row and 1024-position tile, halos in shared memory,
-see its note). The plain versions run the XLA-form matcher,
-encode._matcher_xla, on the (unpacked) table; the JAX suite proves it
-bit-identical to both Pallas kernels (tests/test_pallas.py:513-583).
+stage. On this card the sticky levels' compares bound it (integer
+operations); a block of THREADS threads owns one row's tile of TILE
+outputs plus its halos (LEFT and RIGHT positions), PER consecutive
+positions a thread (16-byte loads of the table and stores of the
+outputs, so the tables must start 16-byte aligned), the sticky planes
+single-buffered in shared memory and the later stages restated as
+ballots, a nibble window and a sliding max over 128-position warp blocks
+(see its note). The plain versions run
+the XLA-form matcher, encode._matcher_xla, on the (unpacked) table; the
+JAX suite proves it bit-identical to both Pallas kernels
+(tests/test_pallas.py:513-583).
 """
 
 from __future__ import annotations
@@ -21,6 +28,13 @@ N = 1 << 16
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/matcher.cu"
 REPLACES = {"matcher_block_packed": "tpu_snappy/ops/pallas/matcher.py:224",
             "matcher_block": "tpu_snappy/ops/pallas/matcher.py:202"}
+
+#: The kernel's tiling (csrc/matcher.cu): threads a block, consecutive
+#: positions a thread, the left halo (sticky 60 + filter 16 + propagation
+#: 127, rounded up to PER) and the right one (links 64 + phases 3 + lazy 1).
+THREADS, PER, LEFT, RIGHT = 512, 4, 204, 68
+TILE = THREADS * PER - LEFT - RIGHT
+TILES = -(-N // TILE)
 
 #: Candidate counts the kernel takes (the JAX kernel takes any K; no
 #: preset and no JAX test goes above 16).
@@ -98,6 +112,7 @@ def matcher_block_packed(pref: torch.Tensor, words: torch.Tensor,
     _build.require(pref, torch.int32, (batch, N), "pref")
     _build.require(words, torch.int32, (batch, k // 2, N), "words")
     _build.require(n, torch.int32, (batch,), "n")
+    _build.require_aligned("matcher_block_packed", pref, words)
     out = _launch("snk_matcher_packed", "matcher_block_packed",
                   [pref, words], n, k, lazy, sticky)
     if batch:
@@ -118,6 +133,7 @@ def matcher_block(cands: torch.Tensor, n: torch.Tensor, lazy: int = 0,
     batch = cands.shape[0]
     _build.require(cands, torch.int32, (batch, N, k), "cands")
     _build.require(n, torch.int32, (batch,), "n")
+    _build.require_aligned("matcher_block", cands)
     out = _launch("snk_matcher", "matcher_block", [cands], n, k, lazy,
                   sticky)
     if batch:
