@@ -22,7 +22,8 @@ Phases, each printing its results; any failure raises (non-zero exit):
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
    planted with signature collisions, and on rows at their tile edges at
-   K 2, 3, 8, 14, 15 and 16, both sticky modes, lazy 0, 1 and 2: ties in
+   K 2, 3, 8, 14, 15, 16, 17, 18 and 24, both sticky modes, lazy 0, 1
+   and 2: ties in
    the propagation window, copies at every halo and tile edge, n at a tile
    boundary and one past; the emissions on real and synthetic parses and
    on parses at their tile edges: a 65536-byte literal run,
@@ -78,7 +79,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
    times, its stream checked by the C++ golden), and the bytes of device
    memory per input byte between the two; then traced raw and framed
    round trips, plus FAST, TURBO and flatten "off" compresses (FAST for
-   the packed matcher at K=8 "exact" among the captured calls), an "emit"
+   the packed matcher at K=8 "exact" among the captured calls) and
+   compresses of the first WIDE_BLOCKS blocks at K 17 "exact" and K 18
+   "sig" (the matchers above K 16), an "emit"
    and a "sort" placement wave and decode_corpus
    under "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid"
    with the opening and fields="kernel", with a synchronised host clock
@@ -99,7 +102,22 @@ Phases, each printing its results; any failure raises (non-zero exit):
    call; cumsum_block and next_start_block, on no codec path, on the
    captured arguments of scan.exclusive_cumsum and
    scan.next_element_start, each also giving that stage's result. Host
-   load averages print beside the times.
+   load averages print beside the times;
+10. parallel and surfaces: the same 16 MiB through shard.encode_dp and
+   decode_dp on a one-card mesh and on a mesh of four shards on cuda:0
+   (also decoding the C++ golden's stream), streaming.compress_stream in
+   4 waves of 64 blocks, and framing.compress / decompress /
+   decompress_stream with the one-card mesh under each sidecar policy,
+   each stream equal to phase 4's or 5's and each framed decode taking
+   the same chunks down each path as phase 5's, with the launch counters
+   (their own line) showing that the ten kernels of the raw and framed
+   paths ran under the sharded paths; then two processes on cuda:0 over
+   gloo running multihost.compress_dp_global and compress_multihost
+   (tests/torch_multiproc.py, with a timeout, workers reaped on failure),
+   the compat and hadoop round trips, and the CLI (python -m
+   tpu_snappy_torch) in six subprocesses started together (raw,
+   --framed --sidecar auto, --hadoop, --mesh 1, --stream, --turbo), each
+   output file equal to the API's bytes; GB/s of each sharded path.
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
@@ -516,9 +534,10 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
           f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
     # The tile edges of the matcher kernel: ties in the propagation window,
     # copies at every halo and tile edge, n at a tile boundary and one past,
-    # at K 2, 3, 8, 14, 15, 16, both sticky modes, lazy 0, 1 and 2.
+    # at K 2, 3, 8, 14, 15, 16, 17, 18 and 24 (above 16: the K 17-24
+    # instances), both sticky modes, lazy 0, 1 and 2.
     eb, en = (t(x) for x in matcher_edge_rows())
-    for k in (2, 3, 8, 14, 15, 16):
+    for k in (2, 3, 8, 14, 15, 16, 17, 18, 24):
         cfg = dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
                                   probes=k)
         pr, wd = encode._candidate_offsets(encode._window_keys(eb, en), en,
@@ -537,7 +556,7 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     report["matcher_block"] = max(errs_u)
     print(f"kernel matcher      tile edges B={len(en)} (ties, copies at the "
           f"halo and tile edges, n at and past a tile boundary; K 2/3/8/14/"
-          f"15/16, sticky exact/sig, lazy 0/1/2): packed "
+          f"15/16/17/18/24, sticky exact/sig, lazy 0/1/2): packed "
           f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
 
     # emit: the committed parses of those rows, and synthetic parses with
@@ -981,6 +1000,8 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         api.compress(data, config.FAST_CONFIG, device="cuda")
         api.compress(data, config.TURBO_CONFIG, device="cuda")
         api.compress(data, _flat_off(), device="cuda")
+        head = data[:WIDE_BLOCKS * len(blocks[0])]
+        wide = [api.compress(head, cfg, device="cuda") for cfg in _wide_k()]
         encode.encode_blocks(*wave, placement="emit")
         encode.encode_blocks(*wave, placement="sort")
         t4 = time.perf_counter()
@@ -997,12 +1018,15 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
             setattr(mod, attr, saved[name])
     if back != data or any(b != data for b in backs):
         raise AssertionError("the traced round trip changed the data")
+    if any(api.decompress(w, device="cuda") != head for w in wide):
+        raise AssertionError("a stream above K 16 does not decode")
     if any(not torch.equal(out, modes[0][0]) for out, _ in modes):
         raise AssertionError("the traced resolve modes disagree")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
           f" framed decompress auto + always {(t3 - t2) * 1e3} ms, FAST, "
-          f"TURBO and flatten off compresses + an emit and a sort wave "
+          f"TURBO and flatten off compresses, {WIDE_BLOCKS} blocks at K 17 "
+          f"and 18 + an emit and a sort wave "
           f"{(t4 - t3) * 1e3} ms, "
           f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
           f"host-clock ms per stage over all waves; load average "
@@ -1486,6 +1510,21 @@ def tile_sweep(dev, captured: dict, card: str) -> None:
               f"{'; '.join(res)} [{card}]")
 
 
+#: Blocks of phase 8's traced compresses above K 16 (_wide_k).
+WIDE_BLOCKS = 8
+
+
+def _wide_k():
+    """The matchers above K 16 on the main path (phase 8's traced
+    compresses of the first WIDE_BLOCKS blocks, which phase 9 holds against
+    plain): DEFAULT_CONFIG at K 17 "exact" and at K 18 "sig"."""
+    from tpu_snappy_torch import config
+    return (dataclasses.replace(config.DEFAULT_CONFIG, candidates=17,
+                                probes=17),
+            dataclasses.replace(config.DEFAULT_CONFIG, candidates=18,
+                                probes=18, sticky="sig"))
+
+
 def _flat_off():
     """DEFAULT_CONFIG without flattening: the unpacked matcher route."""
     from tpu_snappy_torch import config
@@ -1773,7 +1812,8 @@ def round_trip(dev, wrappers: dict):
 def framed_round_trips(data: bytes, wrappers: dict, card: str):
     """Phase 5: the 16 MiB through the framed container under each sidecar
     policy, with the launch counters set to 0 just before and read just
-    after. Returns (streams by policy, launches)."""
+    after. Returns (streams by policy, launches, FramedStats of each
+    policy's decode with its sidecars)."""
     from tpu_snappy_torch import framing
     from tpu_snappy_torch.ops import decode as ops_decode
 
@@ -1821,7 +1861,7 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
     if not launches["resolve_tiled_depth"] or sidecar_gathers < 1:
         raise AssertionError(f"framed kernels did not run: {launches}, "
                              f"sidecar gathers {sidecar_gathers}")
-    return streams, launches
+    return streams, launches, {p: stats[p, True][0] for p in streams}
 
 
 def _chunk_types(fr: bytes):
@@ -1881,6 +1921,157 @@ def check_goldens(data: bytes, comp: bytes, cfg=None,
           f"bytes)")
 
 
+#: The kernels of the raw and framed main paths (PERF.md §6 rows 1-10):
+#: phase 10 must launch each of them under the sharded paths.
+SHARDED_PATH_KERNELS = ("window_keys", "ffill", "scatter_windowed",
+                        "resolve_tiled", "matcher_block_packed",
+                        "emit_block_single", "place_block", "scatter_block",
+                        "gather_block", "resolve_tiled_depth")
+
+
+def _rate(nbytes: int, seconds: float) -> str:
+    return f"{seconds} s, {nbytes / seconds / 1e9} GB/s"
+
+
+def parallel_and_surfaces(dev, data: bytes, comp: bytes, framed: dict,
+                          framed_stats: dict, wrappers: dict, card: str):
+    """Phase 10: the 16 MiB through the sharded paths on a one-card mesh
+    and on four shards of cuda:0 (shard.encode_dp / decode_dp, also of
+    the C++ golden's stream), streaming.compress_stream in 4 waves, the
+    framed container with a mesh under each policy (compress, decompress,
+    decompress_stream), each stream equal to phase 4's or 5's and each
+    framed decode taking the same chunks down the same paths as phase 5's,
+    with the launch counters set to 0 just before and read just after;
+    then two processes on cuda:0 over gloo (multihost), the compat and
+    hadoop round trips, and the CLI in subprocesses, each output equal to
+    the API's bytes. The sharded paths' launches print on their own line."""
+    import io
+    import tempfile
+
+    import torch_multiproc
+    from tpu_snappy_torch import __main__ as _cli  # noqa: F401 (import check)
+    from tpu_snappy_torch import api, compat, framing, hadoop
+    from tpu_snappy_torch.config import TURBO_CONFIG
+    from tpu_snappy_torch.ops import decode as ops_decode
+    from tpu_snappy_torch.parallel import mesh as meshlib, shard, streaming
+
+    golden = ops_decode.native_golden()
+    meshes = {"one-card mesh": meshlib.make_mesh(1),
+              "four shards on cuda:0": meshlib.make_mesh(device=(dev,) * 4)}
+    n = len(data)
+    _reset(wrappers)
+    for label, mesh in meshes.items():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = shard.encode_dp(data, mesh)
+        t1 = time.perf_counter()
+        back = shard.decode_dp(got, mesh)
+        t2 = time.perf_counter()
+        if got != comp or back != data:
+            raise AssertionError(f"encode_dp / decode_dp on the {label} "
+                                 "differ from the API")
+        if shard.decode_dp(golden.compress(data), mesh) != data:
+            raise AssertionError(f"decode_dp on the {label} mis-decodes "
+                                 "the golden's stream")
+        print(f"encode_dp, {label}: {_rate(n, t1 - t0)}; decode_dp: "
+              f"{_rate(n, t2 - t1)} [{card}]")
+    one = meshes["one-card mesh"]
+    dst = io.BytesIO()
+    t0 = time.perf_counter()
+    st = streaming.compress_stream(io.BytesIO(data), dst, n, one,
+                                   blocks_per_wave=64)
+    t1 = time.perf_counter()
+    if dst.getvalue() != comp or st.waves != 4 or st.in_bytes != n \
+            or st.out_bytes != len(comp):
+        raise AssertionError(f"streamed encode differs: {st}")
+    print(f"streaming.compress_stream, one-card mesh, 64 blocks a wave: "
+          f"{_rate(n, t1 - t0)}; {st} [{card}]")
+    for policy, want in framed.items():
+        t0 = time.perf_counter()
+        fr = framing.compress(data, policy, mesh=one)
+        t1 = time.perf_counter()
+        back, st = framing.decompress_with_stats(fr, mesh=one)
+        t2 = time.perf_counter()
+        out = io.BytesIO()
+        framing.decompress_stream(io.BytesIO(fr), out, mesh=one)
+        if fr != want or back != data or out.getvalue() != data:
+            raise AssertionError(f"framed {policy} with a mesh differs")
+        ref = framed_stats[policy]
+        for k in ("root_map", "hinted", "normal", "host", "uncompressed",
+                  "redecoded_root_map", "redecoded_hinted"):
+            if getattr(st, k) != getattr(ref, k):
+                raise AssertionError(f"framed {policy} with a mesh: {k} "
+                                     f"{getattr(st, k)} against "
+                                     f"{getattr(ref, k)}")
+        print(f"framed {policy}, one-card mesh: compress {_rate(n, t1 - t0)};"
+              f" decompress {_rate(n, t2 - t1)}; {st} [{card}]")
+    launches = _launches(wrappers)
+    print(f"sharded path launches: {launches}")
+    missing = [k for k in SHARDED_PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels the sharded paths did not run: "
+                             f"{missing}")
+
+    t0 = time.perf_counter()
+    res = torch_multiproc.run(data, nprocs=2, shards=(str(dev),),
+                              blocks_per_wave=128, timeout=300, threads=2)
+    t1 = time.perf_counter()
+    if res["oneshot"] != comp or res["stream"] != comp:
+        raise AssertionError("two processes over gloo: rank 0's stream "
+                             "differs from the API's")
+    print(f"two processes on {dev} over gloo: compress_dp_global and "
+          f"compress_multihost equal the API stream; global shards "
+          f"{res['global_shards']}, {res['waves']} waves; {t1 - t0} s "
+          "with both processes' start")
+
+    if compat.compress(data) != comp or compat.uncompress(comp) != data:
+        raise AssertionError("compat raw round trip differs")
+    sc = compat.StreamCompressor().add_chunk(data)
+    if sc != framed["off"] or \
+            compat.StreamDecompressor().decompress(sc) != data:
+        raise AssertionError("compat stream round trip differs")
+    blob = hadoop.compress(data)
+    if hadoop.decompress(blob) != data:
+        raise AssertionError("hadoop round trip differs")
+    print(f"compat and hadoop round trips ok (hadoop {len(blob)} bytes)")
+
+    wants = {"raw": ([], comp),
+             "framed auto": (["--framed", "--sidecar", "auto"],
+                             framed["auto"]),
+             "hadoop": (["--hadoop"], blob), "mesh 1": (["--mesh", "1"], comp),
+             "stream": (["--stream"], comp),
+             "turbo": (["--turbo"], api.compress(data, TURBO_CONFIG))}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "tpu_snappy_torch", "compress", src,
+             os.path.join(tmp, k.replace(" ", "_"))] + flags,
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for k, (flags, _w) in wants.items()}
+        try:
+            logs = {k: p.communicate(timeout=300)[0].decode(errors="replace")
+                    for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t1 = time.perf_counter()
+        for k, (_f, want) in wants.items():
+            with open(os.path.join(tmp, k.replace(" ", "_")), "rb") as f:
+                got = f.read() if procs[k].returncode == 0 else None
+            if got != want:
+                raise AssertionError(f"CLI {k}: exit {procs[k].returncode}"
+                                     f", output differs:\n{logs[k][-2000:]}")
+            print(f"CLI {k}: {logs[k].strip()}")
+    print(f"CLI: {len(wants)} processes at once, {t1 - t0} s, each output "
+          "equal to the API's bytes")
+
+
 def main() -> None:
     import argparse
 
@@ -1913,7 +2104,8 @@ def main() -> None:
     data, comp, launches, peak = round_trip(dev, wrappers)
     check_goldens(data, comp)
     card = smi
-    framed, framed_launches = framed_round_trips(data, wrappers, card)
+    framed, framed_launches, framed_stats = framed_round_trips(
+        data, wrappers, card)
     preset_launches = preset_round_trips(dev, data, wrappers, card)
     place_launches = placement_wave(dev, data, wrappers, card)
     mode_launches, corpus = resolve_modes(dev, data, comp, wrappers, card)
@@ -1944,6 +2136,8 @@ def main() -> None:
     if opts.parent:
         compare_parent(dev, captured, opts.parent, card)
         tile_sweep(dev, captured, card)
+    parallel_and_surfaces(dev, data, comp, framed, framed_stats, wrappers,
+                          card)
 
     kernels = []
     for k, mod in modules.items():

@@ -8,7 +8,10 @@ and a block size below 64 KB. On the rows of test_torch_presets.py the
 port's encode_blocks must equal tpu_snappy.ops.encode.encode_blocks byte
 for byte, api.compress must equal the JAX api.compress on a two-block
 input and round-trip, and the JAX package's trace-time asserts must be
-ValueErrors here. The `gpu` test repeats the encode on the card.
+ValueErrors here. Candidate counts above 16 (K 17 and 18, sticky "exact"
+and "sig", which the matcher kernels take, and K 26, past their MAX_K,
+where the CPU runs the plain matcher) give the JAX api.compress bytes.
+The `gpu` tests repeat the encode on the card, where K 26 is refused.
 """
 
 import dataclasses
@@ -107,9 +110,36 @@ def test_the_jax_asserts_are_value_errors():
     off = dataclasses.replace(TC.DEFAULT_CONFIG, flatten="off")
     with pytest.raises(ValueError, match="flattening slot"):
         TE._candidate_offsets(key, n, off)
-    with pytest.raises(ValueError, match="K from 2 to 16"):
-        TE.encode_blocks(b, n, dataclasses.replace(
-            TC.DEFAULT_CONFIG, candidates=18, probes=18))
+
+
+#: Candidate counts above 16, with the JAX package's stream sizes on _fox:
+#: K 17 and 18 run the matcher wrappers (the kernels on the card, the
+#: plain matcher on the CPU); K 26 is past matcher.MAX_K, where the CPU
+#: runs the plain matcher on the unpacked table, as the JAX package does
+#: off the TPU.
+WIDE_K = {"k18": (dict(candidates=18, probes=18), 9101),
+          "k17": (dict(candidates=17, probes=17), 9101),
+          "k18_sig": (dict(candidates=18, probes=18, sticky="sig"), 9758),
+          "k26": (dict(candidates=26, probes=26), 7845)}
+
+
+def _fox() -> bytes:
+    return b"".join(b"the quick brown fox jumps over the lazy dog %d " % i
+                    for i in range(3000))[:70000]
+
+
+@pytest.mark.parametrize("knob", WIDE_K)
+def test_wide_k_encodes_as_jax(knob):
+    """K 17, 18 ("exact" and "sig") and 26 give the JAX package's
+    bytes."""
+    knobs, size = WIDE_K[knob]
+    jcfg, tcfg = _cfgs(knobs)
+    assert tcfg.candidates > 16
+    data = _fox()
+    comp = api.compress(data, tcfg, device="cpu", small_fastpath=False)
+    assert len(comp) == size
+    assert comp == jax_api.compress(data, jcfg, small_fastpath=False)
+    assert reference_codec.decompress(comp) == data
 
 
 def test_flatten_off_feeds_the_unpacked_matcher(monkeypatch):
@@ -144,3 +174,19 @@ def test_knobs_on_the_card_match_the_cpu(knob, cuda):
     out, out_lens = TE.encode_blocks(b.to(cuda), n.to(cuda), tcfg)
     assert torch.equal(out_lens.cpu(), want_lens)
     assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_wide_k_on_the_card_matches_the_cpu(cuda):
+    """The matcher kernels at K 17 and 18 against the CPU's plain matcher;
+    past MAX_K the card refuses."""
+    data = _fox()
+    for knob in WIDE_K:
+        tcfg = _cfgs(WIDE_K[knob][0])[1]
+        if tcfg.candidates > KM.MAX_K:
+            with pytest.raises(ValueError, match="K from 2 to"):
+                api.compress(data, tcfg, device=cuda, small_fastpath=False)
+            continue
+        assert (api.compress(data, tcfg, device=cuda, small_fastpath=False)
+                == api.compress(data, tcfg, device="cpu",
+                                small_fastpath=False))

@@ -130,9 +130,9 @@ def test_matcher_plain_matches_pallas_interpret(port):
 
 def test_matcher_refuses_unported_forms(port):
     pref, words, n = port
-    with pytest.raises(ValueError, match="K from 2 to 16"):
-        KM.matcher_block_packed(pref, words, n, 17, 2)
-    with pytest.raises(ValueError, match="K from 2 to 16"):
+    with pytest.raises(ValueError, match="K from 2 to 24"):
+        KM.matcher_block_packed(pref, words, n, KM.MAX_K + 1, 2)
+    with pytest.raises(ValueError, match="K from 2 to 24"):
         KM.matcher_block(torch.zeros((1, N, 1), dtype=torch.int32), n[:1])
     with pytest.raises(ValueError, match="sticky"):
         KM.matcher_block_packed(pref, words, n, K, 2, "hash")
@@ -163,7 +163,7 @@ def _xla(cands, n, lazy, sticky):
 
 
 @pytest.mark.parametrize("sticky", ["exact", "sig"])
-@pytest.mark.parametrize("k", [3, 8, 15])
+@pytest.mark.parametrize("k", [3, 8, 15, 18])
 def test_matcher_plain_matches_xla_at_k(k, sticky):
     """Odd and even K, both sticky modes, lazy 2."""
     pref, words, cands, n = _tables(k)
@@ -238,7 +238,7 @@ def test_matcher_kernel_matches_plain(port, cuda):
 
 @pytest.mark.gpu
 def test_matcher_kernels_sig_and_odd_k_match_plain(cuda):
-    for k in (3, 8, 14, 15):
+    for k in (3, 8, 14, 15, 17, 18, 24):
         pref, words, cands, n = (None if x is None else x.to(cuda)
                                  for x in _tables(k))
         for sticky in ("exact", "sig"):

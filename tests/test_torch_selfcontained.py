@@ -6,12 +6,15 @@ framework-free modules must equal the JAX package's: every `format`
 constant and helper, every field of the four `config` presets, the
 `reference_codec` bytes on seeded inputs, the framing CRC tables and the
 decoder and sidecar constants the framed container's sidecars are built
-for. The C++ golden binding builds
-into the port's own directory. The API runs on the card by default and,
+for, `utils.corpus.synth` for every kind and `utils.metrics` on a row set.
+The C++ golden binding builds
+into the port's own directory. `utils.profiling` times and traces torch
+work. The API runs on the card by default and,
 with no CUDA device visible, raises instead of running on the CPU.
 """
 
 import dataclasses
+import io
 import pathlib
 import subprocess
 import sys
@@ -28,6 +31,7 @@ from tpu_snappy import sidecar as jax_sidecar
 from tpu_snappy.native import golden as jax_golden
 from tpu_snappy.ops import decode as jax_decode
 from tpu_snappy.utils import corpus
+from tpu_snappy.utils import metrics as jax_metrics
 
 from tpu_snappy_torch import api
 from tpu_snappy_torch import config
@@ -37,6 +41,8 @@ from tpu_snappy_torch import reference_codec
 from tpu_snappy_torch import sidecar
 from tpu_snappy_torch.native import golden, realsnappy
 from tpu_snappy_torch.ops import decode
+from tpu_snappy_torch.utils import corpus as port_corpus
+from tpu_snappy_torch.utils import metrics, profiling
 
 from torch_threads import share_cores
 
@@ -61,7 +67,10 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
     for m in ("ops.kernels.matcher", "ops.kernels.gather", "framing",
-              "sidecar"):
+              "sidecar", "parallel.mesh", "parallel.shard",
+              "parallel.streaming", "parallel.multihost", "compat",
+              "hadoop", "__main__", "utils.corpus", "utils.metrics",
+              "utils.profiling"):
         assert "tpu_snappy_torch." + m in mods
 
 
@@ -158,3 +167,54 @@ def test_api_defaults_to_the_card_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         api.decompress_with_stats(comp)
     assert api.decompress(comp, device="cpu") == data
+
+
+@pytest.mark.parametrize("kind", ["random", "real", "repeating"])
+def test_corpus_synth_matches_jax(kind, monkeypatch):
+    """Both copies read one corpus directory (the JAX package's), so "real"
+    takes the same branch in both; every kind at two sizes."""
+    for name in ("REFERENCE_ROOT", "BENCH_DATA", "DATA"):
+        monkeypatch.setattr(port_corpus, name, getattr(corpus, name))
+    for size in (1000, 50000):
+        assert port_corpus.synth(kind, size) == corpus.synth(kind, size)
+    assert port_corpus.synth(kind, 700, seed=7) == corpus.synth(kind, 700,
+                                                                seed=7)
+    assert port_corpus.SIZES == corpus.SIZES
+    assert port_corpus.TYPES == corpus.TYPES
+    assert port_corpus.has_reference_corpus() == corpus.has_reference_corpus()
+    assert port_corpus.corpus_files() == corpus.corpus_files()
+    with pytest.raises(ValueError):
+        port_corpus.synth("zipf", 10)
+
+
+def test_metrics_match_jax():
+    rows = [("random", 1000, 4045, 1020), ("real", 50000, 175145, 32683),
+            ("repeat", 50000, 99382, 2351), ("real", 10, 0, 13)]
+    mine = [metrics.Row(*r) for r in rows]
+    theirs = [jax_metrics.Row(*r) for r in rows]
+    assert metrics.HEADER == jax_metrics.HEADER
+    assert [r.csv() for r in mine] == [r.csv() for r in theirs]
+    a, b = io.StringIO(), io.StringIO()
+    metrics.write_csv(mine, a)
+    jax_metrics.write_csv(theirs, b)
+    assert a.getvalue() == b.getvalue()
+    assert (metrics.parse_reference_csv(a.getvalue())
+            == [metrics.Row(*r) for r in rows])
+    assert metrics.summary_table(mine) == jax_metrics.summary_table(theirs)
+    assert (metrics.compare(mine, mine[:2])
+            == jax_metrics.compare(theirs, theirs[:2]))
+
+
+def test_profiling_times_and_traces_torch_work(tmp_path):
+    t = profiling.Timer()
+    x = torch.ones((128, 128))
+    with t.section("mul"):
+        y = x * 2
+    with t.section("sum", result=(y, {"s": y.sum()})):
+        y.sum()
+    assert "mul" in t.report() and t.sections["sum"] > 0
+    assert profiling.device_bench(torch.add, x, 1, iters=3, trials=2) > 0
+    path = tmp_path / "trace.json"
+    with profiling.trace(str(path)) as p:
+        (x @ x).sum()
+    assert p == str(path) and path.stat().st_size > 0

@@ -1,6 +1,8 @@
 """Seeded inputs shared by chip_smoke.py and the port's tests.
 
-`make_data` is the mixed round-trip input; `synthetic_parse` a committed
+`make_data` is the mixed round-trip input; `block_mix` a smaller mix whose
+64 KB blocks take every framed path (hinted text, a root-mapped run,
+stored random bytes); `synthetic_parse` a committed
 parse with long literal runs and far copies; `matcher_edge_rows` and
 `emit_edge_parses` the rows that land on the tiles of the matcher and
 emission kernels (ops/kernels/matcher.py:TILE, emit.py:TILE), read from
@@ -8,12 +10,14 @@ the kernel modules so that a change of tiling moves the rows with it.
 chip_smoke.py holds the CUDA kernels against their plain versions on
 them; tests/test_torch_matcher.py and tests/test_torch_emit.py hold the
 kernels' tile restatements against the plain versions and the Pallas
-kernels on the CPU. numpy only, besides the two kernel modules.
+kernels on the CPU. numpy only, besides the two kernel modules and the
+port's corpus synthesis.
 """
 
 import numpy as np
 
 from tpu_snappy_torch.ops.kernels import emit, matcher
+from tpu_snappy_torch.utils import corpus
 
 SEED = 20261016
 N = 1 << 16
@@ -49,6 +53,25 @@ def make_data(size: int, seed: int = SEED) -> bytes:
         pieces.append(piece)
         total += len(piece)
     return b"".join(pieces)[:target]
+
+
+def _words(rng, n: int) -> bytes:
+    vocab = [bytes(rng.integers(97, 123, rng.integers(2, 11)).astype(np.uint8))
+             for _ in range(3000)]
+    return b" ".join(vocab[i % len(vocab)]
+                     for i in rng.zipf(1.3, n // 3))[:n]
+
+
+def block_mix(n: int, seed: int = 23) -> bytes:
+    """n bytes, block by block: three blocks of Zipf word text (0x81 depth
+    hints under framed "auto"), a one-byte run (a 0x80 root map), two of
+    corpus.synth random ASCII and one of random bytes (both stored
+    uncompressed when framed), then word text again."""
+    rng = np.random.default_rng(seed)
+    data = (_words(rng, 3 * N) + b"z" * N + corpus.synth("random", 2 * N)
+            + rng.integers(0, 256, N, dtype=np.uint8).tobytes()
+            + _words(rng, max(n - 7 * N, 0)))
+    return data[:n]
 
 
 def synthetic_parse(rng, n: int):

@@ -13,7 +13,12 @@ Entry points: `compress(data, sidecar="off" | "auto" | "always", cfg=...)`,
 `decompress(framed, use_sidecar=True)` (and `decompress_with_stats`), and
 the streaming forms `compress_stream` / `decompress_stream`. They run on
 the CUDA card unless the caller passes `device="cpu"`; with no CUDA device
-visible, the default raises. The output bytes are the JAX package's at
+visible, the default raises. The block encode and each of the three
+decode paths (root map, hinted, normal) run through the sharded codec
+(parallel.shard) over `mesh=` (parallel.mesh), whose devices take the
+place of `device`; without one, over one shard on `device`. Any mesh
+gives the same bytes and the same chunks on each path. The output bytes
+are the JAX package's at
 the same `cfg` (the encoder's knobs; chunks stay 64 KB blocks whatever
 cfg.block_size says, as in the JAX package). The decoders take `cfg` for
 the JAX signature; no decode depends on it.
@@ -25,7 +30,6 @@ import concurrent.futures as cf
 import dataclasses
 
 import numpy as np
-import torch
 
 from . import api
 from . import format as fmt
@@ -33,7 +37,8 @@ from . import reference_codec
 from . import sidecar as sc
 from .config import CodecConfig, DEFAULT_CONFIG
 from .ops import decode as ops_decode
-from .ops import encode as ops_encode
+from .parallel import mesh as meshlib
+from .parallel import shard
 
 #: Chunk types (framing_format.txt section 4).
 CHUNK_STREAM_ID = 0xFF
@@ -144,22 +149,17 @@ def _sidecar_chunk(elems: bytes, blen: int, policy: str) -> bytes:
     return b""
 
 
-def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray, device,
+def _split(buf: bytes, lens) -> list[bytes]:
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [buf[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+
+
+def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray, mesh,
                    cfg: CodecConfig) -> list[bytes]:
-    """Element bytes of every block, encoded at `cfg` on `device` in waves
-    of api.API_WAVE blocks and compacted there, so the host fetches dense
-    payload."""
-    wave = api.API_WAVE
-    elems = []
-    for s in range(0, len(lengths), wave):
-        bt = torch.from_numpy(blocks[s:s + wave]).to(device)
-        lt = torch.from_numpy(lengths[s:s + wave]).to(device)
-        out, out_lens = ops_encode.encode_blocks(bt, lt, cfg)
-        dense, total = ops_encode.compact_blocks(out, out_lens)
-        buf = dense[:total].cpu().numpy().tobytes()
-        offs = np.concatenate([[0], np.cumsum(out_lens.cpu().numpy())])
-        elems += [buf[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
-    return elems
+    """Element bytes of every block, encoded at `cfg` sharded over `mesh`
+    (shard.encode_rows: waves of api.API_WAVE blocks a shard, compacted on
+    the device, so the host fetches dense payload)."""
+    return _split(*shard.encode_rows(blocks, lengths, mesh, cfg))
 
 
 def _chunks(raw: bytes, lengths, elems_list, crcs, policy: str) -> bytes:
@@ -190,32 +190,40 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"sidecar {policy!r}: one of {POLICIES}")
 
 
+def _mesh(device, mesh):
+    """The mesh to run on: `mesh`, or one shard on `device` (which raises
+    for CUDA when no card is visible)."""
+    return meshlib.make_mesh(1, device=device) if mesh is None else mesh
+
+
 def compress(data: bytes, sidecar: str = "off", *, device="cuda",
-             cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
+             cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> bytes:
     """Compress to a framed stream: one data chunk per 64 KB block, every
-    block encoded at `cfg` on `device` in waves of api.API_WAVE blocks; a
-    chunk is stored uncompressed where compression would not shrink it.
-    `sidecar` ("off", "auto" or "always") puts a decode sidecar before each
-    compressed chunk (see _sidecar_chunk)."""
+    block encoded at `cfg` sharded over `mesh` (default: one shard on
+    `device`) in waves of api.API_WAVE blocks a shard; a chunk is stored
+    uncompressed where compression would not shrink it. `sidecar` ("off",
+    "auto" or "always") puts a decode sidecar before each compressed chunk
+    (see _sidecar_chunk)."""
     _check_policy(sidecar)
-    device = api._device(device)
+    mesh = _mesh(device, mesh)
     if not data:
         return STREAM_ID
     blocks, lengths = api._to_blocks(data)
-    elems_list = _encode_blocks(blocks, lengths, device, cfg)
+    elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
     crcs = crc32c_batch(blocks)  # a short last block is redone in _chunks
     return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
 
 
 def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
                     device="cuda", blocks_per_wave: int = 64,
-                    cfg: CodecConfig = DEFAULT_CONFIG) -> int:
+                    cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> int:
     """Stream `total_len` bytes from src into a framed stream on dst, in
-    waves of `blocks_per_wave` blocks; byte-identical to compress() on the
-    whole input. The chunk assembly of one wave overlaps the next wave's
-    encode on a worker thread. Returns the bytes written."""
+    waves of `blocks_per_wave` blocks, each sharded over `mesh` (default:
+    one shard on `device`); byte-identical to compress() on the whole
+    input. The chunk assembly of one wave overlaps the next wave's encode
+    on a worker thread. Returns the bytes written."""
     _check_policy(sidecar)
-    device = api._device(device)
+    mesh = _mesh(device, mesh)
     dst.write(STREAM_ID)
     written = len(STREAM_ID)
     remaining = total_len
@@ -237,7 +245,7 @@ def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
                 raise IOError("short read from source")
             remaining -= take
             blocks, lengths = api._to_blocks(raw)
-            elems_list = _encode_blocks(blocks, lengths, device, cfg)
+            elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
             if fut is not None:
                 written += fut.result()
             fut = pool.submit(assemble, raw, elems_list, lengths)
@@ -311,13 +319,29 @@ def _head(body: bytes):
     return ulen, body[4 + vstart:]
 
 
-def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts, device,
+def _pad_rows(arrays, pad: int) -> list:
+    return [np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1))
+            for a in arrays]
+
+
+def _decode_wave(n: int, arrays, mesh, sharded):
+    """One wave of n chunks: sharded(mesh, *arrays(pad), wave) with the
+    rows padded to the mesh's layout (shard.layout). arrays(pad) gives the
+    wave's numpy arrays with `pad` padding rows. Returns numpy (out (n,
+    65536), ok (n,)) and the list of dense rounds the decoder launched."""
+    wave, padded = shard.layout(n, mesh.size)
+    out, ok, rounds = sharded(mesh, *arrays(padded - n), wave)
+    return out[:n], ok[:n], rounds
+
+
+def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts, mesh,
                            stats: FramedStats):
     """Root-map decode of the compressed chunks with a usable 0x80 sidecar,
     in waves of api.API_WAVE chunks (one wrows bucket a wave, the largest
-    any of its chunks needs). Fills out_parts for every chunk whose bytes
-    pass ok and the chunk CRC; returns the indices still to decode (no or
-    unusable sidecar, or a miss: the sidecar is only a hint)."""
+    any of its chunks needs), each sharded over `mesh`.
+    Fills out_parts for every chunk whose bytes pass ok and the chunk CRC;
+    returns the indices still to decode (no or unusable sidecar, or a
+    miss: the sidecar is only a hint)."""
     jobs, rest = [], []
     for i in comp_idx:
         job = None
@@ -335,11 +359,12 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts, device,
     for s in range(0, len(jobs), api.API_WAVE):
         wave = jobs[s:s + api.API_WAVE]
         wrows = max(j[5] for j in wave)
-        e, st, v, u = (torch.from_numpy(a).to(device) for a in sc.pack_batch(
-            [(elems, ulen, starts, vals)
-             for _i, elems, ulen, starts, vals, _w in wave]))
-        out, ok = sc.decode_chunks(e, st, v, u, wrows=wrows)
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        units = [(elems, ulen, starts, vals)
+                 for _i, elems, ulen, starts, vals, _w in wave]
+        out, ok, _ = _decode_wave(
+            len(wave), lambda pad: sc.pack_batch(units, pad_rows=pad), mesh,
+            lambda m, e, st, v, u, w: shard.decode_sidecar_sharded(
+                m, e, st, v, u, w, wrows))
         for j, (i, _e, ulen, _s, _v, _w) in enumerate(wave):
             piece = out[j, :ulen].tobytes()
             if ok[j] and crc32c(piece) == _want_crc(bodies[i][1]):
@@ -351,12 +376,13 @@ def _decode_sidecar_chunks(bodies, side_for, comp_idx, out_parts, device,
     return sorted(rest)
 
 
-def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts, device,
+def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts, mesh,
                           stats: FramedStats):
     """Depth-hinted decode (decode.decode_fragments_depth) of the
     compressed chunks with a usable 0x81 sidecar, in waves of api.API_WAVE
-    chunks. The chunk CRC gates every byte, so a wrong hint costs only a
-    re-decode on the normal path. Returns the indices still to decode."""
+    chunks, each sharded over `mesh`. The chunk CRC
+    gates every byte, so a wrong hint costs only a re-decode on the normal
+    path. Returns the indices still to decode."""
     jobs, rest = [], []
     for i in comp_idx:
         job = None
@@ -377,11 +403,11 @@ def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts, device,
         deps = np.stack([j[3] for j in wave]).astype(np.int32)
         for j, (_i, payload, _u, _d) in enumerate(wave):
             frags[j, : len(payload)] = np.frombuffer(payload, np.uint8)
-        out, ok, rounds = ops_decode.decode_fragments_depth(
-            *(torch.from_numpy(a).to(device)
-              for a in (frags, clens, ulens, deps)))
-        stats.dense_rounds.append(rounds)
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        out, ok, rounds = _decode_wave(
+            len(wave),
+            lambda pad: _pad_rows((frags, clens, ulens, deps), pad), mesh,
+            shard.decode_depth_sharded)
+        stats.dense_rounds += rounds
         for j, (i, _p, ulen, _d) in enumerate(wave):
             piece = out[j, :ulen].tobytes()
             if ok[j] and crc32c(piece) == _want_crc(bodies[i][1]):
@@ -393,13 +419,13 @@ def _decode_hinted_chunks(bodies, depth_for, comp_idx, out_parts, device,
     return sorted(rest)
 
 
-def _decode_normal_chunks(bodies, comp_idx, out_parts, device,
+def _decode_normal_chunks(bodies, comp_idx, out_parts, mesh,
                           stats: FramedStats) -> None:
     """The fragment decoder (decode.decode_fragments, "tiledtail") on the
-    remaining compressed chunks, in waves of api.API_WAVE; chunks over the
-    device capacity or not ok settle on the host codec, which decodes a
-    valid one and raises on a corrupt one. Raises ValueError on a CRC
-    mismatch."""
+    remaining compressed chunks, in waves of api.API_WAVE, each sharded
+    over `mesh`; chunks over the device capacity or not ok settle on the
+    host codec, which decodes a valid one and raises on a corrupt one.
+    Raises ValueError on a CRC mismatch."""
     n = len(comp_idx)
     clens = np.zeros(n, np.int32)
     ulens = np.zeros(n, np.int32)
@@ -423,11 +449,11 @@ def _decode_normal_chunks(bodies, comp_idx, out_parts, device,
         for j, p in enumerate(payloads[sl]):
             if not oversize[s + j]:
                 frags[j, : clens[s + j]] = np.frombuffer(p, np.uint8)
-        out, ok, rounds = ops_decode.decode_fragments(
-            *(torch.from_numpy(a).to(device)
-              for a in (frags, clens[sl], ulens[sl])))
-        stats.dense_rounds.append(rounds)
-        out, ok = out.cpu().numpy(), ok.cpu().numpy()
+        out, ok, rounds = _decode_wave(
+            len(frags),
+            lambda pad: _pad_rows((frags, clens[sl], ulens[sl]), pad), mesh,
+            shard.decode_sharded)
+        stats.dense_rounds += rounds
         for j, i in enumerate(comp_idx[sl]):
             body = bodies[i][1]
             stats.normal += 1
@@ -441,7 +467,7 @@ def _decode_normal_chunks(bodies, comp_idx, out_parts, device,
             out_parts[i] = piece
 
 
-def _decode_data_chunks(bodies: list, device, use_sidecar: bool,
+def _decode_data_chunks(bodies: list, mesh, use_sidecar: bool,
                         stats: FramedStats) -> list[bytes]:
     """Decode and CRC-check a window of data chunks, in order. bodies:
     (type, body) pairs, body = 4-byte masked CRC + payload; a sidecar
@@ -470,12 +496,12 @@ def _decode_data_chunks(bodies: list, device, use_sidecar: bool,
                 if t == CHUNK_COMPRESSED]
     if use_sidecar and side_for:
         comp_idx = _decode_sidecar_chunks(bodies, side_for, comp_idx,
-                                          out_parts, device, stats)
+                                          out_parts, mesh, stats)
     if use_sidecar and depth_for:
         comp_idx = _decode_hinted_chunks(bodies, depth_for, comp_idx,
-                                         out_parts, device, stats)
+                                         out_parts, mesh, stats)
     if comp_idx:
-        _decode_normal_chunks(bodies, comp_idx, out_parts, device, stats)
+        _decode_normal_chunks(bodies, comp_idx, out_parts, mesh, stats)
 
     for i, (typ, body) in enumerate(bodies):
         if typ == CHUNK_UNCOMPRESSED:
@@ -490,29 +516,35 @@ def _decode_data_chunks(bodies: list, device, use_sidecar: bool,
 
 
 def decompress(framed: bytes, use_sidecar: bool = True, *,
-               device="cuda", cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
+               device="cuda", cfg: CodecConfig = DEFAULT_CONFIG,
+               mesh=None) -> bytes:
     """Decompress and validate a framed stream (structure and every CRC).
-    use_sidecar=False ignores the decode sidecars (skippable by spec)."""
-    return decompress_with_stats(framed, use_sidecar, device=device)[0]
+    use_sidecar=False ignores the decode sidecars (skippable by spec).
+    Every decode path shards over `mesh` (default: one shard on
+    `device`)."""
+    return decompress_with_stats(framed, use_sidecar, device=device,
+                                 mesh=mesh)[0]
 
 
 def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
-                          device="cuda", cfg: CodecConfig = DEFAULT_CONFIG):
+                          device="cuda", cfg: CodecConfig = DEFAULT_CONFIG,
+                          mesh=None):
     """decompress, also returning the FramedStats of the paths taken."""
-    device = api._device(device)
+    mesh = _mesh(device, mesh)
     stats = FramedStats()
     bodies = [(t, framed[off: off + ln])
               for t, off, ln in _parse_chunks(framed)]
-    return b"".join(_decode_data_chunks(bodies, device, use_sidecar,
+    return b"".join(_decode_data_chunks(bodies, mesh, use_sidecar,
                                         stats)), stats
 
 
 def decompress_stream(src, dst, use_sidecar: bool = True, *, device="cuda",
                       chunks_per_wave: int = 64,
-                      cfg: CodecConfig = DEFAULT_CONFIG) -> int:
+                      cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> int:
     """Stream-decode a framed stream from src to dst in windows of
-    `chunks_per_wave` data chunks. Returns the bytes written."""
-    device = api._device(device)
+    `chunks_per_wave` data chunks, each sharded over `mesh` (default: one
+    shard on `device`). Returns the bytes written."""
+    mesh = _mesh(device, mesh)
     if src.read(len(STREAM_ID)) != STREAM_ID:
         raise ValueError("missing stream identifier chunk")
     stats = FramedStats()
@@ -522,7 +554,7 @@ def decompress_stream(src, dst, use_sidecar: bool = True, *, device="cuda",
 
     def flush():
         nonlocal written, ndata
-        for piece in _decode_data_chunks(window, device, use_sidecar, stats):
+        for piece in _decode_data_chunks(window, mesh, use_sidecar, stats):
             dst.write(piece)
             written += len(piece)
         window.clear()

@@ -18,7 +18,11 @@ commit scan, emission, placement. The matcher route follows the table:
   (tests/test_pallas.py:513-550), and the kernel keeps the plain body's
   (B, N, K, K) compares off the card;
 * table "intervals": `_matcher_xla` with the interval-aware sticky scan,
-  which is XLA on the TPU too (no kernel takes the interval columns).
+  which is XLA on the TPU too (no kernel takes the interval columns);
+* K above the kernels' `MAX_K` (24) on the CPU: `_matcher_xla` on the
+  unpacked table, as the JAX package runs it off the TPU (the Pallas
+  kernel takes any K; no preset goes above 16). On the card the matcher
+  wrapper refuses such a K.
 
 Placements (`PLACEMENTS`, encode.py:721-735), all giving the same bytes:
 "auto" and "winplace" (single-lane emission, windowed placement and the
@@ -460,7 +464,8 @@ def _match(blocks: torch.Tensor, n: torch.Tensor, cfg: CodecConfig):
         key = _window_keys(blocks, n)
     else:
         key = _window_keys_strided(blocks, n, cfg.stride)
-    if cfg.table == "intervals":
+    wide = cfg.candidates > _matcher.MAX_K and key.device.type == "cpu"
+    if cfg.table == "intervals" or wide:
         cands = _candidate_offsets(key, n, cfg, packed=False)
         return _matcher_xla(cands, n, cfg.lazy, cfg.sticky, cfg.table)
     if cfg.flatten == "off":

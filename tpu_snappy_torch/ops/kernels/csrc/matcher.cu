@@ -2,7 +2,7 @@
 // candidate table.
 //
 // Replaces tpu_snappy/ops/pallas/matcher.py:matcher_block_packed and
-// matcher_block (sticky "exact" and "sig", K from 2 to 16). The TPU kernel
+// matcher_block (sticky "exact" and "sig", K from 2 to 24). The TPU kernel
 // holds a whole 64K row in VMEM and runs every stage as full-row
 // Hillis-Steele rolls. What it computes, and what this kernel keeps bit
 // for bit:
@@ -59,8 +59,11 @@
 //     strict > keeps), as per-warp prefix and suffix maxima (van Herk /
 //     Gil-Werman: a warp holds one 128-position block). Eleven barriers a
 //     tile in all (four in the stages after sticky).
-// Blocks an SM: two at K >= 9 (64 registers a thread), three at K 5-8,
-// four at K <= 4.
+// Blocks an SM: two at K 9-16 (64 registers a thread), three at K 5-8,
+// four at K <= 4; one at K 17-24, where two blocks' sticky planes at "sig"
+// (2K + 2 planes of 4 KB) pass the SM's 228 KB of shared memory, so a
+// thread may take 128 registers. Up to K = 24 one block's planes fit its
+// 227 KB at either sticky mode.
 #include "common.cuh"
 
 namespace {
@@ -100,6 +103,7 @@ struct Smem {
       (kLen + kThreads + 4 + kWarps * kPer + kWarps) * sizeof(int32_t);
   static_assert(kPost <= kPlanes, "the later stages fit in the planes");
   static constexpr size_t kTotal = kPlanes + kOrig + kOffs;
+  static_assert(kTotal <= 227 * 1024, "a block's shared memory holds it");
 };
 
 __device__ __forceinline__ uint32_t sig_bit(uint32_t x) {
@@ -115,7 +119,8 @@ __device__ __forceinline__ void store4(uint16_t* at, uint32_t a, uint32_t b,
 }
 
 template <int K, bool kSig>
-__global__ void __launch_bounds__(kThreads, K <= 4 ? 4 : (K <= 8 ? 3 : 2))
+__global__ void __launch_bounds__(
+    kThreads, K <= 4 ? 4 : (K <= 8 ? 3 : (K <= 16 ? 2 : 1)))
 matcher_kernel(const int32_t* __restrict__ pref,
                const int32_t* __restrict__ table, bool packed,
                const int32_t* __restrict__ nlen, int32_t* __restrict__ jump,
@@ -461,6 +466,8 @@ int dispatch(const void* pref, const void* table, bool packed, const void* n,
   switch (k) {
     SNK_K(2) SNK_K(3) SNK_K(4) SNK_K(5) SNK_K(6) SNK_K(7) SNK_K(8) SNK_K(9)
     SNK_K(10) SNK_K(11) SNK_K(12) SNK_K(13) SNK_K(14) SNK_K(15) SNK_K(16)
+    SNK_K(17) SNK_K(18) SNK_K(19) SNK_K(20) SNK_K(21) SNK_K(22) SNK_K(23)
+    SNK_K(24)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SNK_K
@@ -470,7 +477,7 @@ int dispatch(const void* pref, const void* table, bool packed, const void* n,
 
 // pref: (batch, 65536) int32; words: (batch, k/2, 65536) int32 (two 16-bit
 // offsets each, low half first); n: (batch,) int32; jump, off: (batch,
-// 65536) int32 outputs. k 2..16; lazy >= 0 (0: no deferral); sig: 1 for
+// 65536) int32 outputs. k 2..24; lazy >= 0 (0: no deferral); sig: 1 for
 // sticky "sig", 0 for "exact".
 SNK_EXPORT int snk_matcher_packed(const void* pref, const void* words,
                                   const void* n, void* jump, void* off, int k,

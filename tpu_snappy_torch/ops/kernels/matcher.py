@@ -3,7 +3,7 @@
 Port of tpu_snappy/ops/pallas/matcher.py: `matcher_block_packed` (the
 packed form: the gated default plus 16-bit halves in int32 words) and
 `matcher_block` (the unpacked (B, N, K) table, column 0 the default), at
-sticky "exact" and "sig" and any K from 2 to 16. The CUDA kernel is
+sticky "exact" and "sig" and any K from 2 to 24. The CUDA kernel is
 csrc/matcher.cu, one template for both forms that differ only in the load
 stage. On this card the sticky levels' compares bound it (integer
 operations); a block of THREADS threads owns one row's tile of TILE
@@ -36,9 +36,10 @@ THREADS, PER, LEFT, RIGHT = 512, 4, 204, 68
 TILE = THREADS * PER - LEFT - RIGHT
 TILES = -(-N // TILE)
 
-#: Candidate counts the kernel takes (the JAX kernel takes any K; no
-#: preset and no JAX test goes above 16).
-MIN_K, MAX_K = 2, 16
+#: Candidate counts the kernel takes: up to 24, where one block's sticky
+#: planes still fit its shared memory at either sticky mode (the JAX
+#: kernel takes any K; no preset and no JAX test goes above 16).
+MIN_K, MAX_K = 2, 24
 STICKY = ("exact", "sig")
 
 

@@ -316,7 +316,7 @@ def pack_batch(jobs, pad_rows: int = 0):
 
 def decode_chunks(elems: torch.Tensor, starts: torch.Tensor,
                   vals: torch.Tensor, ulens: torch.Tensor,
-                  wrows: int | None = None):
+                  wrows: int | None = None, split_len: int = SPLIT_LEN):
     """Root-map decode of a batch of chunks (sidecar.py:376-435):
     out[i] = elems[g[i]], g expanded from the piece values scattered at
     the piece starts (scatter_windowed; padding starts == 65536 drop),
@@ -324,8 +324,8 @@ def decode_chunks(elems: torch.Tensor, starts: torch.Tensor,
 
     elems (B, EW) uint8 (element bytes, zero-padded to an elems_width
     bucket); starts, vals (B, PW) int32; ulens (B,) int32. wrows=None is
-    split mode (host-split pieces, fill gaps of at most SPLIT_LEN, window
-    of _wrows(SPLIT_LEN) rows): the TPU's fill stops after SPLIT_LEN
+    split mode (host-split pieces, fill gaps of at most split_len, window
+    of _wrows(split_len) rows): the TPU's fill stops after split_len
     positions, and the fill here runs without a limit, which gives the
     same values because no gap is longer. wrows=<a PARENT_WROWS bucket> is
     parent-direct mode (the maximal wire pieces). As on the TPU, a piece
@@ -333,7 +333,7 @@ def decode_chunks(elems: torch.Tensor, starts: torch.Tensor,
     (B, 65536) uint8, zero past ulen; ok (B,) bool)."""
     ew = elems.shape[-1]
     scattered, ovf = _scatter.scatter_windowed(
-        starts, vals, _wrows(SPLIT_LEN) if wrows is None else wrows)
+        starts, vals, _wrows(split_len) if wrows is None else wrows)
     filled = _ffill.ffill(scattered != 0, (scattered,))[0]
     oiota = torch.arange(OUT, dtype=torch.int32, device=elems.device)
     slope = filled >> 17
@@ -342,3 +342,17 @@ def decode_chunks(elems: torch.Tensor, starts: torch.Tensor,
                                limbs=1)
     keep = oiota < ulens.to(torch.int32)[:, None]
     return torch.where(keep, out.to(torch.uint8), 0), ovf == 0
+
+
+def decode_corpus_sidecar(elems: torch.Tensor, starts: torch.Tensor,
+                          vals: torch.Tensor, ulens: torch.Tensor,
+                          wave: int = 8, split_len: int = SPLIT_LEN,
+                          wrows: int | None = None):
+    """decode_chunks over waves of `wave` chunks (sidecar.py:439), the
+    decode_corpus of the root maps: the chunk count must be a multiple of
+    `wave` (pad it with rows of starts == OUT and ulen 0), else
+    ValueError. Returns (out (B, 65536) uint8, ok (B,) bool)."""
+    return _decode._in_waves(
+        "decode_corpus_sidecar",
+        lambda e, s, v, u: decode_chunks(e, s, v, u, wrows, split_len),
+        (elems, starts, vals, ulens), wave)
