@@ -117,7 +117,20 @@ Phases, each printing its results; any failure raises (non-zero exit):
    the compat and hadoop round trips, and the CLI (python -m
    tpu_snappy_torch) in six subprocesses started together (raw,
    --framed --sidecar auto, --hadoop, --mesh 1, --stream, --turbo), each
-   output file equal to the API's bytes; GB/s of each sharded path.
+   output file equal to the API's bytes; GB/s of each sharded path;
+11. server: the 16 MiB through serving.CodecServer on the card, 64
+   slices of four blocks (the last takes the remainder) compressed raw
+   and framed under each policy and 4 slices below one block compressed
+   raw (the host fast path), submitted from 8 threads at once, then every
+   stream decompressed, one corrupt stream among them (its future alone
+   fails, with ValueError); at waves of 8 and of the API's 128, each at
+   PIPELINE_DEPTH 1 and 2 (at 128 in turns, twice each), and on four
+   shards of cuda:0;
+   each stream equal to api.compress or framing.compress of its slice,
+   each decode equal to its slice, every wave kind (encode, decode, root
+   map, depth hints) dispatched; wall seconds and GB/s of each stage,
+   ServerStats, depth 1 against depth 2, and the launch counters (their
+   own line) showing the ten kernels of the raw and framed paths.
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
@@ -149,8 +162,9 @@ import torch
 # at the matcher's and the emission's tile edges), shared with the tests.
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_edges import (SEED, emit_edge_parses, make_data,  # noqa: E402
-                         matcher_edge_rows, synthetic_parse)
+from torch_edges import (CORRUPT_STREAM, SEED,  # noqa: E402
+                         emit_edge_parses, make_data, matcher_edge_rows,
+                         synthetic_parse)
 
 ROUND_TRIP_BYTES = 16 << 20
 BATCH = 8  # rows for the kernel-against-plain checks
@@ -1922,7 +1936,8 @@ def check_goldens(data: bytes, comp: bytes, cfg=None,
 
 
 #: The kernels of the raw and framed main paths (PERF.md §6 rows 1-10):
-#: phase 10 must launch each of them under the sharded paths.
+#: phase 10 must launch each of them under the sharded paths, phase 11
+#: through the server.
 SHARDED_PATH_KERNELS = ("window_keys", "ffill", "scatter_windowed",
                         "resolve_tiled", "matcher_block_packed",
                         "emit_block_single", "place_block", "scatter_block",
@@ -2072,6 +2087,179 @@ def parallel_and_surfaces(dev, data: bytes, comp: bytes, framed: dict,
           "equal to the API's bytes")
 
 
+#: Phase 11's requests: the 16 MiB in slices of four blocks (the last
+#: takes the remainder), each compressed raw and framed under every
+#: policy, and SERVER_SMALL slices below one block (the host fast path),
+#: compressed raw; then every stream decompressed. SERVER_THREADS threads
+#: submit at once.
+SERVER_SLICE = 4 * N
+SERVER_SMALL = ((0, 1000), (5000, 40000), (100000, 165535), (300000, 300001))
+SERVER_THREADS = 8
+POLICIES = ("off", "auto", "always")
+
+
+def _server_configs(dev) -> dict:
+    """Phase 11's servers, each made when its turn comes: waves of 8 and
+    of the API's 128 at PIPELINE_DEPTH 1 and 2 (set on a subclass before
+    construction; at 128 in turns, twice each), and a mesh of four shards
+    of the card at the default depth."""
+    from tpu_snappy_torch import api, serving
+    from tpu_snappy_torch.parallel import mesh as meshlib
+
+    def at_depth(depth: int):
+        return type(f"Depth{depth}", (serving.CodecServer,),
+                    {"PIPELINE_DEPTH": depth})
+
+    def server(wave: int, depth: int, **kw):
+        return lambda: at_depth(depth)(wave=wave, **kw)
+
+    big = api.API_WAVE
+    return {
+        "wave 8, depth 1": server(8, 1),
+        "wave 8, depth 2": server(8, 2),
+        f"wave {big}, depth 1": server(big, 1),
+        f"wave {big}, depth 2": server(big, 2),
+        f"wave {big}, depth 2, again": server(big, 2),
+        f"wave {big}, depth 1, again": server(big, 1),
+        "wave 8, depth 2, four shards on cuda:0":
+            server(8, 2, mesh=meshlib.make_mesh(device=(dev,) * 4)),
+    }
+
+
+def _split_framed(fr: bytes, blocks: int) -> list:
+    """A framed stream cut into streams of `blocks` data chunks each (with
+    their sidecar chunks): what framing.compress gives for each slice of
+    `blocks` blocks, since a chunk depends on its own block alone."""
+    from tpu_snappy_torch import framing
+
+    out, count = [], 0
+    ip = start = len(framing.STREAM_ID)
+    while ip < len(fr):
+        typ = fr[ip]
+        ip += 4 + int.from_bytes(fr[ip + 1:ip + 4], "little")
+        if typ in (framing.CHUNK_COMPRESSED, framing.CHUNK_UNCOMPRESSED):
+            count += 1
+            if count == blocks or ip == len(fr):
+                out.append(framing.STREAM_ID + fr[start:ip])
+                start, count = ip, 0
+    return out
+
+
+def _serve_mix(srv, requests: list, jobs: list) -> tuple:
+    """Phase 11's mix through one server: SERVER_THREADS threads each
+    compress their share of `jobs` ((request index, "raw" or a policy),
+    all submitted before any result is read), then decompress every
+    stream; the first thread also sends CORRUPT_STREAM among its
+    decompresses. Returns (streams, decodes, the corrupt request's
+    exception, compress seconds, decompress seconds). Any other future
+    that fails raises here."""
+    import concurrent.futures as cf
+
+    def compress(share):
+        futs = {(i, k): srv.compress(requests[i]) if k == "raw"
+                else srv.compress_framed(requests[i], k) for i, k in share}
+        return {key: f.result(timeout=600) for key, f in futs.items()}
+
+    def decompress(job):
+        t, streams = job
+        bad = srv.decompress(CORRUPT_STREAM) if t == 0 else None
+        futs = {key: srv.decompress(c) if key[1] == "raw"
+                else srv.decompress_framed(c) for key, c in streams.items()}
+        outs = {key: f.result(timeout=600) for key, f in futs.items()}
+        return outs, bad.exception(timeout=600) if bad else None
+
+    shares = [jobs[t::SERVER_THREADS] for t in range(SERVER_THREADS)]
+    with cf.ThreadPoolExecutor(SERVER_THREADS) as pool:
+        t0 = time.perf_counter()
+        parts = list(pool.map(compress, shares))
+        t1 = time.perf_counter()
+        done = list(pool.map(decompress, enumerate(parts)))
+        t2 = time.perf_counter()
+    streams = {k: v for part in parts for k, v in part.items()}
+    backs = {k: v for outs, _e in done for k, v in outs.items()}
+    return streams, backs, done[0][1], t1 - t0, t2 - t1
+
+
+def serving_phase(dev, data: bytes, framed: dict, wrappers: dict,
+                  card: str) -> None:
+    """Phase 11: the 16 MiB through serving.CodecServer on the card in
+    every configuration of _server_configs, each stream equal to
+    api.compress of its request on the card or to framing.compress under
+    its policy (phase 5's stream of the whole input, cut at the requests'
+    chunks; the cut held against framing.compress on the first and the
+    last slice), each decode equal to its request, the corrupt stream's
+    future failing with ValueError and no other, every wave kind
+    dispatched, and the launch counters (set to 0 after the reference
+    streams, read after the last server) showing the ten kernels of the
+    raw and framed paths."""
+    from tpu_snappy_torch import api, framing
+
+    t0 = time.perf_counter()
+    requests = [data[s:s + SERVER_SLICE]
+                for s in range(0, len(data), SERVER_SLICE)]
+    big = len(requests)
+    want = {(i, "raw"): api.compress(r) for i, r in enumerate(requests)}
+    for policy in POLICIES:
+        cut = _split_framed(framed[policy], SERVER_SLICE // N)
+        for i in (0, big - 1):
+            if cut[i] != framing.compress(requests[i], policy):
+                raise AssertionError(f"framed {policy}: slice {i} of the "
+                                     "whole stream differs")
+        want.update({(i, policy): fr for i, fr in enumerate(cut)})
+    for a, b in SERVER_SMALL:
+        want[len(requests), "raw"] = api.compress(data[a:b])
+        requests.append(data[a:b])
+    jobs = sorted(want)
+    n = sum(len(requests[i]) for i, _k in jobs)
+    print(f"server requests: {len(jobs)} compresses ({big} slices of "
+          f"{SERVER_SLICE} bytes or the remainder, raw and framed under "
+          f"{POLICIES}; {len(SERVER_SMALL)} raw below one block), {n} "
+          f"bytes, then as many decompresses and one corrupt stream; "
+          f"reference streams {time.perf_counter() - t0} s")
+    _reset(wrappers)
+    seconds = {}
+    for label, make in _server_configs(dev).items():
+        with make() as srv:
+            streams, backs, bad, tc, td = _serve_mix(srv, requests, jobs)
+            st = srv.stats
+        if streams != want:
+            wrong = sorted(k for k in want if streams[k] != want[k])
+            raise AssertionError(f"server {label}: streams differ from the "
+                                 f"API's / framing's: {wrong[:8]}")
+        if backs.keys() != want.keys() or any(
+                out != requests[i] for (i, _k), out in backs.items()):
+            raise AssertionError(f"server {label}: a decode differs")
+        if not isinstance(bad, ValueError):
+            raise AssertionError(f"server {label}: the corrupt stream gave "
+                                 f"{bad!r}")
+        if set(st.waves_by_kind) != {"enc", "dec", "scd", "dcd"}:
+            raise AssertionError(f"server {label}: wave kinds "
+                                 f"{st.waves_by_kind}")
+        seconds[label] = (tc, td)
+        print(f"server {label}: compress {_rate(n, tc)}; decompress "
+              f"{_rate(n, td)} [{card}]")
+        print(f"  ServerStats: requests {st.requests}, units {st.units}, "
+              f"waves {st.waves}, waves_by_kind {st.waves_by_kind}, "
+              f"occupancy {st.occupancy}, latency ms "
+              f"{st.latency_percentiles()}, spliced_fragments "
+              f"{st.spliced_fragments}, host_fastpath {st.host_fastpath}")
+    launches = _launches(wrappers)
+    print(f"server launches: {launches}")
+    missing = [k for k in SHARDED_PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"kernels the server did not run: {missing}")
+    for wave in sorted({k.split(",")[0] for k in seconds}):
+        for j, stage in enumerate(("compress", "decompress")):
+            mean = {}
+            for d in (1, 2):
+                runs = [v[j] for k, v in seconds.items() if "shards" not in k
+                        and k.startswith(f"{wave}, depth {d}")]
+                mean[d] = sum(runs) / len(runs)
+            print(f"server {stage}, {wave}: depth 1 {mean[1]} s, depth 2 "
+                  f"{mean[2]} s (means of {len(runs)} turns each): depth 1 "
+                  f"/ depth 2 = {mean[1] / mean[2]} [{card}]")
+
+
 def main() -> None:
     import argparse
 
@@ -2138,6 +2326,7 @@ def main() -> None:
         tile_sweep(dev, captured, card)
     parallel_and_surfaces(dev, data, comp, framed, framed_stats, wrappers,
                           card)
+    serving_phase(dev, data, framed, wrappers, card)
 
     kernels = []
     for k, mod in modules.items():

@@ -69,8 +69,8 @@ def test_import_loads_no_jax_and_no_jax_package():
     for m in ("ops.kernels.matcher", "ops.kernels.gather", "framing",
               "sidecar", "parallel.mesh", "parallel.shard",
               "parallel.streaming", "parallel.multihost", "compat",
-              "hadoop", "__main__", "utils.corpus", "utils.metrics",
-              "utils.profiling"):
+              "hadoop", "__main__", "serving", "utils.corpus",
+              "utils.metrics", "utils.profiling"):
         assert "tpu_snappy_torch." + m in mods
 
 

@@ -2,7 +2,8 @@
 
 `make_data` is the mixed round-trip input; `block_mix` a smaller mix whose
 64 KB blocks take every framed path (hinted text, a root-mapped run,
-stored random bytes); `synthetic_parse` a committed
+stored random bytes); `CORRUPT_STREAM` a raw stream that no decoder can
+decode, though its fragments split cleanly; `synthetic_parse` a committed
 parse with long literal runs and far copies; `matcher_edge_rows` and
 `emit_edge_parses` the rows that land on the tiles of the matcher and
 emission kernels (ops/kernels/matcher.py:TILE, emit.py:TILE), read from
@@ -21,6 +22,13 @@ from tpu_snappy_torch.utils import corpus
 
 SEED = 20261016
 N = 1 << 16
+
+#: 64 KB of RLE 'x' (a literal, then 1024 copies), then a copy whose
+#: offset (65537) exceeds everything written (tests/test_serving.py): two
+#: fragments, the second flagged on the device and refused by the host.
+CORRUPT_STREAM = (b"\x84\x80\x04" + b"\x3c" + b"x" * 16
+                  + (b"\xfe\x10\x00" * 1023) + b"\xbe\x10\x00"
+                  + b"\x0f" + (65537).to_bytes(4, "little"))
 
 
 def make_data(size: int, seed: int = SEED) -> bytes:

@@ -23,6 +23,8 @@ bytes depend on the wave or the shard it runs in.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -114,14 +116,27 @@ def _on_shards(mesh: meshlib.Mesh, arrays: tuple) -> list:
             for dev, rows in meshlib.shard_rows(mesh, tens[0].shape[0])]
 
 
+def _current(dev: torch.device):
+    """A CUDA shard's device made the current device while its kernels
+    launch (they launch on the current device's current stream); nothing
+    for a CPU shard."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 def encode_local(mesh: meshlib.Mesh, blocks, lengths,
                  cfg: CodecConfig, wave: int) -> list:
     """Encode this process's shards of (padded) blocks and lengths, each on
     its device through encode_corpus_compact at `wave`. Returns, per local
     shard, (dense payload tensor, out_lens tensor, total). Nothing is
     gathered here (see gather_manifest and assemble_compact)."""
-    return [ops_encode.encode_corpus_compact(b, l, cfg, wave=wave)
-            for b, l in _on_shards(mesh, (blocks, lengths))]
+    shards = []
+    for b, l in _on_shards(mesh, (blocks, lengths)):
+        with _current(b.device):
+            shards.append(ops_encode.encode_corpus_compact(b, l, cfg,
+                                                           wave=wave))
+    return shards
 
 
 def gather_manifest(shards: list, mesh: meshlib.Mesh) -> np.ndarray:
@@ -188,12 +203,13 @@ def _decode_local(mesh: meshlib.Mesh, arrays: tuple, wave: int, decode):
     this process's rounds a wave)."""
     outs, oks, rounds = [], [], []
     for part in _on_shards(mesh, arrays):
-        for s in range(0, part[0].shape[0], wave):
-            res = decode(*(a[s:s + wave] for a in part))
-            outs.append(res[0].cpu().numpy())
-            oks.append(res[1].cpu().numpy())
-            if len(res) > 2:
-                rounds.append(res[2])
+        with _current(part[0].device):
+            for s in range(0, part[0].shape[0], wave):
+                res = decode(*(a[s:s + wave] for a in part))
+                outs.append(res[0].cpu().numpy())
+                oks.append(res[1].cpu().numpy())
+                if len(res) > 2:
+                    rounds.append(res[2])
     return (fetch_global(np.concatenate(outs), mesh),
             fetch_global(np.concatenate(oks), mesh), rounds)
 
