@@ -7,10 +7,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
-checkout's kernels named in REDESIGNED (the two matchers and the two
-emissions) beside this one's on every captured call, in turns (their
-outputs must be equal, every tensor), and sweeps the tiles of the two
-scatters and ffill's chunk.
+checkout's kernels named in REDESIGNED (the two matchers, the two
+emissions and the two tiled resolves) beside this one's on every captured
+call, in turns (their outputs must be equal, every tensor), the tiled
+resolves also on each call's first 8 rows and on the period-1 chain, and
+sweeps the tiles of the two scatters and ffill's chunk.
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -29,8 +30,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    on parses at their tile edges: a 65536-byte literal run,
    runs of 60, 61, 256 and 257 on tile boundaries, 3-byte copies whose
    header bytes cross one, n inside a run, an all-copy row, a
-   block-opening literal; the resolve kernels on the JAX
-   tests' maps, the period-1 chain and a depth-10000 chain among them,
+   block-opening literal; resolve_tiled, resolve_tiled_depth and
+   resolve_tiled_dual on tests/torch_edges.py's tiled-resolve rows at 1,
+   8, 128 and 133 rows under every `resolved` flag and declared depth
+   kind (0, under, over, above 11, negative); the resolve kernels on the
+   JAX tests' maps, the period-1 chain and a depth-10000 chain among them,
    with exact, over-approximate and all-zero root flags and partly stable
    tiles; the windowed gathers in chained rounds on the same maps; the
    element fields on random, all-zero and all-255 rows at three widths;
@@ -162,9 +166,10 @@ import torch
 # at the matcher's and the emission's tile edges), shared with the tests.
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from torch_edges import (CORRUPT_STREAM, SEED,  # noqa: E402
+from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
+                         RESOLVED_KINDS, SEED, depth_variant,
                          emit_edge_parses, make_data, matcher_edge_rows,
-                         synthetic_parse)
+                         resolved_flags, synthetic_parse, tiled_resolve_rows)
 
 ROUND_TRIP_BYTES = 16 << 20
 BATCH = 8  # rows for the kernel-against-plain checks
@@ -269,44 +274,7 @@ def check_kernels(dev) -> None:
     errs += _scatter_windowed_edges(scatter, rng, t)
     report["scatter_windowed"] = max(errs)
 
-    # resolve_tiled: random decreasing maps, identity, period-1 chain,
-    # tile-straddling hops.
-    lit = t(rng.integers(0, 256, (BATCH, N), dtype=np.int32))
-    ident = np.arange(N, dtype=np.int32)
-    srcs = [np.minimum(ident, rng.integers(0, N, N)),
-            ident,
-            np.maximum(ident - 1, 0),
-            np.maximum(ident - ident % tiledres.TILE - 1, 0),
-            np.maximum(ident - rng.integers(1, 300, N), 0),
-            np.where(rng.random(N) < 0.5, ident, np.maximum(ident - 7, 0)),
-            np.maximum(ident - tiledres.TILE, 0),
-            np.minimum(ident, rng.integers(0, 64, N))]
-    src_np = np.stack(srcs).astype(np.int32)
-    src = t(src_np)
-    errs = []
-    for flags in (None, [False] * BATCH, [True] * BATCH,
-                  [True, False] * (BATCH // 2)):
-        res = None if flags is None else t(np.array(flags))
-        errs.append(_exact(tiledres.resolve_tiled(lit, src, res),
-                           tiledres.resolve_tiled_plain(lit, src, res)))
-    report["resolve_tiled"] = max(errs)
-    print(f"kernel resolve_tiled B={BATCH} (identity, chain, straddle, "
-          f"random; resolved none/false/true/mixed): max_abs_err={max(errs)}")
-
-    # resolve_tiled_depth: exact, over- and under-declared depths, on the
-    # maps above (the period-1 chain among them: depth 10 in every tile).
-    exact = tiledres.tile_depths_plain(torch.from_numpy(src_np)).numpy()
-    if exact[2].tolist() != [10] * (N // tiledres.DEPTH_TILE):
-        raise AssertionError(f"chain depths {exact[2].tolist()}")
-    errs = []
-    for deps in (exact, exact + rng.integers(1, 5, exact.shape),
-                 np.maximum(exact - rng.integers(1, 4, exact.shape), 0)):
-        d = t(deps.astype(np.int32))
-        errs.append(_exact(tiledres.resolve_tiled_depth(lit, src, d),
-                           tiledres.resolve_tiled_depth_plain(lit, src, d)))
-    report["resolve_tiled_depth"] = max(errs)
-    print(f"kernel resolve_depth B={BATCH} (same maps; depths exact, over, "
-          f"under): max_abs_err={max(errs)}")
+    check_tiled_resolves(tiledres, t, report)
 
     # gather_block: limbs 1-3 (values up to 2^(8 limbs) - 1), tables of
     # 8192 to 131072 (and an odd width), T 4096 to 65536 (and 4093 and
@@ -341,6 +309,60 @@ def check_kernels(dev) -> None:
     check_scan_kernels(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
+
+
+#: Rows of phase 3's tiled-resolve checks: one, a server wave, an API
+#: wave, and more rows than the card has SMs.
+TILED_BATCHES = (1, 8, 128, 133)
+
+
+def check_tiled_resolves(tiledres, t, report: dict) -> None:
+    """Phase 3, resolve_tiled, resolve_tiled_dual and resolve_tiled_depth
+    against their plain versions on tests/torch_edges.py's tiled-resolve
+    rows (every lane at 0, chains of tiles - 1 hops, the period-1 chain,
+    the identity, random maps, ...) at TILED_BATCHES rows: resolve_tiled
+    under every RESOLVED_KINDS flag (`resolved` on maps not at their fixed
+    point among them), resolve_tiled_depth under every DEPTH_KINDS depth
+    (exact, over- and under-declared, 0, above 11, negative, mixed; the
+    period-1 chain's exact depth is 10 in every tile), and
+    resolve_tiled_dual on the 8-row batch's pairs of rows under each
+    flag."""
+    errs, depth_errs, dual_errs = [], [], []
+    for batch in TILED_BATCHES:
+        lit_np, src_np = tiled_resolve_rows(batch)
+        lit, src = t(lit_np), t(src_np)
+        for kind in RESOLVED_KINDS:
+            flags = resolved_flags(kind, batch)
+            res = None if flags is None else t(flags)
+            errs.append(_exact(tiledres.resolve_tiled(lit, src, res),
+                               tiledres.resolve_tiled_plain(lit, src, res)))
+        exact = tiledres.tile_depths_plain(torch.from_numpy(src_np)).numpy()
+        if batch > 5 and exact[5].tolist() != [10] * (N // tiledres.DEPTH_TILE):
+            raise AssertionError(f"chain depths {exact[5].tolist()}")
+        for kind in DEPTH_KINDS:
+            d = t(depth_variant(kind, exact))
+            depth_errs.append(_exact(
+                tiledres.resolve_tiled_depth(lit, src, d),
+                tiledres.resolve_tiled_depth_plain(lit, src, d)))
+        for row in range(0, batch, 2) if batch == 8 else ():
+            for kind in RESOLVED_KINDS:
+                flags = resolved_flags(kind, 2)
+                res = None if flags is None else t(flags)
+                pair = (lit[row:row + 2].contiguous(),
+                        src[row:row + 2].contiguous())
+                dual_errs.append(_exact(
+                    tiledres.resolve_tiled_dual(*pair, res),
+                    tiledres.resolve_tiled_dual_plain(*pair, res)))
+    report["resolve_tiled"] = max(errs)
+    report["resolve_tiled_depth"] = max(depth_errs)
+    report["resolve_tiled_dual"] = max(dual_errs)
+    print(f"kernel resolve_tiled B={TILED_BATCHES} (the tiled-resolve rows; "
+          f"resolved {', '.join(RESOLVED_KINDS)}): max_abs_err={max(errs)}")
+    print(f"kernel resolve_depth B={TILED_BATCHES} (same rows; depths "
+          f"{', '.join(DEPTH_KINDS)}): max_abs_err={max(depth_errs)}")
+    print(f"kernel resolve_tiled_dual (2, {N}) (pairs of the 8-row batch; "
+          f"resolved {', '.join(RESOLVED_KINDS)}): "
+          f"max_abs_err={max(dual_errs)}")
 
 
 def _ffill_edge_masks(m: int) -> list:
@@ -784,7 +806,7 @@ def check_window_kernels(rng, t, report: dict) -> None:
             errs.append(_exact(tiledres.resolve_tiled_dual(lit, s2, res),
                                tiledres.resolve_tiled_dual_plain(lit, s2,
                                                                  res)))
-    report["resolve_tiled_dual"] = max(errs)
+    report["resolve_tiled_dual"] = max(errs + [report["resolve_tiled_dual"]])
     print(f"kernel resolve_tiled_dual (2, {N}) (pairs of the maps; resolved "
           f"none, [T, F], [F, T]): max_abs_err={max(errs)}")
 
@@ -1392,20 +1414,12 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
 
     # resolve_tiled's worst case: the period-1 chain, 65535 hops deep.
     tiledres = kernels["resolve_tiled"]
-    rng = np.random.default_rng(SEED + 1)
-    batch = next(args[1].shape[0]
-                 for (name, *_), (args, _) in captured.items()
-                 if name == "resolve_tiled")
-    chain = torch.from_numpy(np.tile(
-        np.maximum(np.arange(N, dtype=np.int32) - 1, 0), (batch, 1))).to(dev)
-    lit = torch.from_numpy(
-        rng.integers(0, 256, (batch, N), dtype=np.int32)).to(dev)
+    lit, chain, deps = _chain_case(dev, captured)
+    batch = chain.shape[0]
     ms = _timed(lambda: tiledres.resolve_tiled(lit, chain), dev, 20)
     plain_ms = _timed(lambda: tiledres.resolve_tiled_plain(lit, chain), dev, 5)
     print(f"time resolve_tiled ({batch}, {N}) src=max(i-1,0), depth 65535: "
           f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
-    deps = torch.full((batch, N // tiledres.DEPTH_TILE), 10,
-                      dtype=torch.int32, device=dev)
     ms = _timed(lambda: tiledres.resolve_tiled_depth(lit, chain, deps), dev,
                 20)
     print(f"time resolve_tiled_depth ({batch}, {N}) on the same chain, "
@@ -1415,6 +1429,24 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     print(f"time resolve_block ({batch}, {N}) on the same chain, 16 "
           f"rounds: kernel {ms} ms [{card}]")
     return report
+
+
+def _chain_case(dev, captured: dict) -> tuple:
+    """The tiled resolves' worst case at the rows of the first captured
+    resolve_tiled call: (lit, the period-1 chain src = max(p - 1, 0), 65535
+    hops deep, and its exact depths, 10 in every 1024-tile)."""
+    rng = np.random.default_rng(SEED + 1)
+    batch = next(args[1].shape[0]
+                 for (name, *_), (args, _) in captured.items()
+                 if name == "resolve_tiled")
+    chain = torch.from_numpy(np.tile(
+        np.maximum(np.arange(N, dtype=np.int32) - 1, 0), (batch, 1))).to(dev)
+    lit = torch.from_numpy(
+        rng.integers(0, 256, (batch, N), dtype=np.int32)).to(dev)
+    from tpu_snappy_torch.ops.kernels import tiledres
+    deps = torch.full((batch, N // tiledres.DEPTH_TILE), 10,
+                      dtype=torch.int32, device=dev)
+    return lit, chain, deps
 
 
 def _extreme(pick, values: list):
@@ -1427,7 +1459,12 @@ def _extreme(pick, values: list):
 
 #: The kernels whose earlier design `--parent` times beside this one.
 REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
-              "emit_block")
+              "emit_block", "resolve_tiled", "resolve_tiled_depth")
+#: The REDESIGNED kernels `--parent` also times on each captured call's
+#: first SERVER_ROWS rows: the server's wave, where a serial walk's latency
+#: does not shrink with the batch.
+ROW_BOUND = ("resolve_tiled", "resolve_tiled_depth")
+SERVER_ROWS = 8
 
 
 def _parent_kernels(parent: str) -> dict:
@@ -1448,38 +1485,70 @@ def _parent_kernels(parent: str) -> dict:
     sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
     mods = {"matcher_block_packed": "matcher", "matcher_block": "matcher",
-            "emit_block_single": "emit", "emit_block": "emit"}
+            "emit_block_single": "emit", "emit_block": "emit",
+            "resolve_tiled": "tiledres", "resolve_tiled_depth": "tiledres"}
     return {name: getattr(importlib.import_module(
         f"parent_port.ops.kernels.{m}"), name) for name, m in mods.items()}
 
 
+def _first_rows(args, kw: dict, n: int):
+    """(args, kw) with every tensor cut to its first n rows."""
+    def cut(a):
+        return a[:n].contiguous() if isinstance(a, torch.Tensor) else a
+    return tuple(map(cut, args)), {k: cut(v) for k, v in kw.items()}
+
+
+def _in_turns(dev, old, new, args, kw) -> str:
+    """The parent's and this checkout's wrapper on one call, in turns
+    (parent, this, this, parent): ms, graph_ms and host_ms of each turn."""
+    turns = []
+    for label, fn in (("parent", old), ("this", new), ("this", new),
+                      ("parent", old)):
+        ms, graph_ms = _both(lambda: fn(*args, **kw), dev)
+        host_ms = _host_ms(lambda: fn(*args, **kw), dev)
+        turns.append(f"{label} {ms} ms (graph_ms {graph_ms}, host_ms "
+                     f"{host_ms})")
+    return "; ".join(turns)
+
+
 def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
     """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
-    this one on every captured main-path call, timed in turns (parent,
-    this, this, parent), each turn giving ms (wrapper included), graph_ms
-    (device only) and host_ms (the wrapper's host cost); the two outputs
-    (every tensor of them: scatter_windowed's drop counts too) must be
-    equal."""
+    this one on every captured main-path call (the ROW_BOUND kernels also
+    on its first SERVER_ROWS rows), timed in turns (parent, this, this,
+    parent), each turn giving ms (wrapper included), graph_ms (device only)
+    and host_ms (the wrapper's host cost); the two outputs (every tensor of
+    them: scatter_windowed's drop counts too) must be equal. Then phase 9's
+    worst case for both trees: the ROW_BOUND kernels on the period-1
+    chain."""
     old = _parent_kernels(parent)
     kernels = _kernel_modules()
     for (name, stage, shapes, scalars), (args, kw) in captured.items():
         if name not in REDESIGNED:
             continue
         new = getattr(kernels[name], name)
-        was, now = _tensors(old[name](*args, **kw)), _tensors(new(*args,
-                                                                  **kw))
-        if len(was) != len(now) or any(_exact(a, b)
-                                       for a, b in zip(was, now)):
+        calls = [("", args, kw)]
+        if name in ROW_BOUND and args[0].shape[0] > SERVER_ROWS:
+            calls.append((f", its first {SERVER_ROWS} rows",
+                          *_first_rows(args, kw, SERVER_ROWS)))
+        for part, a, k in calls:
+            was, now = _tensors(old[name](*a, **k)), _tensors(new(*a, **k))
+            if len(was) != len(now) or any(_exact(x, y)
+                                           for x, y in zip(was, now)):
+                raise AssertionError(f"{name}: the parent's output differs")
+            cut = tuple((tuple(x.shape), str(x.dtype))
+                        for x in _tensors((a, k)))
+            print(f"parent against this: {name} in {stage}{part} {cut} "
+                  f"{scalars}: {_in_turns(dev, old[name], new, a, k)} "
+                  f"[{card}]")
+    lit, chain, deps = _chain_case(dev, captured)
+    for name, a in (("resolve_tiled", (lit, chain)),
+                    ("resolve_tiled_depth", (lit, chain, deps))):
+        new = getattr(kernels[name], name)
+        if _exact(old[name](*a), new(*a)):
             raise AssertionError(f"{name}: the parent's output differs")
-        turns = []
-        for label, fn in (("parent", old[name]), ("this", new),
-                          ("this", new), ("parent", old[name])):
-            ms, graph_ms = _both(lambda: fn(*args, **kw), dev)
-            host_ms = _host_ms(lambda: fn(*args, **kw), dev)
-            turns.append(f"{label} {ms} ms (graph_ms {graph_ms}, host_ms "
-                         f"{host_ms})")
-        print(f"parent against this: {name} in {stage} {shapes} {scalars}: "
-              f"{'; '.join(turns)} [{card}]")
+        print(f"parent against this: {name} {tuple(chain.shape)} on the "
+              f"period-1 chain: {_in_turns(dev, old[name], new, a, {})} "
+              f"[{card}]")
 
 
 def tile_sweep(dev, captured: dict, card: str) -> None:

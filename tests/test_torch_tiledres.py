@@ -10,6 +10,16 @@ for a map that is not at it, under-declared depths (a stale or corrupt
 framed 0x81 hint) and over-approximate root flags, which must give exactly
 the TPU's wrong bytes. The `gpu` tests hold the CUDA kernels against the
 plain versions on the card.
+
+`_schedule` is a torch model of how the CUDA kernels of resolve_tiled and
+resolve_tiled_depth compute the walk's bytes without walking the tiles
+(csrc/tiledres.cu): every 1024-tile's rounds at once (the declared count
+for resolve_tiled_depth; until nothing moves for a resolve_tiled row not
+flagged `resolved`), then the absorbs as merges of tile blocks, one
+level at a time, the lanes of a level in a seeded random order. It is
+held, with exact equality, against the plain walk on the JAX tests' maps
+and on tests/torch_edges.py's tiled-resolve rows, under every `resolved`
+and depth kind there, in the rounds the kernel's note states.
 """
 
 import numpy as np
@@ -24,6 +34,8 @@ from tpu_snappy.ops.pallas import tiledres as PT
 
 from tpu_snappy_torch.ops.kernels import tiledres as KT
 
+from torch_edges import (DEPTH_KINDS, RESOLVED_KINDS, depth_variant,
+                         resolved_flags, tiled_resolve_rows)
 from torch_threads import share_cores
 
 share_cores()
@@ -179,18 +191,152 @@ def test_resolve_tiled_flag_runs_the_tpu_loop():
     assert (got.numpy() == lit[2, 0]).all()
 
 
-@pytest.mark.gpu
-def test_resolve_kernels_match_plain(maps, cuda):
+def _rounds(s, counts):
+    """Synchronous doubling rounds in 1024-tiles, every tile at once: tile t
+    of each row runs counts[:, t] of them, a round that moves nothing
+    ending its loop. Returns (s, the most rounds a tile ran, the one that
+    found nothing to move included)."""
+    tile = KT.DEPTH_TILE
+    pos = torch.arange(N)
+    base = pos - pos % tile
+    cap = counts.repeat_interleave(tile, dim=1)
+    active = cap > 0
+    ran = 0
+    while bool(active.any()):
+        inside = (s >= base) & (s < base + tile)
+        s2 = torch.where(active & inside, torch.gather(s, 1, s), s)
+        moved = (s2 != s).view(s.shape[0], -1, tile).any(-1)
+        s = s2
+        ran += 1
+        active &= (cap > ran) & moved.repeat_interleave(tile, dim=1)
+    return s, ran
+
+
+def _merges(s, shift, roots, gen):
+    """The absorbs as merges of blocks of 2^shift-lane tiles, levels k =
+    shift .. 15: a lane of a right 2^k-lane block whose pointer v lies in
+    the left sibling takes s[v] (with `roots` always, else unless v is
+    terminal: s[v] at or right of v's tile base). Within a level the lanes
+    go in a random order, each reading the state the earlier ones left:
+    writers and the lanes they read are disjoint, so the order is moot."""
+    pos = torch.arange(N)
+    for k in range(shift, 16):
+        lo = pos & ~((2 << k) - 1)
+        mid = pos & ~((1 << k) - 1)
+        for part in torch.randperm(N, generator=gen).chunk(16):
+            v = s[:, part]
+            inside = (v >= lo[part]) & (v < mid[part])
+            w = torch.gather(s, 1, torch.where(inside, v, 0))
+            take = inside & (roots | (w < (v >> shift << shift)))
+            s[:, part] = torch.where(take, w, v)
+    return s
+
+
+def _schedule(lit, src, tile, resolved=None, depths=None, seed=0):
+    """The CUDA kernels' schedule, in torch: returns (out (B, 65536) int32,
+    the most local rounds a tile ran). tile 4096:
+    resolve_tiled; a `resolved` row merges 4096-tiles of src; any other
+    row runs 1024-tile rounds until nothing moves, then merges 1024-tiles
+    to its roots. tile 1024: resolve_tiled_depth, exactly
+    min(max(depths[:, t], 0), 11) rounds in 1024-tile t, then merges of
+    1024-tiles to terminal lanes."""
+    gen = torch.Generator().manual_seed(seed)
+    s = src.to(torch.int64).clone()
+    rows = s.shape[0]
+    cap = KT.DEPTH_TILE.bit_length()
+    out = torch.empty_like(s)
+    local = 0
+    if depths is None:
+        flagged = (torch.zeros(rows, dtype=torch.bool) if resolved is None
+                   else resolved)
+        groups = ((flagged, False, KT.TILE), (~flagged, True, KT.DEPTH_TILE))
+    else:
+        groups = ((torch.ones(rows, dtype=torch.bool), False, KT.DEPTH_TILE),)
+    for pick, roots, t in groups:
+        if not bool(pick.any()):
+            continue
+        g = s[pick]
+        if depths is not None:
+            g, ran = _rounds(g, torch.clamp(depths.to(torch.int64), 0, cap))
+        elif roots:
+            g, ran = _rounds(g, torch.full((len(g), N // KT.DEPTH_TILE),
+                                           cap))
+        else:
+            ran = 0
+        local = max(local, ran)
+        shift = t.bit_length() - 1
+        g = _merges(g, shift, roots, gen)
+        pos = torch.arange(N)
+        term = roots | (g >= (pos >> shift << shift))
+        idx = torch.where(term, g, torch.gather(g, 1, g))
+        out[pick] = torch.gather(lit[pick].to(torch.int64), 1, idx)
+    return out.to(torch.int32), local
+
+
+@pytest.fixture(scope="module")
+def schedule_maps(maps):
+    """The JAX tests' maps, then tests/torch_edges.py's tiled-resolve rows
+    (every lane at 0, chains of tiles - 1 hops, ...), with lit bytes."""
     lit, src = maps
-    lt, st = _t(lit).to(cuda), _t(src).to(cuda)
-    flag = torch.tensor([0, 1, 0, 1, 1, 0], dtype=torch.bool, device=cuda)
-    assert torch.equal(KT.resolve_tiled(lt, st, flag),
-                       KT.resolve_tiled_plain(lt, st, flag))
-    deps = KT.tile_depths_plain(_t(src)).numpy()
-    for d in (deps, np.maximum(deps - 2, 0), deps + 3):
-        dt = _t(d.astype(np.int32)).to(cuda)
-        assert torch.equal(KT.resolve_tiled_depth(lt, st, dt),
-                           KT.resolve_tiled_depth_plain(lt, st, dt))
+    lit2, src2 = tiled_resolve_rows(12)
+    return (_t(np.concatenate([lit, lit2])),
+            _t(np.concatenate([src, src2])))
+
+
+SCHEDULE_CASES = ([("tiled", k) for k in RESOLVED_KINDS]
+                  + [("depth", k) for k in DEPTH_KINDS])
+
+
+@pytest.mark.parametrize("kernel,kind", SCHEDULE_CASES)
+def test_schedule_model_matches_the_walk(schedule_maps, kernel, kind):
+    """The kernels' schedule gives the walk's bytes, also where the walk
+    does not reach the fixed point (`resolved` on maps that are not at it,
+    under-declared depths), in at most the 11 rounds a 1024-tile that the
+    kernel's note states (10 that move and one that finds none)."""
+    lit, src = schedule_maps
+    rows = len(src)
+    if kernel == "tiled":
+        flags = resolved_flags(kind, rows)
+        res = None if flags is None else _t(flags)
+        want = KT.resolve_tiled_plain(lit, src, res)
+        got, local = _schedule(lit, src, KT.TILE, resolved=res,
+                               seed=len(kind))
+    else:
+        exact = KT.tile_depths_plain(src).numpy()
+        deps = _t(depth_variant(kind, exact))
+        want = KT.resolve_tiled_depth_plain(lit, src, deps)
+        got, local = _schedule(lit, src, KT.DEPTH_TILE, depths=deps,
+                               seed=len(kind))
+    assert torch.equal(got, want), (kernel, kind)
+    assert local <= KT.DEPTH_TILE.bit_length()
+    if kind in ("all", "under", "zero", "negative"):
+        fixed = torch.stack([_t(r) for r in
+                             (lit.numpy()[i][_fixed_point(src.numpy()[i])]
+                              for i in range(rows))])
+        assert not torch.equal(got, fixed)  # the walk's own wrong bytes
+
+
+@pytest.mark.gpu
+def test_resolve_kernels_match_plain(schedule_maps, cuda):
+    """Both kernels against their plain versions on the schedule model's
+    maps, every `resolved` and depth kind, at 1, 2, 8 and 133 rows (more
+    rows than SMs)."""
+    lit, src = schedule_maps
+    exact = KT.tile_depths_plain(src).numpy()
+    for batch in (1, 2, 8, 133):
+        pick = np.arange(batch) % len(src)
+        lt, st = lit[pick].to(cuda), src[pick].to(cuda)
+        for kind in RESOLVED_KINDS:
+            flags = resolved_flags(kind, batch)
+            res = None if flags is None else _t(flags).to(cuda)
+            assert torch.equal(KT.resolve_tiled(lt, st, res),
+                               KT.resolve_tiled_plain(lt, st, res)), (
+                                   batch, kind)
+        for kind in DEPTH_KINDS:
+            dt = _t(depth_variant(kind, exact[pick])).to(cuda)
+            assert torch.equal(KT.resolve_tiled_depth(lt, st, dt),
+                               KT.resolve_tiled_depth_plain(lt, st, dt)), (
+                                   batch, kind)
 
 
 @pytest.mark.gpu

@@ -11,13 +11,16 @@ the kernel modules so that a change of tiling moves the rows with it.
 chip_smoke.py holds the CUDA kernels against their plain versions on
 them; tests/test_torch_matcher.py and tests/test_torch_emit.py hold the
 kernels' tile restatements against the plain versions and the Pallas
-kernels on the CPU. numpy only, besides the two kernel modules and the
+kernels on the CPU. `tiled_resolve_rows`, `resolved_flags` and
+`depth_variant` are the maps, flags and depths of the tiled resolves
+(ops/kernels/tiledres.py), for tests/test_torch_tiledres.py and
+chip_smoke.py's phase 3. numpy only, besides the kernel modules and the
 port's corpus synthesis.
 """
 
 import numpy as np
 
-from tpu_snappy_torch.ops.kernels import emit, matcher
+from tpu_snappy_torch.ops.kernels import emit, matcher, tiledres
 from tpu_snappy_torch.utils import corpus
 
 SEED = 20261016
@@ -227,3 +230,71 @@ def emit_edge_parses(seed: int = SEED + 8):
     cj = np.where(iota[None] < n[:, None], cj, -1).astype(np.int32)
     block = rng.integers(0, 256, (len(rows), N), dtype=np.uint8)
     return cj, off, block, n
+
+
+def tiled_resolve_rows(rows: int, seed: int = SEED + 9):
+    """(lit, src), (rows, 65536) int32 each, for the tiled resolves: the
+    map kinds below (all with src[p] <= p) cycled over the rows, lit random
+    bytes. Every lane pointing at 0; chains that cross every tile, one hop
+    a tile (tiles - 1 hops, at the 4096 and the 1024 tile); each tile's
+    lanes pointing just left of it (at both tiles); the period-1 chain,
+    65535 deep; the identity (at its fixed point); random decreasing
+    pointers; short random hops; sparse 7-hops; pointers into the first
+    64 lanes; random short copies around a 10000-deep chain."""
+    rng = np.random.default_rng(seed)
+    ident = np.arange(N, dtype=np.int64)
+    mixed = ident.copy()
+    copies = rng.choice(np.arange(1, N), 20000, replace=False)
+    mixed[copies] = np.maximum(copies - rng.integers(1, 64, 20000), 0)
+    mixed[40000:50000] = np.arange(40000, 50000) - 1
+    kinds = np.stack([
+        np.zeros(N, np.int64),
+        np.maximum(ident - tiledres.TILE, 0),
+        np.maximum(ident - tiledres.DEPTH_TILE, 0),
+        np.maximum(ident - ident % tiledres.TILE - 1, 0),
+        np.maximum(ident - ident % tiledres.DEPTH_TILE - 3, 0),
+        np.maximum(ident - 1, 0),
+        ident,
+        np.minimum(ident, rng.integers(0, N, N)),
+        np.maximum(ident - rng.integers(1, 300, N), 0),
+        np.where(rng.random(N) < 0.5, ident, np.maximum(ident - 7, 0)),
+        np.minimum(ident, rng.integers(0, 64, N)),
+        mixed]).astype(np.int32)
+    src = kinds[np.arange(rows) % len(kinds)]
+    lit = rng.integers(0, 256, (rows, N)).astype(np.int32)
+    return lit, src
+
+
+#: The `resolved` flags resolve_tiled is held at: none given, every row
+#: flagged (most maps are not at their fixed point), every other row.
+RESOLVED_KINDS = ("none", "all", "alternate")
+
+
+def resolved_flags(kind: str, rows: int):
+    """(rows,) bool flags of a RESOLVED_KINDS kind, or None for "none"."""
+    if kind == "none":
+        return None
+    if kind == "all":
+        return np.ones(rows, bool)
+    return np.arange(rows) % 2 == 0
+
+
+#: The depths resolve_tiled_depth is held at, from each tile's exact local
+#: depth: exact, over- and under-declared, all 0, above the kernel's cap
+#: of 11, negative, and a random mix of all of them.
+DEPTH_KINDS = ("exact", "over", "under", "zero", "above", "negative",
+               "mixed")
+
+
+def depth_variant(kind: str, exact: np.ndarray, seed: int = SEED + 10):
+    """(rows, 64) int32 depths of a DEPTH_KINDS kind, from `exact` (what
+    tiledres.tile_depths_plain gives)."""
+    rng = np.random.default_rng(seed)
+    shape = exact.shape
+    return {"exact": exact,
+            "over": exact + rng.integers(1, 6, shape),
+            "under": np.maximum(exact - rng.integers(1, 4, shape), 0),
+            "zero": np.zeros(shape),
+            "above": rng.integers(12, 40, shape),
+            "negative": rng.integers(-5, 0, shape),
+            "mixed": rng.integers(-2, 15, shape)}[kind].astype(np.int32)

@@ -1,32 +1,27 @@
 // resolve_tiled: out[p] = lit[fix(src)[p]], fix = src iterated to its
 // fixed point, for maps with src[p] <= p (copy sources lie behind);
-// resolve_tiled_depth, the same walk with a given number of rounds a tile;
-// and resolve_tiled_flag, the walk steered by per-lane root flags.
+// resolve_tiled_depth, the same tile walk with a given number of rounds a
+// tile; and resolve_tiled_flag, the walk steered by per-lane root flags.
 //
 // Replaces tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (the "fori"
 // variant, with its `resolved` flag), tiledres.py:resolve_tiled_depth and
 // tiledres.py:resolve_tiled_flag.
-// The TPU kernels walk tiles left to right; in each they run pointer
-// doubling inside the tile with one-hot MXU gathers, then absorb one byte
-// gather from a plane that holds final bytes for every earlier tile. These
-// kernels keep that algorithm, because it is what bounds the work for any
-// src with src[p] <= p (a per-lane chase of the period-1 chain would take
-// 65535 hops): one block per row keeps the tile's pointers in shared
-// memory, doubles them with plain indexed loads, and then reads each
-// lane's byte from lit (a position at or right of the tile base, whose
-// byte is still its literal) or from the row's own output (an earlier
-// tile, already final).
 //
-// How many doubling rounds a tile runs:
+// What the TPU computes. Its kernels walk a row's tiles left to right. In
+// tile t (base b) they run pointer doubling inside the tile (a lane whose
+// pointer v lies in the tile moves to s[v]), then absorb: out[p] = lit[v]
+// where the lane's final pointer v >= b (the byte plane still holds
+// literals there), else out[v] (an earlier tile, already final). How many
+// doubling rounds a tile runs:
 //   * resolve_tiled (tile 4096): at most 13 (bit_length(4096)), stopping
 //     after the first round that moves nothing; none at all in a row whose
 //     `resolved` flag is set (the caller's proof that src is at its fixed
-//     point: the absorb alone is then exact);
-//   * resolve_tiled_depth (tile 1024): exactly min(depths[t], 11) rounds,
-//     whether or not the tile is then at its local fixed point, so an
-//     under-declared depth gives the TPU's own wrong bytes (the framed
-//     chunk CRC rejects them). A round that moves nothing leaves the state
-//     as it is, so the loop may stop there without changing any byte;
+//     point);
+//   * resolve_tiled_depth (tile 1024): exactly min(max(depths[t], 0), 11)
+//     rounds, whether or not the tile is then at its local fixed point, so
+//     an under-declared depth gives the TPU's own wrong bytes (the framed
+//     chunk CRC rejects them). A round that moves nothing changes nothing,
+//     so the loop may stop there;
 //   * resolve_tiled_flag (tile 4096): a flag f[q] ("my pointer is at a
 //     root") rides beside each pointer, and a round moves both, s2 = s[d]
 //     and f2 = f[d], from one snapshot. The tile runs rounds while some
@@ -37,22 +32,311 @@
 //     lane) stops a tile early and gives the TPU's own wrong bytes, and
 //     all-zero flags run all 13 rounds and stay exact.
 //
-// Bound on this card: the serial walk. 16 (or 64) tiles x rounds x two
-// barriers per row, with one block per row, so a small batch leaves most
-// SMs idle; the traffic (lit, src, out: 768 KB per row) is small.
+// resolve_tiled and resolve_tiled_depth keep the walk's bytes but not its
+// order: one block of 1024 threads a row, the row's map in shared memory
+// as uint16 (128 KB; 0 <= src[p] <= p < 65536, so 16 bits are exact), then
+// its literal bytes (64 KB; lit holds bytes), 192 KB of dynamic shared
+// memory, and no step that waits for the tile before it:
+//   1. load the map with 16-byte loads, the whole row at once, and
+//      prefetch lit into L2 behind it;
+//   2. local rounds in 1024-tiles, every tile at once, each on one warp
+//      with no barrier shared with another tile, synchronous (every lane
+//      reads, a warp vote, every lane writes): resolve_tiled_depth runs
+//      exactly the declared count, since an under-declared depth must
+//      leave the TPU's state after exactly that many rounds;
+//      resolve_tiled runs them until nothing moves (see below);
+//   3. the absorbs, as merges: a lane is terminal when its pointer v lies
+//      at or right of its tile base (the walk gives it lit[v]); any other
+//      lane's pointer lies in an earlier tile, where the walk gives it
+//      out[v]. Level k merges pairs of blocks of 2^k tiles: a lane of the
+//      right block whose pointer lies in the left one takes that lane's
+//      pointer unless it is terminal. log2(tiles) levels (6 for 64 tiles,
+//      4 for 16), a block barrier each, instead of `tiles` serial
+//      absorbs; then every non-terminal lane points at a terminal lane,
+//      where the walk's recursion out[p] = out[v] ends;
+//   4. stage lit's bytes from L2 into shared memory, and write out[p] =
+//      lit[s[p]] for a terminal lane, lit[s[s[p]]] for another, as int32,
+//      with 16-byte stores.
+// resolve_tiled's route. A `resolved` row runs the walk's absorbs alone:
+// merges of 4096-tiles on src. In any other row the walk's rounds (at
+// most 13 a 4096-tile, stopping when none moves) always reach each
+// tile's local fixed point (a chain inside a tile has fewer than 4096
+// hops, and 12 rounds cover 4096), and the absorbs compose those points:
+// the row's bytes are lit[fix(src)], whatever the tile. So the kernel
+// takes the cheaper route to the same bytes: rounds until nothing moves in
+// 1024-tiles (at most 11), then merges of 1024-tiles that follow every
+// pointer to its root, out[p] = lit[s[p]].
+// Bound on this card: at a 128-row wave, the row's bytes (lit, src, out:
+// 768 KB a row) for the loads and stores, which the L2 prefetch overlaps
+// with the merges; at the server's 8-row waves, the instructions of the
+// rounds and the merges (each level tests every lane of its right blocks;
+// few move), which keep each thread's pointers in registers and unroll
+// the levels so that block tests are constants.
+//
+// resolve_tiled_flag keeps the tile walk (its flags steer each tile's loop
+// on the state the earlier tiles left): one block per row, the tile's
+// pointers and flags in static shared memory, then the absorb from the
+// row's earlier, final tiles.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kN = snk::kBlock;
+constexpr int kTailTile = 4096;
+constexpr int kHintTile = 1024;
+constexpr int kTailShift = 12;
+constexpr int kHintShift = 10;
+// The 1024-tiles each warp runs its rounds in.
+constexpr int kWarpTiles = kN / kHintTile / kWarps;
+// The row's map (uint16), then its literal bytes (uint8).
+constexpr int kSmem = kN * static_cast<int>(sizeof(uint16_t)) + kN;
 
 __host__ __device__ constexpr int bit_length(int v) {
   return v ? 1 + bit_length(v >> 1) : 0;
 }
 
-// Absorb: lanes left of the tile read final bytes of earlier tiles, the
-// others read lit (what the TPU's byte plane still holds there). Ends with
-// a barrier, so the next tile may overwrite s.
+// Rounds that bring a 1024-tile to its local fixed point, the cap of a
+// declared depth.
+constexpr int kMaxLocal = bit_length(kHintTile);
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) {
+  return (static_cast<uint32_t>(lo) & 0xffffu) |
+         (static_cast<uint32_t>(hi) << 16);
+}
+
+// Phase 1: s[p] = src[p] as uint16, 16 bytes a load, eight loads a thread
+// in flight.
+__device__ __forceinline__ void load_map(const int32_t* __restrict__ S,
+                                         uint16_t* s) {
+  const int4* S4 = reinterpret_cast<const int4*>(S);
+  uint2* s4 = reinterpret_cast<uint2*>(s);
+  constexpr int kPer = kN / 4 / kThreads;
+  constexpr int kBatch = 8;
+#pragma unroll 1
+  for (int h = 0; h < kPer; h += kBatch) {
+    int4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      x[j] = __ldcs(S4 + threadIdx.x + (h + j) * kThreads);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      s4[threadIdx.x + (h + j) * kThreads] =
+          make_uint2(pack2(x[j].x, x[j].y), pack2(x[j].z, x[j].w));
+  }
+}
+
+// After phase 1: a prefetch of the row's lit into L2, so that lit crosses
+// from device memory while the rounds and merges run; load_bytes reads it
+// from there before the write.
+__device__ __forceinline__ void prefetch_lit(const int32_t* __restrict__ L) {
+  constexpr int kLines = kN * 4 / 128;  // lit's 128-byte lines
+#pragma unroll
+  for (int k = threadIdx.x; k < kLines; k += kThreads)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(L + 32 * k));
+}
+
+// Before the write: b[p] = lit[p] as a byte (lit holds bytes), 16 bytes a
+// load, from L2 once prefetch_lit has brought the row there.
+__device__ __forceinline__ void load_bytes(const int32_t* __restrict__ L,
+                                           uint8_t* b) {
+  const int4* L4 = reinterpret_cast<const int4*>(L);
+  uint32_t* b4 = reinterpret_cast<uint32_t*>(b);
+  constexpr int kPer = kN / 4 / kThreads;
+  constexpr int kBatch = 8;
+#pragma unroll 1
+  for (int h = 0; h < kPer; h += kBatch) {
+    int4 y[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      y[j] = __ldcs(L4 + threadIdx.x + (h + j) * kThreads);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      b4[threadIdx.x + (h + j) * kThreads] =
+          (static_cast<uint32_t>(y[j].x) & 0xffu) |
+          (static_cast<uint32_t>(y[j].y) & 0xffu) << 8 |
+          (static_cast<uint32_t>(y[j].z) & 0xffu) << 16 |
+          static_cast<uint32_t>(y[j].w) << 24;
+  }
+}
+
+// Phase 2, every 1024-tile at once: this warp's two tiles, one after the
+// other, each with synchronous rounds (every lane reads, a warp vote, every
+// lane writes): min(max(depths[t], 0), 11) of them, or `rounds` in every
+// tile when depths is null. A round that moves nothing ends the tile's
+// loop: it would change nothing. A thread keeps its 16 pairs of lanes in
+// registers across the rounds and writes back the pairs that moved.
+__device__ __forceinline__ void local_rounds(uint16_t* s,
+                                             const int32_t* __restrict__ depths,
+                                             int rounds, int warp, int lane) {
+  constexpr int kPairs = kHintTile / 64;
+  uint32_t* s2 = reinterpret_cast<uint32_t*>(s);
+  for (int t = warp * kWarpTiles; t < (warp + 1) * kWarpTiles; ++t) {
+    const int base = t * kHintTile;
+    const int count =
+        depths != nullptr ? min(max(depths[t], 0), kMaxLocal) : rounds;
+    if (count == 0) continue;
+    uint32_t pr[kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) pr[j] = s2[base / 2 + lane + 32 * j];
+    for (int r = 0; r < count; ++r) {
+      uint32_t nv[kPairs];
+      int moved = 0;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const int v0 = pr[j] & 0xffffu, v1 = pr[j] >> 16;
+        const int w0 = static_cast<unsigned>(v0 - base) < kHintTile ? s[v0]
+                                                                    : v0;
+        const int w1 = static_cast<unsigned>(v1 - base) < kHintTile ? s[v1]
+                                                                    : v1;
+        nv[j] = pack2(w0, w1);
+        moved |= nv[j] != pr[j];
+      }
+      // The vote needs every lane's reads done: the round's snapshot.
+      if (!__any_sync(~0u, moved)) break;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j)
+        if (nv[j] != pr[j]) {
+          s2[base / 2 + lane + 32 * j] = nv[j];
+          pr[j] = nv[j];
+        }
+      __syncwarp();
+    }
+  }
+}
+
+// Phases 3 and 4: the absorbs as merges of tile blocks (2^kShift-lane
+// tiles), then the write. Lane q is terminal when s[q] >= its tile base;
+// every other lane's pointer lies left of its tile. Level k merges pairs
+// of 2^k-lane blocks, k from kShift to 15. Invariant after level k: a
+// non-terminal lane's pointer is a terminal lane or lies left of the
+// lane's 2^(k+1)-lane block. At level k a lane of a right (odd) block
+// whose pointer v lies in the block's left sibling reads s[v]; if v is
+// terminal it keeps v, else it takes s[v], which by the invariant is a
+// terminal lane or lies left of the sibling, the merged block's start.
+// Writers lie in right blocks and read only left ones, so a level needs no
+// order and no atomics; a block barrier ends it. After the last level
+// every non-terminal lane points at a terminal lane, where the walk's
+// recursion out[p] = out[v] ends: out[p] = lit[s[v]], and lit[s[p]] for a
+// terminal lane. With kRoots (every tile at its local fixed point, so a
+// terminal lane points at an in-tile root), a lane takes s[v] whether or
+// not v is terminal: its pointer ends at its root, out[p] = lit[s[p]]. The
+// write reads lit's bytes from shared memory (load_bytes). Quad i =
+// threadIdx.x + 1024 j holds lanes 4 i to 4 i + 3, all in one tile; a
+// thread keeps its 16 quads' pointers in registers throughout and writes
+// back the quads that moved. Levels and quads are unrolled, so that a
+// quad's block, and from 4096-lane blocks up its sibling's start, are
+// constants.
+template <int kShift, bool kRoots>
+__device__ __forceinline__ void merge_and_write(uint16_t* s, uint8_t* b,
+                                                const int32_t* __restrict__ L,
+                                                int32_t* __restrict__ O) {
+  constexpr int kQuads = kN / 4 / kThreads;
+  uint2* s4 = reinterpret_cast<uint2*>(s);
+  const int t4 = 4 * threadIdx.x;  // quad i's first lane is t4 + 4096 j
+  uint2 q[kQuads];
+#pragma unroll
+  for (int j = 0; j < kQuads; ++j) q[j] = s4[threadIdx.x + j * kThreads];
+#pragma unroll
+  for (int k = kShift; k < 16; ++k) {
+#pragma unroll
+    for (int j = 0; j < kQuads; ++j) {
+      // An even block has nothing to read; lo: the left sibling's start.
+      const bool odd = k >= 12 ? (j >> (k - 12) & 1) : (t4 >> k & 1);
+      if (!odd) continue;
+      const int lo = k >= 12 ? (4 * kThreads * j) & ~((2 << k) - 1)
+                             : 4 * kThreads * j + (t4 & ~((2 << k) - 1));
+      int v[4] = {static_cast<int>(q[j].x & 0xffffu),
+                  static_cast<int>(q[j].x >> 16),
+                  static_cast<int>(q[j].y & 0xffffu),
+                  static_cast<int>(q[j].y >> 16)};
+      bool moved = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (static_cast<unsigned>(v[u] - lo) >= (1u << k)) continue;
+        const int w = s[v[u]];
+        if (w != v[u] && (kRoots || w < (v[u] >> kShift << kShift))) {
+          v[u] = w;
+          moved = true;
+        }
+      }
+      if (moved) {
+        q[j] = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+        s4[threadIdx.x + j * kThreads] = q[j];
+      }
+    }
+    __syncthreads();
+  }
+  load_bytes(L, b);
+  __syncthreads();
+  int4* O4 = reinterpret_cast<int4*>(O);
+#pragma unroll
+  for (int j = 0; j < kQuads; ++j) {
+    const int base = (t4 + 4 * kThreads * j) >> kShift << kShift;
+    int t[4] = {static_cast<int>(q[j].x & 0xffffu),
+                static_cast<int>(q[j].x >> 16),
+                static_cast<int>(q[j].y & 0xffffu),
+                static_cast<int>(q[j].y >> 16)};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (!kRoots && t[u] < base) t[u] = s[t[u]];
+    __stcs(O4 + threadIdx.x + j * kThreads,
+           make_int4(b[t[0]], b[t[1]], b[t[2]], b[t[3]]));
+  }
+}
+
+// resolve_tiled. A `resolved` row runs the walk's absorbs alone: merges of
+// 4096-tiles on src. Any other row gets lit[fix(src)] from the walk (its
+// rounds bring each 4096-tile to its local fixed point, and the absorbs
+// compose those), so it takes the same bytes by the shorter route: rounds
+// until nothing moves in 1024-tiles (at most 11: a chain inside one has
+// fewer than 1024 hops, and 10 rounds cover 1024), then merges of
+// 1024-tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+resolve_tail_kernel(const int32_t* __restrict__ lit,
+                    const int32_t* __restrict__ src,
+                    const uint8_t* __restrict__ resolved,
+                    int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* s = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* b = smem + kN * sizeof(uint16_t);
+  const size_t row = static_cast<size_t>(blockIdx.x) * kN;
+  load_map(src + row, s);
+  __syncthreads();
+  prefetch_lit(lit + row);
+  if (resolved != nullptr && resolved[blockIdx.x] != 0) {
+    merge_and_write<kTailShift, false>(s, b, lit + row, out + row);
+  } else {
+    local_rounds(s, nullptr, kMaxLocal, threadIdx.x >> 5, threadIdx.x & 31);
+    __syncthreads();
+    merge_and_write<kHintShift, true>(s, b, lit + row, out + row);
+  }
+}
+
+// resolve_tiled_depth: min(max(depths[row, t], 0), 11) synchronous rounds
+// in 1024-tile t, then merges of 1024-tiles.
+__global__ void __launch_bounds__(kThreads, 1)
+resolve_depth_kernel(const int32_t* __restrict__ lit,
+                     const int32_t* __restrict__ src,
+                     const int32_t* __restrict__ depths,
+                     int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* s = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* b = smem + kN * sizeof(uint16_t);
+  const size_t row = static_cast<size_t>(blockIdx.x) * kN;
+  load_map(src + row, s);
+  __syncthreads();
+  prefetch_lit(lit + row);
+  local_rounds(s, depths + blockIdx.x * (kN / kHintTile), 0,
+               threadIdx.x >> 5, threadIdx.x & 31);
+  __syncthreads();
+  merge_and_write<kHintShift, false>(s, b, lit + row, out + row);
+}
+
+// The flag walk's absorb: lanes left of the tile read final bytes of
+// earlier tiles, the others read lit (what the TPU's byte plane still
+// holds there). Ends with a barrier, so the next tile may overwrite s.
 template <int kTile>
 __device__ __forceinline__ void absorb(const int32_t* s, int base,
                                        const int32_t* L, int32_t* O) {
@@ -63,55 +347,6 @@ __device__ __forceinline__ void absorb(const int32_t* s, int base,
     O[base + q] = v >= base ? L[v] : O[v];
   }
   __syncthreads();
-}
-
-// depths == nullptr: up to bit_length(kTile) rounds a tile, none in a row
-// with resolved[row] set (resolved may be nullptr). Otherwise
-// min(depths[row, t], bit_length(kTile)) rounds in tile t.
-template <int kTile>
-__global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int32_t* __restrict__ lit,
-               const int32_t* __restrict__ src,
-               const uint8_t* __restrict__ resolved,
-               const int32_t* __restrict__ depths, int32_t* out) {
-  constexpr int kPer = kTile / kThreads;
-  constexpr int kMaxLocal = bit_length(kTile);  // in-tile depth < kTile
-  constexpr int kTiles = snk::kBlock / kTile;
-  __shared__ int32_t s[kTile];
-  const size_t row = static_cast<size_t>(blockIdx.x) * snk::kBlock;
-  const int32_t* L = lit + row;
-  const int32_t* S = src + row;
-  int32_t* O = out + row;
-  const bool skip = resolved != nullptr && resolved[blockIdx.x] != 0;
-  for (int t = 0; t < kTiles; ++t) {
-    const int base = t * kTile;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int q = threadIdx.x + j * kThreads;
-      s[q] = S[base + q];
-    }
-    __syncthreads();
-    int rounds = skip ? 0 : kMaxLocal;
-    if (depths != nullptr)
-      rounds = min(max(depths[blockIdx.x * kTiles + t], 0), kMaxLocal);
-    // Local doubling: lanes move to in-tile targets' current pointers.
-    for (int r = 0; r < rounds; ++r) {
-      int nv[kPer];
-      int moved = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int v = s[threadIdx.x + j * kThreads];
-        const int d = v - base;
-        nv[j] = (d >= 0 && d < kTile) ? s[d] : v;
-        moved |= nv[j] != v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[threadIdx.x + j * kThreads] = nv[j];
-      if (!__syncthreads_or(moved)) break;
-    }
-    absorb<kTile>(s, base, L, O);
-  }
 }
 
 // Flag variant at tile kTile: f[q] != 0 says s[q] is a root (a fixed point
@@ -172,32 +407,37 @@ resolve_flag_kernel(const int32_t* __restrict__ lit,
   }
 }
 
-constexpr int kTailTile = 4096;
-constexpr int kHintTile = 1024;
-
 }  // namespace
 
-// lit, src, out: (batch, 65536) int32; resolved: (batch,) bool, or null.
+// lit, src, out: (batch, 65536) int32, src 16-byte aligned; resolved:
+// (batch,) bool, or null.
 SNK_EXPORT int snk_resolve_tiled(const void* lit, const void* src,
                                  const void* resolved, void* out, int batch,
                                  void* stream) {
-  resolve_kernel<kTailTile><<<batch, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      resolve_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  resolve_tail_kernel<<<batch, kThreads, kSmem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
-      static_cast<const uint8_t*>(resolved), nullptr,
-      static_cast<int32_t*>(out));
+      static_cast<const uint8_t*>(resolved), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// lit, src, out: (batch, 65536) int32; depths: (batch, 64) int32.
+// lit, src, out: (batch, 65536) int32, src 16-byte aligned; depths:
+// (batch, 64) int32.
 SNK_EXPORT int snk_resolve_tiled_depth(const void* lit, const void* src,
                                        const void* depths, void* out,
                                        int batch, void* stream) {
-  resolve_kernel<kHintTile><<<batch, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      resolve_depth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  resolve_depth_kernel<<<batch, kThreads, kSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
-      nullptr, static_cast<const int32_t*>(depths),
-      static_cast<int32_t*>(out));
+      static_cast<const int32_t*>(depths), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

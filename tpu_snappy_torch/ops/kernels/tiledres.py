@@ -5,11 +5,22 @@ variant with its `resolved` flag; the "pair", "tri" and "grid" variants
 give the same bytes), tiledres.py:resolve_tiled_dual (two fragments in
 one call, which the batched kernel is already), tiledres.py:
 resolve_tiled_depth and tiledres.py:resolve_tiled_flag. The CUDA kernels
-are csrc/tiledres.cu
-(tiles left to right: pointer doubling in shared memory, then one absorb
-from the row's earlier, final tiles; see its note). `src[p] <= p` must
-hold, as decode guarantees: it is what makes the fixed point exist and the
-tile walk exact.
+are csrc/tiledres.cu; see its note. `src[p] <= p` must hold, as decode
+guarantees: it is what makes the fixed point exist and the tile walk
+exact. `lit` holds bytes (0-255), as decode's literal plane does.
+
+What the TPU computes is a walk over the tiles, left to right: in-tile
+pointer doubling, then an absorb that reads lit at or right of the tile
+base and the row's own final output left of it. resolve_tiled and
+resolve_tiled_depth give the walk's bytes without walking: one block a
+row keeps the row's map in shared memory, runs every 1024-tile's
+doubling rounds at once (exactly the declared count for
+resolve_tiled_depth; until nothing moves for a resolve_tiled row that is
+not flagged `resolved`, whose walk bytes are lit[fix(src)]), and
+replaces the chain of absorbs by log2(tiles) levels that merge pairs of
+tile blocks, each lane taking at most one pointer a level. The absorb's
+recursion out[p] = out[v] (v left of p's tile) is exactly what the
+merges follow to a terminal lane. resolve_tiled_flag keeps the walk.
 
 The plain versions simulate the same tile walk, round for round, so they
 agree with the kernels (and the TPU) also where the walk does not reach
@@ -95,7 +106,8 @@ def resolve_tiled(lit: torch.Tensor, src: torch.Tensor,
     bytes. `resolved` (B,) bool, optional: rows the caller has proven to be
     at their fixed point, which skip every doubling round and run only the
     absorbs. Returns (B, 65536) int32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel (`src` must start 16-byte aligned, as a
+    fresh allocation does)."""
     args = (lit, src) if resolved is None else (lit, src, resolved)
     if _build.on_cpu(*args):
         return resolve_tiled_plain(lit, src, resolved)
@@ -104,6 +116,7 @@ def resolve_tiled(lit: torch.Tensor, src: torch.Tensor,
     _build.require(src, torch.int32, (batch, N), "src")
     if resolved is not None:
         _build.require(resolved, torch.bool, (batch,), "resolved")
+    _build.require_aligned("resolve_tiled", src)
     out = torch.empty_like(lit)
     if batch:
         rc = _build.lib().snk_resolve_tiled(
@@ -154,6 +167,7 @@ def resolve_tiled_dual(lit2: torch.Tensor, src2: torch.Tensor,
     _build.require(src2, torch.int32, (2, N), "src2")
     if resolved2 is not None:
         _build.require(resolved2, torch.bool, (2,), "resolved2")
+    _build.require_aligned("resolve_tiled_dual", src2)
     out = torch.empty_like(lit2)
     rc = _build.lib().snk_resolve_tiled(
         lit2.data_ptr(), src2.data_ptr(),
@@ -202,14 +216,16 @@ def resolve_tiled_depth(lit: torch.Tensor, src: torch.Tensor,
     """Resolve with per-tile round counts: (B, 64) int32 `depths`, one per
     DEPTH_TILE-position tile, each meant to be at least the tile's local
     depth (an under-declared one gives wrong bytes, as on the TPU). lit,
-    src: (B, 65536) int32. Returns (B, 65536) int32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    src: (B, 65536) int32, lit bytes. Returns (B, 65536) int32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (`src`
+    must start 16-byte aligned)."""
     if _build.on_cpu(lit, src, depths):
         return resolve_tiled_depth_plain(lit, src, depths)
     batch = lit.shape[0]
     _build.require(lit, torch.int32, (batch, N), "lit")
     _build.require(src, torch.int32, (batch, N), "src")
     _build.require(depths, torch.int32, (batch, N // DEPTH_TILE), "depths")
+    _build.require_aligned("resolve_tiled_depth", src)
     out = torch.empty_like(lit)
     if batch:
         rc = _build.lib().snk_resolve_tiled_depth(
