@@ -8,10 +8,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
 checkout's kernels named in REDESIGNED (the two matchers, the two
-emissions and the two tiled resolves) beside this one's on every captured
-call, in turns (their outputs must be equal, every tensor), the tiled
-resolves also on each call's first 8 rows and on the period-1 chain, and
-sweeps the tiles of the two scatters and ffill's chunk.
+emissions, the two tiled resolves, doubling_round, place_block and the
+windowed scatter) beside this one's on every captured call, in turns
+(their outputs must be equal, every tensor), with each turn's bound share
+and library ratio, the tiled resolves, doubling_round and place_block
+also on each call's first 8 rows, the tiled resolves on the period-1
+chain, and sweeps the tiles of the two scatters and of place_block's
+windowed scatter and ffill's chunk.
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -47,7 +50,15 @@ Phases, each printing its results; any failure raises (non-zero exit):
    one cell and the top limb at 2^(8 limbs), at three tiles;
    scatter_windowed at wrows 1, 7, 40, 72, 136, 192 and 512 on piece
    starts padded at 65536, rows with no active or no kept dest, a source
-   tile over three output tiles and random dests, at tiles 512 to 8192;
+   tile over three output tiles and random dests, at tiles 512 to 8192,
+   and at limbs 1, 2 and 3 onto out_cells 32768, 65536 and 67584 at tiles
+   512 to 16384; place_block (the windowed scatter at one limb) on the
+   encoder's lanes and on torch_edges.place_edge_rows at 1, 8 and 128
+   rows (non-monotone and duplicated dests, dests over the whole row and
+   negative ones, the clamped last window, the partial last output tile,
+   no kept write, two lanes restarting at the seam); doubling_round at
+   B 1, 8 and 128 with pointers below 0 and at or past 65536 under zero,
+   random and all-one flags;
    ffill at B 2, 126 and 128, widths 57344 and 65536, 1 to 4 payloads,
    masks set only at 0, only at m - 1, only at each chunk's last position,
    empty and full, at every chunk size);
@@ -167,8 +178,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
-                         RESOLVED_KINDS, SEED, depth_variant,
-                         emit_edge_parses, make_data, matcher_edge_rows,
+                         LIMB_WROWS, OUT_CELLS, PLACE_KINDS, RESOLVED_KINDS,
+                         SEED, depth_variant, emit_edge_parses, limb_rows,
+                         make_data, matcher_edge_rows, place_edge_rows,
                          resolved_flags, synthetic_parse, tiled_resolve_rows)
 
 ROUND_TRIP_BYTES = 16 << 20
@@ -272,6 +284,7 @@ def check_kernels(dev) -> None:
     print(f"kernel scatter_win  overflow case: counts {govf.tolist()}, "
           f"max_abs_err={max(errs)}")
     errs += _scatter_windowed_edges(scatter, rng, t)
+    errs += _scatter_windowed_limbs(scatter, t)
     report["scatter_windowed"] = max(errs)
 
     check_tiled_resolves(tiledres, t, report)
@@ -484,6 +497,34 @@ def _scatter_windowed_edges(scatter, rng, t) -> list:
     return errs
 
 
+def _scatter_windowed_limbs(scatter, t) -> list:
+    """Phase 3, the windowed scatter at limbs 1, 2 and 3 onto out_cells
+    32768, 65536 and 67584 (torch_edges.limb_rows: near-monotone rows
+    with drops and summed pairs, random dests that overflow, a tile over
+    its window and tiles in the clamped last window), at 3 rows and tiled
+    to 128, at the rule's tile and at tiles of 512 to 16384 cells. Returns
+    the differences."""
+    errs = []
+    for limbs in (1, 2, 3):
+        wrows = LIMB_WROWS[limbs]
+        for cells in OUT_CELLS:
+            d, v = limb_rows(limbs, cells)
+            for dd, vv in ((d, v), (np.tile(d, (43, 1))[:128],
+                                    np.tile(v, (43, 1))[:128])):
+                dt, vt = t(dd), t(vv)
+                want = scatter.scatter_windowed_plain(
+                    dt, vt, wrows, limbs=limbs, out_cells=cells)
+                for tile in (None, 512, 2048, 4096, 8192, 16384):
+                    got = scatter.scatter_windowed(
+                        dt, vt, wrows, tile, limbs=limbs, out_cells=cells)
+                    errs += [_exact(g, w) for g, w in zip(got, want)]
+            print(f"kernel scatter_win  limbs={limbs} out_cells={cells} "
+                  f"wrows={wrows} (near-monotone, overflowing, clamped; B 3 "
+                  f"and 128; tiles 512-16384): max_abs_err={max(errs)} "
+                  f"(drops {want[1].tolist()[:3]})")
+    return errs
+
+
 def _matcher_rows(rng):
     """Phase 3's encoder rows: a full row whose last 68 bytes repeat its
     first 68 (the matcher's wrap), period-17 text, an `ab` ladder with
@@ -639,9 +680,28 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
     err = max(_exact(got, want), _exact(govf, wovf))
     if govf.tolist() != [0] * (BATCH - 1) + [1] or int(got[-1, 40000]):
         raise AssertionError(f"place_block window count {govf.tolist()}")
-    report["place_block"] = err
     print(f"kernel place        B={BATCH} (encoder lanes, one broken tile): "
           f"max_abs_err={err}, ovf {govf.tolist()}")
+    # place_block's adversarial rows (torch_edges.place_edge_rows, the
+    # PLACE_KINDS cycled over the rows): non-monotone tiles, summed
+    # duplicates, random dests over the row and past its ends (negatives
+    # among them), tiles in the clamped last window and the partial last
+    # output tile, a row with no kept write, two lanes restarting at the
+    # seam; 1, 8 and 128 rows of 65536 sources and 8 of 131072, onto 528
+    # and 40 output rows.
+    errs = [err]
+    for b, m in ((1, N), (8, N), (128, N), (8, 2 * N)):
+        d, v = place_edge_rows(b, m)
+        for out_rows in (rows, 40):
+            dt = t(np.minimum(d, out_rows * 128 + 5))
+            vt = t(v)
+            got, govf = place.place_block(dt, vt, out_rows)
+            want, wovf = place.place_block_plain(dt, vt, out_rows)
+            errs += [_exact(got, want), _exact(govf, wovf)]
+    report["place_block"] = max(errs)
+    print(f"kernel place        edge rows {PLACE_KINDS} at B 1/8/128 (M "
+          f"65536) and B 8 (M 131072), out_rows {rows} and 40: "
+          f"max_abs_err={max(errs)} (drops {wovf.tolist()})")
 
     # scatter_block: limbs 1-3, out_cells 128 to 67584, M 1024 to 65536,
     # drops at out_cells and below 0, summed duplicates, every source on
@@ -714,7 +774,10 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
           f"max_abs_err={max(errs)}")
 
     # doubling_round: from zero, random and all-stable flags, 17 chained
-    # rounds (the period-1 chain turns stable in the 17th).
+    # rounds (the period-1 chain turns stable in the 17th); then the maps
+    # tiled to 128 rows with pointers below 0 and at or past 65536 (each
+    # reads 0) at B 1, 8 and 128, three chained rounds from each kind of
+    # flags.
     errs = []
     part = t((rng.random((BATCH, doubling.TILES)) < 0.4).astype(np.int32))
     for stable in (torch.zeros_like(part), part, torch.ones_like(part)):
@@ -724,9 +787,25 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
             want = doubling.doubling_round_plain(s, stable)
             errs += [_exact(g, w) for g, w in zip(got, want)]
             s, stable = got
+    wide = src.repeat(16, 1).cpu().numpy()
+    outside = rng.random(wide.shape) < 0.05
+    wide[outside] = rng.choice([-1, -7, -(1 << 31), N, N + 1, 70000,
+                                (1 << 31) - 1], int(outside.sum()))
+    wide[3, 2048:4096] = rng.integers(N, 1 << 20, 2048)  # two tiles out
+    part = (rng.random((128, doubling.TILES)) < 0.4).astype(np.int32)
+    for b in (1, BATCH, 128):
+        for flags in (np.zeros_like(part), part, np.ones_like(part)):
+            s, stable = t(wide[:b]), t(flags[:b])
+            for _ in range(3):
+                got = doubling.doubling_round(s, stable)
+                want = doubling.doubling_round_plain(s, stable)
+                errs += [_exact(g, w) for g, w in zip(got, want)]
+                s, stable = got
     report["doubling_round"] = max(errs)
     print(f"kernel doubling_round B={BATCH} (flags zero, partly stable, all "
-          f"stable; 17 chained rounds): max_abs_err={max(errs)}")
+          f"stable; 17 chained rounds) and B 1/8/128 with pointers outside "
+          f"[0, 65536) (3 chained rounds a kind of flags): "
+          f"max_abs_err={max(errs)}")
 
     # resolve_block: against the plain version (synchronous doubling to
     # the fixed point), which the kernel's in-place doubling must meet.
@@ -1458,12 +1537,17 @@ def _extreme(pick, values: list):
 
 
 #: The kernels whose earlier design `--parent` times beside this one.
+#: scatter_windowed's kernels now also serve place_block (templated on
+#: the limb count), so its own calls are timed against the parent's too.
 REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
-              "emit_block", "resolve_tiled", "resolve_tiled_depth")
+              "emit_block", "resolve_tiled", "resolve_tiled_depth",
+              "doubling_round", "place_block", "scatter_windowed")
 #: The REDESIGNED kernels `--parent` also times on each captured call's
 #: first SERVER_ROWS rows: the server's wave, where a serial walk's latency
-#: does not shrink with the batch.
-ROW_BOUND = ("resolve_tiled", "resolve_tiled_depth")
+#: does not shrink with the batch, and where a grid of few rows fills less
+#: of the card.
+FIRST_ROWS = ("resolve_tiled", "resolve_tiled_depth", "doubling_round",
+              "place_block")
 SERVER_ROWS = 8
 
 
@@ -1484,11 +1568,10 @@ def _parent_kernels(parent: str) -> dict:
     module = importlib.util.module_from_spec(spec)
     sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
-    mods = {"matcher_block_packed": "matcher", "matcher_block": "matcher",
-            "emit_block_single": "emit", "emit_block": "emit",
-            "resolve_tiled": "tiledres", "resolve_tiled_depth": "tiledres"}
+    kernels = _kernel_modules()
     return {name: getattr(importlib.import_module(
-        f"parent_port.ops.kernels.{m}"), name) for name, m in mods.items()}
+        kernels[name].__name__.replace("tpu_snappy_torch", "parent_port")),
+        name) for name in REDESIGNED}
 
 
 def _first_rows(args, kw: dict, n: int):
@@ -1498,27 +1581,57 @@ def _first_rows(args, kw: dict, n: int):
     return tuple(map(cut, args)), {k: cut(v) for k, v in kw.items()}
 
 
-def _in_turns(dev, old, new, args, kw) -> str:
+def _in_turns(dev, old, new, args, kw, bound_ms: float,
+              library_graph_ms) -> str:
     """The parent's and this checkout's wrapper on one call, in turns
-    (parent, this, this, parent): ms, graph_ms and host_ms of each turn."""
+    (parent, this, this, parent): ms, graph_ms and host_ms of each turn,
+    and its bound share (bound / graph_ms) and library ratio (graph_ms /
+    the library call's graph_ms, where there is one)."""
     turns = []
     for label, fn in (("parent", old), ("this", new), ("this", new),
                       ("parent", old)):
         ms, graph_ms = _both(lambda: fn(*args, **kw), dev)
         host_ms = _host_ms(lambda: fn(*args, **kw), dev)
+        timed = isinstance(graph_ms, float) and graph_ms > 0
+        share = bound_ms / graph_ms if timed else None
+        ratio = (graph_ms / library_graph_ms
+                 if timed and isinstance(library_graph_ms, float) else None)
         turns.append(f"{label} {ms} ms (graph_ms {graph_ms}, host_ms "
-                     f"{host_ms})")
+                     f"{host_ms}, bound share {share}, library ratio "
+                     f"{ratio})")
     return "; ".join(turns)
+
+
+def _kernel_split(fn, reps: int = 20) -> str:
+    """Device microseconds a call of each kernel (and memset) a wrapper
+    launches: torch.profiler's CUDA activity over `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if e.device_time_total:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            parts.append(f"{name.replace('void ', '').strip()} "
+                         f"{e.device_time_total / reps} us")
+    return "; ".join(parts)
 
 
 def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
     """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
-    this one on every captured main-path call (the ROW_BOUND kernels also
+    this one on every captured main-path call (the FIRST_ROWS kernels also
     on its first SERVER_ROWS rows), timed in turns (parent, this, this,
-    parent), each turn giving ms (wrapper included), graph_ms (device only)
-    and host_ms (the wrapper's host cost); the two outputs (every tensor of
-    them: scatter_windowed's drop counts too) must be equal. Then phase 9's
-    worst case for both trees: the ROW_BOUND kernels on the period-1
+    parent), each turn giving ms (wrapper included), graph_ms (device
+    only), host_ms (the wrapper's host cost), bound share and library
+    ratio, then the device time of each kernel (and memset) each tree's
+    wrapper launches (torch.profiler); the two outputs (every tensor of
+    them: the drop counts and flags too) must be equal. Then phase 9's
+    worst case for both trees: the tiled resolves on the period-1
     chain."""
     old = _parent_kernels(parent)
     kernels = _kernel_modules()
@@ -1527,39 +1640,54 @@ def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
             continue
         new = getattr(kernels[name], name)
         calls = [("", args, kw)]
-        if name in ROW_BOUND and args[0].shape[0] > SERVER_ROWS:
+        if name in FIRST_ROWS and args[0].shape[0] > SERVER_ROWS:
             calls.append((f", its first {SERVER_ROWS} rows",
                           *_first_rows(args, kw, SERVER_ROWS)))
         for part, a, k in calls:
-            was, now = _tensors(old[name](*a, **k)), _tensors(new(*a, **k))
+            outs = new(*a, **k)
+            was, now = _tensors(old[name](*a, **k)), _tensors(outs)
             if len(was) != len(now) or any(_exact(x, y)
                                            for x, y in zip(was, now)):
                 raise AssertionError(f"{name}: the parent's output differs")
             cut = tuple((tuple(x.shape), str(x.dtype))
                         for x in _tensors((a, k)))
+            bound_ms, _ = _bound(name, (*a, *k.values()), outs)
+            turns = _in_turns(dev, old[name], new, a, k, bound_ms,
+                              _library_ms(name, a, dev)[1])
             print(f"parent against this: {name} in {stage}{part} {cut} "
-                  f"{scalars}: {_in_turns(dev, old[name], new, a, k)} "
-                  f"[{card}]")
+                  f"{scalars}: bound {bound_ms} ms; {turns} [{card}]")
+            print(f"  kernels a call, parent: "
+                  f"{_kernel_split(lambda: old[name](*a, **k))}; this: "
+                  f"{_kernel_split(lambda: new(*a, **k))} [{card}]")
     lit, chain, deps = _chain_case(dev, captured)
     for name, a in (("resolve_tiled", (lit, chain)),
                     ("resolve_tiled_depth", (lit, chain, deps))):
         new = getattr(kernels[name], name)
-        if _exact(old[name](*a), new(*a)):
+        outs = new(*a)
+        if _exact(old[name](*a), outs):
             raise AssertionError(f"{name}: the parent's output differs")
+        bound_ms, _ = _bound(name, a, outs)
         print(f"parent against this: {name} {tuple(chain.shape)} on the "
-              f"period-1 chain: {_in_turns(dev, old[name], new, a, {})} "
+              f"period-1 chain: "
+              f"{_in_turns(dev, old[name], new, a, {}, bound_ms, None)} "
               f"[{card}]")
 
 
 def tile_sweep(dev, captured: dict, card: str) -> None:
     """With `--parent DIR`, the measurements behind the tile and chunk
     rules: scatter_block's captured calls at 1 to 66 tiles a row,
-    scatter_windowed's at tiles of 512 to 16384 cells and ffill's at
-    every chunk size (each rule's choice among them), device only
-    (graph_ms), each output equal to the wrapper's."""
-    from tpu_snappy_torch.ops.kernels import ffill, scatter
+    scatter_windowed's at tiles of 512 to 16384 cells, place_block's (the
+    windowed scatter at one limb) at tiles of 1024 to 16384 cells, and
+    ffill's at every chunk size (each rule's choice among them), device
+    only (graph_ms), each output equal to the wrapper's."""
+    from tpu_snappy_torch.ops.kernels import ffill, place, scatter
 
     for (name, stage, shapes, scalars), (args, kw) in captured.items():
+        if name not in ("scatter_block", "scatter_windowed", "place_block",
+                        "ffill"):
+            continue
+        kern = getattr(_kernel_modules()[name], name)
+        want = _tensors(kern(*args, **kw))
         if name == "scatter_block":
             dest, values, limbs, cells = args
             rule = scatter.block_tile(cells, dest.shape[1], limbs,
@@ -1571,17 +1699,23 @@ def tile_sweep(dev, captured: dict, card: str) -> None:
                      if c * limbs * 4 <= scatter._build.SMEM_BYTES]
             key = "tile"
         elif name == "scatter_windowed":
-            rule = scatter.windowed_tile(args[0].shape[0])
+            rule = scatter.windowed_tile(args[0].shape[0],
+                                         kw.get("out_cells", N))
             tiles = [512, 1024, 2048, 4096, 8192, 16384]
             key = "tile"
-        elif name == "ffill":
+        elif name == "place_block":
+            dest, values, out_rows = args
+            cells = out_rows * place.LO
+            rule = scatter.windowed_tile(dest.shape[0], cells)
+            tiles = [1024, 2048, 4096, 8192, 16384]
+            key = "tile"
+            kern = functools.partial(scatter.scatter_windowed, wrows=place.W,
+                                     limbs=place.LIMBS, out_cells=cells)
+            args, kw = (dest, values), {}
+        else:
             rule = ffill.fill_chunk(*args[0].shape)
             tiles = list(ffill.CHUNKS)
             key = "chunk"
-        else:
-            continue
-        kern = getattr(_kernel_modules()[name], name)
-        want = _tensors(kern(*args, **kw))
         res = []
         for size in tiles:
             fn = functools.partial(kern, *args, **kw, **{key: size})

@@ -7,8 +7,11 @@ equality against tpu_snappy/ops/pallas/{localround,doubling,resolve}.py in
 interpret mode on test_torch_tiledres.py's maps (random back hops, tile
 straddles, the period-1 chain, a depth-hint straddle, a map at its fixed
 point, sparse 7-hops) and on tests/test_pallas.py's resolve maps
-(identity, and random back hops around a depth-10000 chain). The `gpu`
-tests hold the CUDA kernels against the plain versions on the card.
+(identity, and random back hops around a depth-10000 chain), and
+doubling_round on a map with pointers outside [0, 65536) (each reads 0).
+With the launch stubbed, doubling_round's CUDA path must refuse a
+misaligned map or flags. The `gpu` tests hold the CUDA kernels against
+the plain versions on the card.
 """
 
 import numpy as np
@@ -106,6 +109,57 @@ def test_doubling_round_plain_matches_pallas(maps, kind):
         assert 0 < got_st.sum() < got_st.size
 
 
+def _outside_map():
+    """A map with pointers below 0 and at or past 65536 (each reads 0, as
+    the TPU's one-hot finds no row there), table entries outside the map
+    among the targets, and a tile whose every pointer lies outside."""
+    rng = np.random.default_rng(56)
+    s = np.maximum(np.arange(N) - rng.integers(1, 300, N), 0)
+    picks = rng.choice(N, 4000, replace=False)
+    s[picks] = rng.choice([-1, -5, -(1 << 31), N, N + 1, 70000,
+                           (1 << 31) - 1], 4000)
+    s[KD.TILE_SIZE:2 * KD.TILE_SIZE] = rng.integers(N, 1 << 20,
+                                                    KD.TILE_SIZE)
+    return s.astype(np.int32)
+
+
+def test_doubling_round_reads_zero_outside_the_map():
+    s = _outside_map()
+    stable = np.zeros(KD.TILES, np.int32)
+    stable[5] = 1
+    got, got_st = KD.doubling_round(_t(s[None]), _t(stable[None]))
+    want, want_st = PD.doubling_round(jnp.asarray(s), jnp.asarray(stable))
+    assert (got[0].numpy() == np.asarray(want)).all()
+    assert (got_st[0].numpy() == np.asarray(want_st)).all()
+    outside = (s < 0) | (s >= N)
+    tile5 = np.arange(N) // KD.TILE_SIZE == 5
+    assert (got[0].numpy()[outside & ~tile5] == 0).all()
+    assert int(got_st[0, 1]) == 0 and int(got_st[0, 5]) == 1
+
+
+def test_doubling_round_refuses_misaligned_maps(monkeypatch):
+    """The kernel loads and stores 16 bytes a thread: a map or flags that
+    do not start on a 16-byte boundary are refused before any launch (the
+    CUDA path's checks, run on CPU tensors with the launch stubbed)."""
+    def no_launch():
+        raise AssertionError("launched")
+
+    def shifted(x):
+        y = torch.zeros(x.numel() + 4, dtype=x.dtype)[1:1 + x.numel()]
+        return y.view(x.shape)
+
+    monkeypatch.setattr(KD._build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(KD._build, "lib", no_launch)
+    s = torch.zeros((2, N), dtype=torch.int32)
+    st = torch.zeros((2, KD.TILES), dtype=torch.int32)
+    with pytest.raises(AssertionError, match="launched"):
+        KD.doubling_round(s, st)
+    for args in ((shifted(s), st), (s, shifted(st))):
+        assert args[0].data_ptr() % 16 or args[1].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            KD.doubling_round(*args)
+
+
 def test_doubling_rounds_converge(maps):
     """resolve="stable"'s loop: rounds until every tile is stable, at most
     16, give the fixed point on every map (the period-1 chain needs all
@@ -145,7 +199,11 @@ def test_doubling_kernels_match_plain(maps, cuda):
         assert torch.equal(nxt, KL.local_round_plain(s))
         s = nxt
     flags = _t((rng.random((len(src), KD.TILES)) < 0.4).astype(np.int32))
+    out = _t(np.tile(_outside_map(), (len(src), 1))).to(cuda)
     for stable in (torch.zeros_like(flags), flags, torch.ones_like(flags)):
+        got = KD.doubling_round(out, stable.to(cuda))
+        want = KD.doubling_round_plain(out, stable.to(cuda))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
         s, stab = st, stable.to(cuda)
         for _ in range(17):
             got = KD.doubling_round(s, stab)

@@ -36,6 +36,7 @@ from tpu_snappy_torch.ops.kernels import scatter as KS
 from tpu_snappy_torch.ops.kernels import tiledres as KT
 from tpu_snappy_torch.ops.kernels import windows as KW
 
+from torch_edges import LIMB_WROWS, OUT_CELLS, limb_rows
 from torch_threads import share_cores
 
 share_cores()
@@ -346,6 +347,92 @@ def test_scatter_windowed_refuses_bad_tiles():
             KS.scatter_windowed(d, d, tile=tile)
     out, ovf = KS.scatter_windowed(d, d, tile=16384)
     assert not out.any() and int(ovf[0]) == 0
+
+
+@pytest.mark.parametrize("cells", OUT_CELLS)
+@pytest.mark.parametrize("limbs", [1, 2, 3])
+def test_scatter_windowed_limbs_out_cells_match_pallas(limbs, cells):
+    """scatter_windowed's `limbs` and `out_cells` (scatter.py:176-178):
+    the plain version equals the Pallas kernel, drop counts included."""
+    wrows = LIMB_WROWS[limbs]
+    dest, vals = limb_rows(limbs, cells)
+    out, ovf = KS.scatter_windowed(_t(dest), _t(vals), wrows, limbs=limbs,
+                                   out_cells=cells)
+    assert out.shape == (3, cells)
+    for row in range(len(dest)):
+        want, wovf = PS.scatter_windowed(jnp.asarray(dest[row]),
+                                         jnp.asarray(vals[row]), limbs,
+                                         cells, wrows=wrows)
+        assert (out[row].numpy() == np.asarray(want)).all(), row
+        assert int(ovf[row]) == int(wovf), row
+    assert int(ovf[0]) == 0 and int(ovf[1]) > 0 and int(ovf[2]) == 1
+    assert int(out[2, 0]) == vals[2, 0] and out[2, -128 * wrows:].any()
+
+
+def test_scatter_windowed_refuses_bad_limbs_and_cells():
+    """out_cells not a multiple of 128, below 128 * wrows or at 2^30, and
+    limbs outside 1-3, refused by the wrapper and the plain version; the
+    least output (128 * wrows cells) is taken."""
+    d = torch.full((1, 1024), 5, dtype=torch.int32)
+    for fn in (KS.scatter_windowed, KS.scatter_windowed_plain):
+        for cells in (65600, 128 * 191, 1 << 30, 0):
+            with pytest.raises(ValueError, match="out_cells"):
+                fn(d, d, KS.WROWS, out_cells=cells)
+        for limbs in (0, 4):
+            with pytest.raises(ValueError, match="limbs"):
+                fn(d, d, 32, limbs=limbs, out_cells=4096)
+        out, ovf = fn(d, d, 32, limbs=1, out_cells=4096)
+        assert out.shape == (1, 4096) and int(out[0, 5]) == 5 * 1024
+    with pytest.raises(ValueError, match="tile"):
+        KS.scatter_windowed(d, d, 32, 8192, limbs=1, out_cells=4096)
+
+
+@pytest.mark.parametrize("batch,cells,want", [
+    (128, N, 4096), (128, 32768, 4096), (128, 67584, 4096),
+    (8, 67584, 1024), (1, 67584, 512), (64, 4096, 512), (2, 128 * 32, 512),
+    (128, 256, 256)])
+def test_windowed_tile_counts_out_cells(batch, cells, want):
+    """The tile rule at other out_cells: the grid counts a partial last
+    tile (67584 cells are 16.5 tiles of 4096), and the tile is at most
+    out_cells; every limb count's planes fit shared memory beside the
+    list."""
+    tile = KS.windowed_tile(batch, cells)
+    assert tile == want and tile <= cells
+    assert 3 * tile * 4 + KS._WINDOWED_LIST_BYTES <= 227 * 1024
+
+
+def test_signatures_match_the_sources():
+    """Every C entry point _build declares is exported by one csrc file
+    with that many parameters, and every export is declared."""
+    import re
+    from tpu_snappy_torch.ops.kernels import _build
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r"SNK_EXPORT int (\w+)\(([^)]*)\)",
+                                       src.read_text()):
+            found[name] = len(params.split(","))
+    assert found == {k: len(v) for k, v in _build.SIGNATURES.items()}
+    assert "snk_place" not in found and found["snk_scatter_windowed"] == 12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cells", OUT_CELLS)
+@pytest.mark.parametrize("limbs", [1, 2, 3])
+def test_scatter_windowed_limbs_kernel_matches_plain(cuda, limbs, cells):
+    """The limb-count rows at B 3 and tiled to B 128, at the rule's tile
+    and at tiles of 512 to 16384 cells."""
+    wrows = LIMB_WROWS[limbs]
+    dest, vals = limb_rows(limbs, cells)
+    for d, v in ((dest, vals), (np.tile(dest, (43, 1))[:128],
+                                np.tile(vals, (43, 1))[:128])):
+        dt, vt = _t(d).to(cuda), _t(v).to(cuda)
+        want = KS.scatter_windowed_plain(dt, vt, wrows, limbs=limbs,
+                                         out_cells=cells)
+        for tile in (None, 512, 2048, 4096, 8192, 16384):
+            got = KS.scatter_windowed(dt, vt, wrows, tile, limbs=limbs,
+                                      out_cells=cells)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                d.shape, tile)
 
 
 @pytest.mark.gpu

@@ -4,7 +4,14 @@ scatter_block) against the Pallas kernels in interpret mode.
 place_block's plain version (the CPU path) must equal the Pallas
 place_block on emission-shaped destinations, on the encoder's own main
 lane, and on a tile that breaks the window contract (counted once and
-dropped), as tests/test_pallas.py:97-126 runs it. scatter_block's plain
+dropped), as tests/test_pallas.py:97-126 runs it, and on every row of
+torch_edges.place_edge_rows (chip_smoke.py's phase 3 cases). On the card
+place_block runs the windowed scatter at one limb: the identity
+place_block_plain(d, v, r) == scatter_windowed_plain(d, v, 32, limbs=1,
+out_cells=128 r) is held on the encoder's lanes and on those rows, and
+with the launch stubbed, place_block's CUDA path must call the windowed
+scatter's entry point at one limb and refuse misaligned tensors first.
+scatter_block's plain
 version must equal the Pallas scatter_block on permutations with dropped
 writes, at limbs 1-3, on a sparse scatter, on summed duplicates, and on
 the encoder's 2048 overflow entries, on every source onto one cell at
@@ -32,6 +39,7 @@ from tpu_snappy_torch.ops.kernels import place as KP
 from tpu_snappy_torch.ops.kernels import scatter as KS
 
 from test_torch_emit import parse  # noqa: F401 (fixture)
+from torch_edges import PLACE_KINDS, place_edge_rows
 
 from torch_threads import share_cores
 
@@ -93,6 +101,101 @@ def test_place_plain_matches_pallas_on_encoder_lane(parse):  # noqa: F811
                                 jnp.asarray(vals[0].numpy()), OUT_ROWS)
     assert (out[0].numpy() == np.asarray(want)).all()
     assert int(ovf[0]) == int(wovf) == 0
+
+
+def _same_as_windowed(dest, vals, out_rows):
+    """place_block's CPU result, checked against the windowed scatter's
+    plain version at one limb (the kernels place_block runs on the
+    card)."""
+    out, ovf = KP.place_block(dest, vals, out_rows)
+    wout, wovf = KS.scatter_windowed_plain(dest, vals, KP.W, limbs=1,
+                                           out_cells=out_rows * KP.LO)
+    assert torch.equal(out, wout) and torch.equal(ovf, wovf)
+    return out, ovf
+
+
+def test_place_is_the_windowed_scatter_on_encoder_lanes(parse):  # noqa: F811
+    """The identity on every row of the encoder's main lanes, and on two
+    lanes side by side (placement "kernel")."""
+    pm, _ = _encoder_lanes(parse)
+    out, ovf = _same_as_windowed(pm >> 8, pm & 0xFF, OUT_ROWS)
+    assert not ovf.any() and out.any()
+    pair = torch.cat([pm, pm.flip(0)], dim=-1)
+    _, ovf = _same_as_windowed(pair >> 8, pair & 0xFF, OUT_ROWS)
+    assert not ovf.any()
+
+
+@pytest.mark.parametrize("kind", PLACE_KINDS)
+def test_place_edge_rows_match_windowed_and_pallas(kind):
+    """Each kind of phase 3's adversarial rows: the identity at 528 rows
+    (the encoder's) and 40, and the Pallas place_block on the row (its
+    contract takes a negative destination as active: it gets the port's
+    drop rule explicitly, as SENT)."""
+    row = PLACE_KINDS.index(kind)
+    dest, vals = place_edge_rows(len(PLACE_KINDS), 16 * 1024)
+    d, v = _t(dest[row:row + 1]), _t(vals[row:row + 1])
+    out, ovf = _same_as_windowed(d, v, OUT_ROWS)
+    small = np.minimum(dest[row:row + 1], 40 * 128 + 5)
+    _same_as_windowed(_t(small), v, 40)
+    pd = np.where(dest[row] < 0, PP.SENT, dest[row])
+    want, wovf = PP.place_block(jnp.asarray(pd), jnp.asarray(vals[row]),
+                                OUT_ROWS)
+    assert (out[0].numpy() == np.asarray(want)).all()
+    assert int(ovf[0]) == int(wovf)
+    assert (int(ovf[0]) > 0) == (kind == "random")
+    assert bool(out.any()) == (kind != "empty")
+
+
+def _launch_stubbed(monkeypatch):
+    """place_block's CUDA path on CPU tensors with the library stubbed:
+    returns the list of (entry point, arguments) it calls."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(KP._build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(KP._build, "lib", Lib)
+    monkeypatch.setattr(KP._build, "stream", lambda: 0)
+    return calls
+
+
+def test_place_launches_the_windowed_scatter(monkeypatch):
+    """place_block's one launch is snk_scatter_windowed at one limb,
+    wrows 32 and out_rows * 128 cells; place_block counts it, and
+    scatter_windowed (whose count the decode paths read) does not."""
+    calls = _launch_stubbed(monkeypatch)
+    d = torch.zeros((2, 4096), dtype=torch.int32)
+    before = (KP.place_block.launches, KS.scatter_windowed.launches)
+    out, ovf = KP.place_block(d, d, 136)
+    assert out.shape == (2, 136 * 128) and ovf.shape == (2,)
+    assert [name for name, _ in calls] == ["snk_scatter_windowed"]
+    m, cells, wrows, tile, limbs, batch = calls[0][1][5:11]
+    assert (m, cells, wrows, limbs, batch) == (4096, 136 * 128, 32, 1, 2)
+    assert tile == KS.windowed_tile(2, 136 * 128)
+    assert (KP.place_block.launches, KS.scatter_windowed.launches) == (
+        before[0] + 1, before[1])
+    assert not hasattr(KP._build, "snk_place")
+    assert "snk_place" not in KP._build.SIGNATURES
+    assert KP.SOURCE == KS.SOURCE
+
+
+def test_place_refuses_misaligned_lanes(monkeypatch):
+    """The windowed kernels load 16 bytes a thread: a lane that does not
+    start on a 16-byte boundary is refused before any launch."""
+    calls = _launch_stubbed(monkeypatch)
+    d = torch.zeros((2, 4096), dtype=torch.int32)
+    y = torch.zeros(d.numel() + 4, dtype=torch.int32)[1:1 + d.numel()]
+    y = y.view(d.shape)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    for args in ((y, d), (d, y)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            KP.place_block(*args, 136)
+    assert not calls
 
 
 def _scatter_cases():
@@ -211,6 +314,21 @@ def test_place_kernel_matches_plain(parse, cuda):  # noqa: F811
     got, govf = KP.place_block(pm >> 8, pm & 0xFF, OUT_ROWS)
     want, wovf = KP.place_block_plain(pm >> 8, pm & 0xFF, OUT_ROWS)
     assert torch.equal(got, want) and torch.equal(govf, wovf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m", [(1, 65536), (8, 65536), (128, 65536),
+                                    (8, 131072), (7, 16384)])
+def test_place_edge_rows_kernel_matches_plain(rows, m, cuda):
+    """Every kind of place_edge_rows (cycled over the rows) at the
+    encoder's 528 output rows and at 40, on the card."""
+    dest, vals = place_edge_rows(rows, m)
+    for out_rows in (OUT_ROWS, 40):
+        d = _t(np.minimum(dest, out_rows * 128 + 5)).to(cuda)
+        v = _t(vals).to(cuda)
+        got = KP.place_block(d, v, out_rows)
+        want = KP.place_block_plain(d, v, out_rows)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), out_rows
 
 
 @pytest.mark.gpu

@@ -14,8 +14,11 @@ kernels' tile restatements against the plain versions and the Pallas
 kernels on the CPU. `tiled_resolve_rows`, `resolved_flags` and
 `depth_variant` are the maps, flags and depths of the tiled resolves
 (ops/kernels/tiledres.py), for tests/test_torch_tiledres.py and
-chip_smoke.py's phase 3. numpy only, besides the kernel modules and the
-port's corpus synthesis.
+chip_smoke.py's phase 3; `place_edge_rows` the adversarial destinations
+of place_block and `limb_rows` those of the windowed scatter at 1-3 limbs
+and other out_cells, for tests/test_torch_place.py, test_torch_kernels.py
+and phase 3. numpy only, besides the kernel modules and the port's corpus
+synthesis.
 """
 
 import numpy as np
@@ -298,3 +301,86 @@ def depth_variant(kind: str, exact: np.ndarray, seed: int = SEED + 10):
             "above": rng.integers(12, 40, shape),
             "negative": rng.integers(-5, 0, shape),
             "mixed": rng.integers(-2, 15, shape)}[kind].astype(np.int32)
+
+
+#: The destination rows place_block is held at (place_edge_rows).
+PLACE_KINDS = ("lane", "shuffled", "duplicates", "random", "clamped",
+               "empty", "seam")
+
+
+def _lane(rng, m: int) -> np.ndarray:
+    """An emission-shaped lane: nondecreasing destinations from 0 in
+    steps of 1 or 2, a third of the positions inactive (emit.SENT)."""
+    active = rng.random(m) < 2 / 3
+    step = np.where(rng.random(m) < 0.8, 1, 2) * active
+    return np.where(active, np.cumsum(step) - 1, emit.SENT)
+
+
+def place_edge_rows(rows: int, m: int = N, out_rows: int = 528,
+                    seed: int = SEED + 11):
+    """(dest, vals), (rows, m) int32 each (m a multiple of 2048), for
+    place_block at out_rows (cells = out_rows * 128): the PLACE_KINDS
+    cycled over the rows, vals random bytes. An emission-shaped lane;
+    source tiles in shuffled order, each on its own span of 3000 cells
+    anywhere in the row (non-monotone: a source tile meets output tiles
+    far from its neighbours'); each tile on 16 cells (duplicates summed);
+    random destinations over the whole row and past both its ends
+    (negatives and those at or past the cells inactive, most active ones
+    dropped and counted); tiles whose least destination lies in the last
+    window, which the clamp to out_rows - 32 anchors (the partial last
+    4096-cell output tile among its cells); no kept write (SENT and
+    negatives only); and two lanes side by side whose destinations
+    restart at the seam (placement "kernel")."""
+    rng = np.random.default_rng(seed)
+    cells = out_rows * 128
+    tiles = m // 1024
+    span = np.sort(rng.integers(0, 3000, (tiles, 1024)), axis=1)
+    shuffled = (rng.permutation(tiles) * ((cells - 3000) // tiles))[:, None]
+    window = cells - 32 * 128
+    kinds = {
+        "lane": _lane(rng, m),
+        "shuffled": (shuffled + span).reshape(m),
+        "duplicates": (shuffled + rng.integers(0, 16, (tiles, 1024)))
+        .reshape(m),
+        "random": rng.integers(-200, cells + 200, m),
+        "clamped": np.where(rng.random(m) < 0.9,
+                            rng.integers(window, cells, m),
+                            rng.integers(cells, cells + 64, m)),
+        "empty": np.where(rng.random(m) < 0.5, emit.SENT, -1),
+        "seam": np.concatenate([_lane(rng, m // 2), _lane(rng, m // 2)]),
+    }
+    dest = np.stack([kinds[PLACE_KINDS[r % len(PLACE_KINDS)]]
+                     for r in range(rows)]).astype(np.int32)
+    vals = rng.integers(0, 256, (rows, m)).astype(np.int32)
+    return dest, vals
+
+
+#: The window height the windowed scatter is held at for each limb count
+#: (limb_rows): the encoder placement's at one limb, a sidecar bucket at
+#: two, the transport's at three.
+LIMB_WROWS = {1: 32, 2: 72, 3: 192}
+#: out_cells it is held at: half a block, a block, place_block's 528 rows.
+OUT_CELLS = (32768, N, 67584)
+
+
+def limb_rows(limbs: int, cells: int, m: int = 8192):
+    """(dest, vals), (3, m) int32 each, for scatter_windowed at `limbs`
+    onto `cells` at LIMB_WROWS[limbs]: near-monotone destinations (steps
+    of 1-2, 30% dropped at `cells`, tag/payload pairs summing in one
+    cell), random destinations that overflow their windows, and a row
+    whose first tile spans more than its window (counted once) and whose
+    other tiles lie in the last window (the clamp). Values up to
+    2^(8 limbs), the top limb's headroom, and -1 (the top limb
+    unmasked)."""
+    rng = np.random.default_rng(limbs * 1000 + cells // 128)
+    mono = np.minimum(np.cumsum(rng.integers(1, 3, m)), cells)
+    mono = np.where(rng.random(m) < 0.3, cells, mono)
+    mono[1::2] = np.where(rng.random(m // 2) < 0.1, mono[::2], mono[1::2])
+    rand = rng.integers(0, cells + 1, m)
+    last = rng.integers(cells - 128 * LIMB_WROWS[limbs], cells + 1, m)
+    last[:1024] = cells
+    last[0], last[1023] = 0, cells - 1
+    dest = np.stack([mono, rand, last]).astype(np.int32)
+    vals = rng.integers(0, (1 << (8 * limbs)) + 1, dest.shape)
+    vals[:, ::5] = -1
+    return dest, vals.astype(np.int32)

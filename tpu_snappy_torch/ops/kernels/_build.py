@@ -37,7 +37,7 @@ I = ctypes.c_int
 SIGNATURES = {
     "snk_window_keys": [P, P, P, I, P],
     "snk_ffill": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
-    "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, I, P],
+    "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, I, I, P],
     "snk_resolve_tiled": [P, P, P, P, I, P],
     "snk_resolve_tiled_depth": [P, P, P, P, I, P],
     "snk_gather": [P, P, P, I, I, I, I, P],
@@ -45,7 +45,6 @@ SIGNATURES = {
     "snk_matcher": [P, P, P, P, I, I, I, I, P],
     "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
     "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
-    "snk_place": [P, P, P, P, I, I, I, P],
     "snk_scatter_block": [P, P, P, I, I, I, I, I, P],
     "snk_resolve_tiled_flag": [P, P, P, P, I, P],
     "snk_local_round": [P, P, I, P],

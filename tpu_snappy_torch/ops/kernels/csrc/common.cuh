@@ -14,6 +14,16 @@ namespace snk {
 
 constexpr int kBlock = 1 << 16;  // 64 KB Snappy block / fragment output
 
+// Entry j of a table row of s words through the read-only path, kept to
+// `mask`; 0 where j lies outside [0, s) (the TPU's one-hot gather finds no
+// row there). The indexed loads of gather_block and doubling_round.
+__device__ __forceinline__ int take(const int32_t* row, int s, int j,
+                                    uint32_t mask) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(s)
+             ? static_cast<int>(static_cast<uint32_t>(__ldg(row + j)) & mask)
+             : 0;
+}
+
 // Inclusive max-scan over one warp.
 __device__ __forceinline__ int warp_scan_max(int v) {
   const int lane = threadIdx.x & 31;

@@ -34,13 +34,6 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kPerThread = 4;  // targets a thread: 4 table loads in flight
 
-__device__ __forceinline__ int take(const int32_t* xr, int s, int j,
-                                    uint32_t mask) {
-  return static_cast<unsigned>(j) < static_cast<unsigned>(s)
-             ? static_cast<int>(static_cast<uint32_t>(__ldg(xr + j)) & mask)
-             : 0;
-}
-
 // Grid (ceil(ceil(t / 4) / kThreads), batch): thread i serves targets
 // 4i .. 4i+3 of its row, with 16-byte index loads and stores where t is a
 // multiple of 4 (the wrapper checks that every pointer is 16-byte aligned),
@@ -56,13 +49,13 @@ gather_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ idx,
     const size_t o = row * (t / kPerThread) + i;
     const int4 j = __ldg(reinterpret_cast<const int4*>(idx) + o);
     reinterpret_cast<int4*>(y)[o] =
-        make_int4(take(xr, s, j.x, mask), take(xr, s, j.y, mask),
-                  take(xr, s, j.z, mask), take(xr, s, j.w, mask));
+        make_int4(snk::take(xr, s, j.x, mask), snk::take(xr, s, j.y, mask),
+                  snk::take(xr, s, j.z, mask), snk::take(xr, s, j.w, mask));
     return;
   }
   for (int k = kPerThread * i; k < min(t, kPerThread * (i + 1)); ++k) {
     const size_t o = row * t + k;
-    y[o] = take(xr, s, __ldg(idx + o), mask);
+    y[o] = snk::take(xr, s, __ldg(idx + o), mask);
   }
 }
 

@@ -4,9 +4,11 @@ Port of tpu_snappy/ops/pallas/doubling.py:doubling_round, the round of the
 decoder's resolve="stable": (s o s, stable') per row, where a tile of
 TILE_SIZE positions flagged stable is copied through with its flag kept at
 1, and any other tile's new flag is 1 iff none of its lanes changed. The
-CUDA kernel is csrc/doubling.cu: one thread per target, an indexed load
-from the input row, a barrier-or for the tile's flag (see its note). A
-pointer outside [0, 65536) reads 0, as the TPU's one-hot gather gives.
+CUDA kernel is csrc/doubling.cu, on gather_block's load schedule: a block
+a (tile, row), four targets a thread with one 16-byte load of s, four
+independent table loads and one 16-byte store, the flag read once a
+block and a barrier-or for the new one (see its note). A pointer outside
+[0, 65536) reads 0, as the TPU's one-hot gather gives.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ def doubling_round(s: torch.Tensor, stable: torch.Tensor):
     batch = s.shape[0]
     _build.require(s, torch.int32, (batch, N), "s")
     _build.require(stable, torch.int32, (batch, TILES), "stable")
+    _build.require_aligned("doubling_round", s, stable)
     out = torch.empty_like(s)
     st = torch.empty_like(stable)
     if batch:

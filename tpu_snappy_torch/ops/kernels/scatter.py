@@ -1,16 +1,20 @@
-"""Additive scatters: the decode transport's windowed one and the
+"""Additive scatters: the windowed one (the decode transport's, the
+framed sidecar's and, at one limb, the encoder's placement) and the
 full-height one of the encoder's overflow entries.
 
 `scatter_windowed` ports tpu_snappy/ops/pallas/scatter.py:scatter_windowed
-at limbs=3, out_cells=65536 and any `wrows` up to 512: 192 for the decode
-transport, the buckets of sidecar.PARENT_WROWS for the framed sidecar's
-pieces. `scatter_block` ports scatter.py:scatter_block at limbs 1-3 and
-any out_cells that is a multiple of 128. The CUDA kernels are in
-csrc/scatter.cu: both give each block one tile of a row's output in
-shared memory and write it once (`windowed_tile` and `block_tile` size the
-tiles); scatter_windowed first summarises each 1024-source tile (window
-base, kept range, drops) so that a block reads only the source tiles that
-meet its cells (see the file's note). The plain versions
+with its `limbs` (1-3) and `out_cells` (a multiple of 128 below 2^30) and
+any `wrows` that fits the output: 192 at 3 limbs onto 65536 cells for the
+decode transport, the buckets of sidecar.PARENT_WROWS for the framed
+sidecar's pieces, and 32 at one limb onto 67584 cells for
+place.place_block, which runs the same kernels (`check_windowed`,
+`launch_windowed`). `scatter_block` ports scatter.py:scatter_block at
+limbs 1-3 and any out_cells that is a multiple of 128. The CUDA kernels
+are in csrc/scatter.cu: both give each block one tile of a row's output
+in shared memory and write it once (`windowed_tile` and `block_tile` size
+the tiles); scatter_windowed first summarises each 1024-source tile
+(window base, kept range, drops) so that a block reads only the source
+tiles that meet its cells (see the file's note). The plain versions
 reproduce the window drop and the drop count exactly, so kernel and plain
 agree bit for bit, counts included.
 """
@@ -34,6 +38,11 @@ TILE = 1024
 LO = 128
 
 _NONE = 1 << 30  # min of a tile with no active destination
+#: Limb counts the scatters take (the encoder's 1, scatter_block's default
+#: 2, the decoder's 3).
+MAX_LIMBS = 3
+#: Largest out_cells: the kernels test destinations in unsigned 32 bits.
+MAX_CELLS = 1 << 30
 
 
 def _limbs(values: torch.Tensor, limbs: int = 3) -> list:
@@ -52,34 +61,46 @@ def _join(acc: list) -> torch.Tensor:
     return res
 
 
-def _check_wrows(wrows: int) -> None:
-    if not 1 <= wrows <= N // LO:
-        raise ValueError(f"scatter_windowed: wrows {wrows} (1 to {N // LO})")
+def _check_windowed(wrows: int, limbs: int, out_cells: int) -> None:
+    """scatter_windowed's arguments (scatter.py:176-178): a window of at
+    least one row that fits the output, 1-3 limbs, and out_cells a multiple
+    of LO below MAX_CELLS (the kernel tests destinations in 32 bits)."""
+    if (out_cells % LO or out_cells >= MAX_CELLS
+            or not 1 <= wrows <= out_cells // LO):
+        raise ValueError(f"scatter_windowed: wrows {wrows} (1 to "
+                         f"out_cells / {LO}), out_cells {out_cells} (a "
+                         f"multiple of {LO} below {MAX_CELLS})")
+    if not 1 <= limbs <= MAX_LIMBS:
+        raise ValueError(f"scatter_windowed: limbs {limbs} (1 to "
+                         f"{MAX_LIMBS})")
 
 
 def scatter_windowed_plain(dest: torch.Tensor, values: torch.Tensor,
-                           wrows: int = WROWS):
-    """Plain PyTorch form: (out (B, 65536) int32, ovf (B,) int32)."""
-    _check_wrows(wrows)
+                           wrows: int = WROWS, *, limbs: int = 3,
+                           out_cells: int = N):
+    """Plain PyTorch form: (out (B, out_cells) int32, ovf (B,) int32)."""
+    _check_windowed(wrows, limbs, out_cells)
     batch, m = dest.shape
     tiles = dest.reshape(batch, m // TILE, TILE)
-    active = (tiles >= 0) & (tiles < N)
+    active = (tiles >= 0) & (tiles < out_cells)
     mn = torch.where(active, tiles, _NONE).amin(dim=-1, keepdim=True)
-    base = torch.clamp((mn >> 10) << 3, max=N // LO - wrows)
+    base = torch.clamp((mn >> 10) << 3, max=out_cells // LO - wrows)
     inside = (tiles >> 7) - base < wrows
     ovf = (active & ~inside).sum(dim=(1, 2), dtype=torch.int32)
-    idx = torch.where(active & inside, tiles, N).reshape(batch, m)
+    idx = torch.where(active & inside, tiles, out_cells).reshape(batch, m)
     idx = idx.to(torch.int64)
     acc = []
-    for limb in _limbs(values):
-        cell = torch.zeros((batch, N + 1), dtype=torch.int32,
+    for limb in _limbs(values, limbs):
+        cell = torch.zeros((batch, out_cells + 1), dtype=torch.int32,
                            device=dest.device)
-        acc.append(cell.scatter_add_(1, idx, limb)[:, :N])
+        acc.append(cell.scatter_add_(1, idx, limb)[:, :out_cells])
     return _join(acc), ovf
 
 
-#: Cells of a scatter_windowed tile while the grid fills the card (three
-#: int32 limb planes: 48 KB, four blocks an SM), and the least it is cut to.
+#: Cells of a scatter_windowed tile while the grid fills the card (48 KB
+#: of planes at three limbs, four blocks an SM; at one limb 8192 cells fit
+#: in less, but place_block's largest call ran slower at 8192 than at 4096
+#: on an H100), and the least it is cut to.
 WINDOWED_TILE = 4096
 MIN_WINDOWED_TILE = 512
 #: Blocks scatter_windowed aims for: four on each SM.
@@ -89,53 +110,82 @@ WINDOWED_BLOCKS = 4 * _build.SMS
 _WINDOWED_LIST_BYTES = 4 * 1024 + 64
 
 
-def windowed_tile(batch: int) -> int:
+def windowed_tile(batch: int, out_cells: int = N) -> int:
     """Cells of one scatter_windowed output tile: WINDOWED_TILE, halved
-    while the grid (batch x 65536 / tile blocks) stays below
-    WINDOWED_BLOCKS, down to MIN_WINDOWED_TILE. At 126 or 128 rows that is
-    4096 (2016 or 2048 blocks); at 2 rows 512."""
+    while the grid (batch x out_cells / tile blocks, the last of a row
+    partial) stays below WINDOWED_BLOCKS, down to MIN_WINDOWED_TILE, and at
+    most out_cells. At 126 or 128 rows that is 4096 (2016 or 2048 blocks at
+    65536 cells, 2176 at place_block's 67584); at 2 rows 512. It fits
+    shared memory at every limb count."""
     tile = WINDOWED_TILE
-    while tile > MIN_WINDOWED_TILE and batch * (N // tile) < WINDOWED_BLOCKS:
+    while (tile > MIN_WINDOWED_TILE
+           and batch * -(-out_cells // tile) < WINDOWED_BLOCKS):
         tile //= 2
-    return tile
+    return min(tile, out_cells)
 
 
 def scatter_windowed(dest: torch.Tensor, values: torch.Tensor,
-                     wrows: int = WROWS, tile: int | None = None):
+                     wrows: int = WROWS, tile: int | None = None, *,
+                     limbs: int = 3, out_cells: int = N):
     """Additive scatter of (B, M) int32 `values` to (B, M) int32 `dest`
-    cells (M a multiple of 1024; a destination outside [0, 65536) drops).
-    Per 1024-source tile, writes `wrows` or more 128-cell rows past the
-    tile's window base are dropped and counted. Returns (out (B, 65536)
-    int32, ovf (B,) int32). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, with `windowed_tile`'s output tile unless
-    `tile` (cells, a multiple of 128) is given."""
-    batch, m = dest.shape
-    _check_wrows(wrows)
-    if m % TILE:
-        raise ValueError(f"scatter_windowed: width {m} is not a multiple "
-                         f"of {TILE}")
-    tile = windowed_tile(batch) if tile is None else tile
-    if (tile % LO or not 0 < tile <= N
-            or 3 * tile * 4 + _WINDOWED_LIST_BYTES > _build.SMEM_BYTES):
-        raise ValueError(f"scatter_windowed: tile {tile} (a multiple of "
-                         f"{LO} up to {N}, 12 bytes a cell in shared memory)")
+    cells (M a multiple of 1024; a destination outside [0, out_cells)
+    drops), each of `limbs` 8-bit limbs (the top one unmasked) summed per
+    cell and the sums joined by shift-OR. Per 1024-source tile, writes
+    `wrows` or more 128-cell rows past the tile's window base are dropped
+    and counted. Returns (out (B, out_cells) int32, ovf (B,) int32). CPU
+    tensors take the plain version; CUDA tensors launch the kernel, with
+    `windowed_tile`'s output tile unless `tile` (cells, a multiple of 128)
+    is given."""
+    tile = check_windowed(dest.shape, wrows, tile, limbs, out_cells,
+                          "scatter_windowed")
     if _build.on_cpu(dest, values):
-        return scatter_windowed_plain(dest, values, wrows)
+        return scatter_windowed_plain(dest, values, wrows, limbs=limbs,
+                                      out_cells=out_cells)
+    out, ovf = launch_windowed(dest, values, wrows, tile, limbs, out_cells,
+                               "scatter_windowed")
+    if dest.numel():
+        scatter_windowed.launches += 1
+    return out, ovf
+
+
+def check_windowed(shape, wrows: int, tile: int | None, limbs: int,
+                   out_cells: int, name: str) -> int:
+    """Raise on what the windowed kernels do not take (the CPU path
+    refuses it too); returns the output tile, `windowed_tile`'s unless
+    `tile` is given."""
+    batch, m = shape
+    _check_windowed(wrows, limbs, out_cells)
+    if m % TILE:
+        raise ValueError(f"{name}: width {m} is not a multiple of {TILE}")
+    tile = windowed_tile(batch, out_cells) if tile is None else tile
+    if (tile % LO or not 0 < tile <= out_cells
+            or limbs * tile * 4 + _WINDOWED_LIST_BYTES > _build.SMEM_BYTES):
+        raise ValueError(f"{name}: tile {tile} (a multiple of {LO} up to "
+                         f"out_cells, {limbs} x 4 bytes a cell in shared "
+                         f"memory)")
+    return tile
+
+
+def launch_windowed(dest: torch.Tensor, values: torch.Tensor, wrows: int,
+                    tile: int, limbs: int, out_cells: int, name: str):
+    """The windowed kernels on CUDA tensors, for arguments that passed
+    check_windowed: (out, ovf), every entry written. The caller counts
+    the launch (scatter_windowed and place_block, each its own)."""
+    batch, m = dest.shape
     _build.require(dest, torch.int32, (batch, m), "dest")
     _build.require(values, torch.int32, (batch, m), "values")
-    _build.require_aligned("scatter_windowed", dest, values)
+    _build.require_aligned(name, dest, values)
     dev = dest.device
-    out = torch.empty((batch, N), dtype=torch.int32, device=dev)
+    out = torch.empty((batch, out_cells), dtype=torch.int32, device=dev)
     ovf = torch.empty((batch,), dtype=torch.int32, device=dev)
     if batch and m:
         summary = torch.empty((batch, m // TILE, 4), dtype=torch.int32,
                               device=dev)
         rc = _build.lib().snk_scatter_windowed(
             dest.data_ptr(), values.data_ptr(), summary.data_ptr(),
-            out.data_ptr(), ovf.data_ptr(), m, N, wrows, tile, batch,
-            _build.stream())
-        _build.check(rc, "scatter_windowed")
-        scatter_windowed.launches += 1
+            out.data_ptr(), ovf.data_ptr(), m, out_cells, wrows, tile,
+            limbs, batch, _build.stream())
+        _build.check(rc, name)
     else:
         out.zero_()
         ovf.zero_()
@@ -145,13 +195,8 @@ def scatter_windowed(dest: torch.Tensor, values: torch.Tensor,
 scatter_windowed.launches = 0
 
 
-#: Limb counts scatter_block takes (the encoder's 1, the default 2, the
-#: decoder's 3).
-MAX_LIMBS = 3
 #: Blocks scatter_block aims to launch: eight on each of the card's SMs.
 FILL_BLOCKS = 8 * _build.SMS
-#: Largest out_cells: the kernel tests destinations in unsigned 32 bits.
-MAX_CELLS = 1 << 30
 
 
 def block_tile(out_cells: int, m: int, limbs: int, batch: int) -> int:
