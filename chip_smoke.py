@@ -8,12 +8,14 @@ Run from the repository root on a machine with an NVIDIA H100:
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
 checkout's kernels named in REDESIGNED (the two matchers, the two
-emissions, the two tiled resolves, doubling_round, place_block and the
-windowed scatter) beside this one's on every captured call, in turns
-(their outputs must be equal, every tensor), with each turn's bound share
-and library ratio, the tiled resolves, doubling_round and place_block
-also on each call's first 8 rows, the tiled resolves on the period-1
-chain, and sweeps the tiles of the two scatters and of place_block's
+emissions, the two tiled resolves, doubling_round, place_block, the
+windowed scatter, resolve_block and next_start_block) beside this one's
+on every captured call, in turns (their outputs must be equal, every
+tensor), with each turn's bound share and library ratio, the tiled
+resolves, doubling_round, place_block and resolve_block also on each
+call's first 8 rows, the tiled resolves and resolve_block on the period-1
+chain, next_start_block at M 384, 57344, 65536 and 69632 (128 rows and
+1-D), and sweeps the tiles of the two scatters and of place_block's
 windowed scatter and ffill's chunk.
 
 Phases, each printing its results; any failure raises (non-zero exit):
@@ -39,12 +41,16 @@ Phases, each printing its results; any failure raises (non-zero exit):
    kind (0, under, over, above 11, negative); the resolve kernels on the
    JAX tests' maps, the period-1 chain and a depth-10000 chain among them,
    with exact, over-approximate and all-zero root flags and partly stable
-   tiles; the windowed gathers in chained rounds on the same maps; the
+   tiles, resolve_block also on the tiled-resolve rows at 1, 8, 128 and
+   133 rows; the windowed gathers in chained rounds on the same maps; the
    element fields on random, all-zero and all-255 rows at three widths;
    resolve_tiled_dual with asymmetric `resolved` flags; the two prefix
    scans at four widths and 1-D, with int32-wrapping sums and
    next_start_block at default m, 0 and 100 on all-zero, first-only,
-   last-only and all-set flags; gather_block at limbs 1-3, tables of 256
+   last-only and all-set flags, and on tests/torch_edges.py's span-edge
+   rows (one flag around each span and read-ahead end of the kernel, only
+   at m - 1, none) batched and 1-D at default m, 0, 100 and m // 2;
+   gather_block at limbs 1-3, tables of 256
    to 131072, out-of-range indices and x and idx one tensor; scatter_block
    at limbs 1-3, out_cells 128 to 67584, M up to 65536, every source on
    one cell and the top limb at 2^(8 limbs), at three tiles;
@@ -116,8 +122,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
    decode path, runs on the first two rows of the captured resolve_tiled
    call; cumsum_block and next_start_block, on no codec path, on the
    captured arguments of scan.exclusive_cumsum and
-   scan.next_element_start, each also giving that stage's result. Host
-   load averages print beside the times;
+   scan.next_element_start, each also giving that stage's result;
+   beside resolve_block's captured call, resolve_tiled (no `resolved`
+   flags, the same function for src[p] <= p) on the same tensors, equal
+   and timed. Host load averages print beside the times;
 10. parallel and surfaces: the same 16 MiB through shard.encode_dp and
    decode_dp on a one-card mesh and on a mesh of four shards on cuda:0
    (also decoding the C++ golden's stream), streaming.compress_stream in
@@ -181,7 +189,8 @@ from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
                          LIMB_WROWS, OUT_CELLS, PLACE_KINDS, RESOLVED_KINDS,
                          SEED, depth_variant, emit_edge_parses, limb_rows,
                          make_data, matcher_edge_rows, place_edge_rows,
-                         resolved_flags, synthetic_parse, tiled_resolve_rows)
+                         next_start_edge_rows, resolved_flags,
+                         synthetic_parse, tiled_resolve_rows)
 
 ROUND_TRIP_BYTES = 16 << 20
 BATCH = 8  # rows for the kernel-against-plain checks
@@ -808,12 +817,18 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
           f"max_abs_err={max(errs)}")
 
     # resolve_block: against the plain version (synchronous doubling to
-    # the fixed point), which the kernel's in-place doubling must meet.
-    err = _exact(resolve.resolve_block(lit, src),
-                 resolve.resolve_block_plain(lit, src))
-    report["resolve_block"] = err
+    # the fixed point), which the kernel's in-place doubling must meet, on
+    # the maps and on the tiled-resolve rows at every TILED_BATCHES size.
+    errs = [_exact(resolve.resolve_block(lit, src),
+                   resolve.resolve_block_plain(lit, src))]
+    for batch in TILED_BATCHES:
+        tlit, tsrc = (t(a) for a in tiled_resolve_rows(batch))
+        errs.append(_exact(resolve.resolve_block(tlit, tsrc),
+                           resolve.resolve_block_plain(tlit, tsrc)))
+    report["resolve_block"] = max(errs)
     print(f"kernel resolve_block B={BATCH} (the maps, depth 65535 and 10000 "
-          f"chains): max_abs_err={err}")
+          f"chains) and B={TILED_BATCHES} (the tiled-resolve rows): "
+          f"max_abs_err={max(errs)}")
 
     # resolve_tiled_flag: exact, over-approximate, all-zero and all-one
     # flags.
@@ -928,10 +943,24 @@ def check_scan_kernels(rng, t, report: dict) -> None:
                                scans.next_start_block_plain(f, default)))
             errs.append(_exact(scans.next_start_block(f[4], default),
                                scans.next_start_block_plain(f[4], default)))
-    report["next_start_block"] = max(errs)
+    # A single flag around each span and read-ahead end of the kernel,
+    # only at m - 1, none: batched and each row 1-D.
+    edge_errs = []
+    for m in (384, 57344, 65536, 69632):
+        f = t(next_start_edge_rows(m))
+        for default in (m, 0, 100, m // 2):
+            edge_errs.append(_exact(scans.next_start_block(f, default),
+                                    scans.next_start_block_plain(f,
+                                                                 default)))
+            edge_errs += [_exact(scans.next_start_block(row, default),
+                                 scans.next_start_block_plain(row, default))
+                          for row in f]
+    report["next_start_block"] = max(errs + edge_errs)
     print(f"kernel next_start_block B={BATCH} M 384/57344/65536/69632 and "
           f"1-D, default m/0/100 (random, all-zero, first-only, last-only, "
-          f"all-set flags): max_abs_err={max(errs)}")
+          f"all-set flags): max_abs_err={max(errs)}; on the span-edge rows "
+          f"(batched and 1-D, default m/0/100/m//2): "
+          f"max_abs_err={max(edge_errs)}")
 
 
 def _kernel_modules() -> dict:
@@ -1417,6 +1446,30 @@ def _scan_agrees(name: str, args, out) -> bool:
     return torch.equal(out, scan.next_element_start(*args))
 
 
+def _with_scans(captured: dict, stages: dict) -> dict:
+    """The captured kernel calls and, for each scan kernel, the captured
+    arguments of the stage whose function it computes."""
+    return {**captured, **{
+        (SCAN_KERNEL[name], f"{name} in {stage}", shapes, scalars): call
+        for (name, stage, shapes, scalars), call in stages.items()
+        if name in SCAN_KERNEL}}
+
+
+def _tiled_beside_block(dev, args, want, card: str) -> None:
+    """resolve_tiled (no `resolved` flags), which computes resolve_block's
+    function for src[p] <= p, on resolve_block's own captured call: its
+    output must equal resolve_block's, and its graph_ms is the reading
+    resolve_block's design is held to."""
+    from tpu_snappy_torch.ops.kernels import tiledres
+    got = tiledres.resolve_tiled(*args)
+    if _exact(got, want):
+        raise AssertionError("resolve_tiled differs from resolve_block on "
+                             "resolve_block's captured call")
+    ms, graph_ms = _both(lambda: tiledres.resolve_tiled(*args), dev)
+    print(f"  beside it: resolve_tiled on the same call {ms} ms (graph_ms "
+          f"{graph_ms}) [{card}]")
+
+
 def check_main_path_calls(dev, captured: dict, stages: dict,
                           card: str) -> dict:
     """Phase 9: each kernel against its plain version, exact equality (ovf
@@ -1428,10 +1481,7 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     the numbers of its largest call (by the distinct bytes its arguments
     hold)."""
     kernels = _kernel_modules()
-    captured = {**captured, **{
-        (SCAN_KERNEL[name], f"{name} in {stage}", shapes, scalars): call
-        for (name, stage, shapes, scalars), call in stages.items()
-        if name in SCAN_KERNEL}}
+    captured = _with_scans(captured, stages)
     # resolve_tiled_dual is on no decode path: it runs on the first two
     # rows of the largest captured resolve_tiled call.
     args, kw = max(((a, k) for (name, *_), (a, k) in captured.items()
@@ -1484,6 +1534,8 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
               f"library {library_ms} ms (graph_ms "
               f"{library_graph_ms}); bound / graph_ms {share}, graph_ms / "
               f"library graph_ms {ratio} [{card}]")
+        if name == "resolve_block":
+            _tiled_beside_block(dev, args, outs, card)
     missing = set(kernels) - set(report)
     if missing:
         raise AssertionError(f"no main-path call captured for {missing}")
@@ -1505,8 +1557,8 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
           f"depth 10 a tile: kernel {ms} ms [{card}]")
     resolve = kernels["resolve_block"]
     ms = _timed(lambda: resolve.resolve_block(lit, chain), dev, 20)
-    print(f"time resolve_block ({batch}, {N}) on the same chain, 16 "
-          f"rounds: kernel {ms} ms [{card}]")
+    print(f"time resolve_block ({batch}, {N}) on the same chain, at most "
+          f"16 rounds: kernel {ms} ms [{card}]")
     return report
 
 
@@ -1541,13 +1593,14 @@ def _extreme(pick, values: list):
 #: the limb count), so its own calls are timed against the parent's too.
 REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
               "emit_block", "resolve_tiled", "resolve_tiled_depth",
-              "doubling_round", "place_block", "scatter_windowed")
+              "doubling_round", "place_block", "scatter_windowed",
+              "resolve_block", "next_start_block")
 #: The REDESIGNED kernels `--parent` also times on each captured call's
 #: first SERVER_ROWS rows: the server's wave, where a serial walk's latency
 #: does not shrink with the batch, and where a grid of few rows fills less
 #: of the card.
 FIRST_ROWS = ("resolve_tiled", "resolve_tiled_depth", "doubling_round",
-              "place_block")
+              "place_block", "resolve_block")
 SERVER_ROWS = 8
 
 
@@ -1622,20 +1675,25 @@ def _kernel_split(fn, reps: int = 20) -> str:
     return "; ".join(parts)
 
 
-def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
+def compare_parent(dev, captured: dict, stages: dict, parent: str,
+                   card: str) -> None:
     """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
-    this one on every captured main-path call (the FIRST_ROWS kernels also
-    on its first SERVER_ROWS rows), timed in turns (parent, this, this,
+    this one on every captured main-path call (the scan kernels on the
+    captured scan stages' arguments; the FIRST_ROWS kernels also on each
+    call's first SERVER_ROWS rows), timed in turns (parent, this, this,
     parent), each turn giving ms (wrapper included), graph_ms (device
     only), host_ms (the wrapper's host cost), bound share and library
     ratio, then the device time of each kernel (and memset) each tree's
     wrapper launches (torch.profiler); the two outputs (every tensor of
     them: the drop counts and flags too) must be equal. Then phase 9's
-    worst case for both trees: the tiled resolves on the period-1
-    chain."""
+    worst case for both trees: the tiled resolves and resolve_block on the
+    period-1 chain; and next_start_block at the other widths phase 3
+    runs (128 rows and one 1-D row of seeded flags at M 384, 57344, 65536
+    and 69632)."""
     old = _parent_kernels(parent)
     kernels = _kernel_modules()
-    for (name, stage, shapes, scalars), (args, kw) in captured.items():
+    for (name, stage, shapes, scalars), (args, kw) in _with_scans(
+            captured, stages).items():
         if name not in REDESIGNED:
             continue
         new = getattr(kernels[name], name)
@@ -1660,15 +1718,23 @@ def compare_parent(dev, captured: dict, parent: str, card: str) -> None:
                   f"{_kernel_split(lambda: old[name](*a, **k))}; this: "
                   f"{_kernel_split(lambda: new(*a, **k))} [{card}]")
     lit, chain, deps = _chain_case(dev, captured)
-    for name, a in (("resolve_tiled", (lit, chain)),
-                    ("resolve_tiled_depth", (lit, chain, deps))):
+    rng = np.random.default_rng(SEED + 2)
+    extra = [("resolve_tiled", (lit, chain), "the period-1 chain"),
+             ("resolve_tiled_depth", (lit, chain, deps),
+              "the period-1 chain"),
+             ("resolve_block", (lit, chain), "the period-1 chain")]
+    for m in (384, 57344, 65536, 69632):
+        flags = torch.from_numpy(rng.random((128, m)) < 0.1).to(dev)
+        extra += [("next_start_block", (flags, m), "seeded flags"),
+                  ("next_start_block", (flags[0], m), "a 1-D row")]
+    for name, a, what in extra:
         new = getattr(kernels[name], name)
         outs = new(*a)
         if _exact(old[name](*a), outs):
             raise AssertionError(f"{name}: the parent's output differs")
         bound_ms, _ = _bound(name, a, outs)
-        print(f"parent against this: {name} {tuple(chain.shape)} on the "
-              f"period-1 chain: "
+        shape = tuple(a[0 if name == "next_start_block" else 1].shape)
+        print(f"parent against this: {name} {shape} on {what}: "
               f"{_in_turns(dev, old[name], new, a, {}, bound_ms, None)} "
               f"[{card}]")
 
@@ -1812,8 +1878,8 @@ def preset_round_trips(dev, data: bytes, wrappers: dict, card: str):
     golden = ops_decode.native_golden()
     _reset(wrappers)
     t0 = time.perf_counter()
-    fr = framing.compress(data, "auto", device="cuda",
-                          cfg=config.ULTRA_CONFIG)
+    fr = framing.compress(data, config.ULTRA_CONFIG, None, "auto",
+                          device="cuda")
     t1 = time.perf_counter()
     back, st = framing.decompress_with_stats(fr, device="cuda")
     t2 = time.perf_counter()
@@ -2042,7 +2108,7 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
     _reset(wrappers)
     for policy in ("off", "auto", "always"):
         t0 = time.perf_counter()
-        fr = framing.compress(data, policy, device="cuda")
+        fr = framing.compress(data, sidecar=policy, device="cuda")
         t1 = time.perf_counter()
         streams[policy] = fr
         if golden.uncompress_framed(fr, max_out=len(data) + 16) != data:
@@ -2055,7 +2121,8 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
         for use in (True, False):
             gathers = wrappers["gather_block"].launches
             t0 = time.perf_counter()
-            back, st = framing.decompress_with_stats(fr, use, device="cuda")
+            back, st = framing.decompress_with_stats(fr, use_sidecar=use,
+                                                     device="cuda")
             t1 = time.perf_counter()
             if back != data:
                 raise AssertionError(f"framed {policy} decode differs")
@@ -2169,7 +2236,7 @@ def parallel_and_surfaces(dev, data: bytes, comp: bytes, framed: dict,
     import torch_multiproc
     from tpu_snappy_torch import __main__ as _cli  # noqa: F401 (import check)
     from tpu_snappy_torch import api, compat, framing, hadoop
-    from tpu_snappy_torch.config import TURBO_CONFIG
+    from tpu_snappy_torch.config import DEFAULT_CONFIG, TURBO_CONFIG
     from tpu_snappy_torch.ops import decode as ops_decode
     from tpu_snappy_torch.parallel import mesh as meshlib, shard, streaming
 
@@ -2183,7 +2250,7 @@ def parallel_and_surfaces(dev, data: bytes, comp: bytes, framed: dict,
         t0 = time.perf_counter()
         got = shard.encode_dp(data, mesh)
         t1 = time.perf_counter()
-        back = shard.decode_dp(got, mesh)
+        back = shard.decode_dp(got, mesh, DEFAULT_CONFIG)
         t2 = time.perf_counter()
         if got != comp or back != data:
             raise AssertionError(f"encode_dp / decode_dp on the {label} "
@@ -2206,12 +2273,12 @@ def parallel_and_surfaces(dev, data: bytes, comp: bytes, framed: dict,
           f"{_rate(n, t1 - t0)}; {st} [{card}]")
     for policy, want in framed.items():
         t0 = time.perf_counter()
-        fr = framing.compress(data, policy, mesh=one)
+        fr = framing.compress(data, DEFAULT_CONFIG, one, policy)
         t1 = time.perf_counter()
-        back, st = framing.decompress_with_stats(fr, mesh=one)
+        back, st = framing.decompress_with_stats(fr, DEFAULT_CONFIG, one)
         t2 = time.perf_counter()
         out = io.BytesIO()
-        framing.decompress_stream(io.BytesIO(fr), out, mesh=one)
+        framing.decompress_stream(io.BytesIO(fr), out, one)
         if fr != want or back != data or out.getvalue() != data:
             raise AssertionError(f"framed {policy} with a mesh differs")
         ref = framed_stats[policy]
@@ -2405,7 +2472,7 @@ def serving_phase(dev, data: bytes, framed: dict, wrappers: dict,
     for policy in POLICIES:
         cut = _split_framed(framed[policy], SERVER_SLICE // N)
         for i in (0, big - 1):
-            if cut[i] != framing.compress(requests[i], policy):
+            if cut[i] != framing.compress(requests[i], sidecar=policy):
                 raise AssertionError(f"framed {policy}: slice {i} of the "
                                      "whole stream differs")
         want.update({(i, policy): fr for i, fr in enumerate(cut)})
@@ -2525,7 +2592,7 @@ def main() -> None:
     tree_decompress(data, comp, card)
     report = check_main_path_calls(dev, captured, stages, card)
     if opts.parent:
-        compare_parent(dev, captured, opts.parent, card)
+        compare_parent(dev, captured, stages, opts.parent, card)
         tile_sweep(dev, captured, card)
     parallel_and_surfaces(dev, data, comp, framed, framed_stats, wrappers,
                           card)

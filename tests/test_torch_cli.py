@@ -68,7 +68,7 @@ def test_cli_raw(sample, tmp_path, data, capsys):
 
 def test_cli_framed_with_sidecar(sample, tmp_path, data):
     _round_trip(sample, tmp_path, ["--framed", "--sidecar", "auto"],
-                framing.compress(data, "auto", device="cpu"),
+                framing.compress(data, sidecar="auto", device="cpu"),
                 decode_flags=["--framed"])
 
 
@@ -101,7 +101,7 @@ def test_cli_stream(sample, tmp_path, data):
     assert main(["compress", str(sample), str(framed), "--stream",
                  "--framed", "--sidecar", "always", "--blocks-per-wave",
                  "2"] + CPU) == 0
-    assert framed.read_bytes() == framing.compress(data, "always",
+    assert framed.read_bytes() == framing.compress(data, sidecar="always",
                                                    device="cpu")
     assert main(["decompress", str(framed), str(back), "--stream",
                  "--framed"] + CPU) == 0
@@ -136,7 +136,7 @@ def test_cli_defaults_to_the_card(sample, tmp_path, monkeypatch):
 def test_cli_on_the_card(sample, tmp_path, data, cuda):
     for flags, want in (([], api.compress(data, device="cpu")),
                         (["--framed", "--sidecar", "auto"],
-                         framing.compress(data, "auto", device="cpu")),
+                         framing.compress(data, sidecar="auto", device="cpu")),
                         (["--mesh", "1", "--stream"],
                          api.compress(data, device="cpu"))):
         comp = tmp_path / "c.sz"

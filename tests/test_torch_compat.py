@@ -133,7 +133,7 @@ def test_stream_decompressor_whole_and_dribbled():
 
 def test_stream_decompressor_reads_sidecars_and_foreign_streams():
     data = _text(130_000) + _rand(20_000)
-    fr = framing.compress(data, "always", **CPU)
+    fr = framing.compress(data, sidecar="always", **CPU)
     assert compat.StreamDecompressor(**CPU).decompress(fr) == data
     if golden.available():
         native = golden.compress_framed(data)

@@ -8,7 +8,11 @@ interpret mode on test_torch_tiledres.py's maps (random back hops, tile
 straddles, the period-1 chain, a depth-hint straddle, a map at its fixed
 point, sparse 7-hops) and on tests/test_pallas.py's resolve maps
 (identity, and random back hops around a depth-10000 chain), and
-doubling_round on a map with pointers outside [0, 65536) (each reads 0).
+doubling_round on a map with pointers outside [0, 65536) (each reads 0);
+resolve_block also on tests/torch_edges.py's tiled-resolve rows at 1, 8,
+128 and 133 rows (every lane at 0, chains one hop a tile, the period-1
+chain, the identity, random maps, ...), which phase 3 of chip_smoke.py
+runs on the card.
 With the launch stubbed, doubling_round's CUDA path must refuse a
 misaligned map or flags. The `gpu` tests hold the CUDA kernels against
 the plain versions on the card.
@@ -30,6 +34,7 @@ from tpu_snappy_torch.ops.kernels import localround as KL
 from tpu_snappy_torch.ops.kernels import resolve as KR
 
 from test_torch_tiledres import _fixed_point, _maps, _t
+from torch_edges import tiled_resolve_rows
 
 from torch_threads import share_cores
 
@@ -186,6 +191,40 @@ def test_resolve_block_plain_matches_pallas():
         want = PR.resolve_block(jnp.asarray(lit[r]), jnp.asarray(src[r]))
         assert (got[r] == np.asarray(want)).all(), r
         assert (got[r] == lit[r][_fixed_point(src[r])]).all(), r
+
+
+#: Batch sizes of the tiled-resolve rows (chip_smoke.TILED_BATCHES).
+TILED_BATCHES = (1, 8, 128, 133)
+
+
+@pytest.fixture(scope="module")
+def tiled_rows_pallas():
+    """The Pallas resolve_block on the first 12 tiled-resolve rows, one of
+    each map kind; every batch's rows start with them (the rows are drawn
+    from one seed in order)."""
+    lit, src = tiled_resolve_rows(12)
+    return [np.asarray(PR.resolve_block(jnp.asarray(lit[r]),
+                                        jnp.asarray(src[r])))
+            for r in range(len(src))]
+
+
+@pytest.mark.parametrize("rows", TILED_BATCHES)
+def test_resolve_block_plain_matches_pallas_on_tiled_rows(rows,
+                                                          tiled_rows_pallas):
+    lit, src = tiled_resolve_rows(rows)
+    got = KR.resolve_block(_t(lit), _t(src)).numpy()
+    for r in range(rows):
+        assert (got[r] == lit[r][_fixed_point(src[r])]).all(), r
+        if r < len(tiled_rows_pallas):
+            assert (got[r] == tiled_rows_pallas[r]).all(), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", TILED_BATCHES)
+def test_resolve_block_matches_plain_on_tiled_rows_on_the_card(rows, cuda):
+    lit, src = (_t(a).to(cuda) for a in tiled_resolve_rows(rows))
+    assert torch.equal(KR.resolve_block(lit, src),
+                       KR.resolve_block_plain(lit, src))
 
 
 @pytest.mark.gpu

@@ -57,7 +57,8 @@ def _mix() -> bytes:
 def streams():
     """The mix and the port's framed stream under each policy."""
     data = _mix()
-    return data, {p: TF.compress(data, p, device="cpu") for p in POLICIES}
+    return data, {p: TF.compress(data, sidecar=p, device="cpu")
+                  for p in POLICIES}
 
 
 def _chunks(fr: bytes):
@@ -87,7 +88,7 @@ def test_crc_matches_jax():
 def test_compress_matches_jax(streams, policy):
     data, fr = streams
     assert fr[policy] == JF.compress(data, sidecar=policy)
-    assert TF.compress(b"", policy, device="cpu") == TF.STREAM_ID
+    assert TF.compress(b"", sidecar=policy, device="cpu") == TF.STREAM_ID
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -96,7 +97,7 @@ def test_streams_decode_everywhere(streams, policy):
     types = [t for t, _, _ in _chunks(fr[policy])]
     got, stats = TF.decompress_with_stats(fr[policy], device="cpu")
     assert got == data
-    assert TF.decompress(fr[policy], False, device="cpu") == data
+    assert TF.decompress(fr[policy], use_sidecar=False, device="cpu") == data
     assert JF.decompress(fr[policy]) == data
     if golden.available():
         assert golden.uncompress_framed(fr[policy],
@@ -152,7 +153,7 @@ def test_corrupt_or_truncated_sidecars_are_only_hints(streams):
 def test_adversarial_sidecar_payloads_never_corrupt():
     rng = np.random.default_rng(99)
     data = b"the quick brown fox " * 600
-    body = TF.compress(data, "off", device="cpu")[len(TF.STREAM_ID):]
+    body = TF.compress(data, sidecar="off", device="cpu")[len(TF.STREAM_ID):]
     evil = []
     for n in (0, 1, 7, 8, 37, 1000):
         junk = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
@@ -197,7 +198,7 @@ def test_streaming_forms(streams):
                                  device="cpu", chunks_per_wave=wave)
         assert dst.getvalue() == data and n == len(data)
     dst = io.BytesIO()
-    n = TF.compress_stream(io.BytesIO(data), dst, len(data), "auto",
+    n = TF.compress_stream(io.BytesIO(data), dst, len(data), sidecar="auto",
                            device="cpu", blocks_per_wave=2)
     assert dst.getvalue() == fr["auto"] and n == len(fr["auto"])
 
@@ -209,15 +210,15 @@ def test_framing_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         TF.decompress(TF.STREAM_ID)
     with pytest.raises(ValueError, match="sidecar"):
-        TF.compress(b"x", "sometimes", device="cpu")
+        TF.compress(b"x", sidecar="sometimes", device="cpu")
 
 
 @pytest.mark.gpu
 def test_framed_round_trip_on_the_card(streams, cuda):
     data, fr = streams
     for policy in POLICIES:
-        assert TF.compress(data, policy, device=cuda) == fr[policy]
+        assert TF.compress(data, sidecar=policy, device=cuda) == fr[policy]
         for use in (True, False):
-            got, stats = TF.decompress_with_stats(fr[policy], use,
+            got, stats = TF.decompress_with_stats(fr[policy], use_sidecar=use,
                                                   device=cuda)
             assert got == data and stats.redecoded_hinted == 0

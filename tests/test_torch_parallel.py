@@ -201,7 +201,7 @@ def test_multihost_entry_points_single_process(data, streams):
 def framed(data, mesh8, jax_mesh8):
     """Per policy: the port's framed stream on 8 shards and JAX's on its
     8-device mesh."""
-    return {p: (TF.compress(data, p, mesh=mesh8),
+    return {p: (TF.compress(data, sidecar=p, mesh=mesh8),
                 JF.compress(data, mesh=jax_mesh8, sidecar=p))
             for p in POLICIES}
 
@@ -210,7 +210,7 @@ def framed(data, mesh8, jax_mesh8):
 def test_framed_mesh_matches_jax(data, framed, mesh8, policy):
     mine, theirs = framed[policy]
     assert mine == theirs
-    assert mine == TF.compress(data, policy, device="cpu")
+    assert mine == TF.compress(data, sidecar=policy, device="cpu")
     got, stats = TF.decompress_with_stats(mine, mesh=mesh8)
     plain, pstats = TF.decompress_with_stats(mine, device="cpu")
     assert got == plain == data
@@ -224,7 +224,7 @@ def test_framed_mesh_matches_jax(data, framed, mesh8, policy):
         assert stats.hinted and stats.root_map  # both sidecars in use
     if policy == "always":
         assert stats.root_map
-    assert TF.decompress(mine, False, mesh=mesh8) == data
+    assert TF.decompress(mine, use_sidecar=False, mesh=mesh8) == data
     dst = io.BytesIO()
     n = TF.decompress_stream(io.BytesIO(mine), dst, mesh=mesh8,
                              chunks_per_wave=3)
@@ -233,7 +233,7 @@ def test_framed_mesh_matches_jax(data, framed, mesh8, policy):
 
 def test_framed_stream_with_mesh(data, framed, mesh8):
     dst = io.BytesIO()
-    n = TF.compress_stream(io.BytesIO(data), dst, len(data), "auto",
+    n = TF.compress_stream(io.BytesIO(data), dst, len(data), sidecar="auto",
                            mesh=mesh8, blocks_per_wave=4)
     assert dst.getvalue() == framed["auto"][0] and n == len(dst.getvalue())
 
@@ -242,7 +242,7 @@ def test_decode_corpus_sidecar_matches_decode_chunks(data):
     """The root maps of the "always" stream's chunks, packed and padded to
     whole waves: the wave-mapped decode equals decode_chunks wave by wave,
     and a chunk count that is not a multiple of the wave raises."""
-    fr = TF.compress(data[:8 * B], "always", device="cpu")
+    fr = TF.compress(data[:8 * B], sidecar="always", device="cpu")
     bodies = [(t, fr[o:o + n]) for t, o, n in TF._parse_chunks(fr)]
     units = []
     for (t, side), (_t2, body) in zip(bodies, bodies[1:]):
@@ -278,6 +278,6 @@ def test_sharded_paths_on_the_card(data, streams, framed, cuda):
                                       blocks_per_wave=4)
     assert dst.getvalue() == streams[0] and stats.waves == 3
     for policy in POLICIES:
-        fr = TF.compress(data, policy, mesh=four)
+        fr = TF.compress(data, sidecar=policy, mesh=four)
         assert fr == framed[policy][0]
         assert TF.decompress(fr, mesh=one) == data

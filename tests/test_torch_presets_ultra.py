@@ -58,10 +58,10 @@ def test_odd_k_packed_form_matches_jax():
 def test_framed_ultra_auto_matches_jax():
     data = data_70k()
     jcfg, tcfg = PRESETS[PRESET]
-    fr = framing.compress(data, "auto", device="cpu", cfg=tcfg)
+    fr = framing.compress(data, tcfg, sidecar="auto", device="cpu")
     assert fr == jax_framing.compress(data, jcfg, sidecar="auto")
     assert framing.decompress(fr, device="cpu", cfg=tcfg) == data
-    assert framing.decompress(fr, False, device="cpu") == data
+    assert framing.decompress(fr, use_sidecar=False, device="cpu") == data
     assert jax_framing.decompress(fr, jcfg) == data
 
 

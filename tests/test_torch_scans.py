@@ -7,11 +7,17 @@ interpret mode (row by row, as tests/test_pallas.py runs them) and against
 a numpy oracle: widths 384 (a multiple of 128 but not of the kernels' 4096
 tile), 65536 and 69632, 1-D and three rows, int32-wrapping sums, and
 next_start_block at default m, 0, 100 and m // 2 on random, all-zero,
-first-only, last-only and all-set flags. At default < m - 1 on all-set
+first-only, last-only and all-set flags, and on tests/torch_edges.py's
+next_start_edge_rows (a single flag around each of the kernel's span and
+read-ahead edges, only at m - 1, none) at widths 384, 57344, 65536 and
+69632, batched and 1-D. At default < m - 1 on all-set
 rows the TPU kernel, and so the port, differs from scan.next_element_start:
 the tests hold that difference too. The `gpu` tests hold the CUDA kernels
 against the plain versions on the card.
 """
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -25,11 +31,14 @@ from tpu_snappy.ops.pallas import scans as PS
 from tpu_snappy_torch.ops import scan as TS
 from tpu_snappy_torch.ops.kernels import scans as KS
 
+from torch_edges import next_start_edge_rows
 from torch_threads import share_cores
 
 share_cores()
 
 WIDTHS = [384, 65536, 69632]
+#: The widths phase 3 of chip_smoke.py runs the kernels at.
+EDGE_WIDTHS = [384, 57344, 65536, 69632]
 
 
 @pytest.fixture
@@ -109,6 +118,32 @@ def test_next_start_block_plain_matches_pallas(m, pick):
     assert (got[4] != xla[4]).sum() == max(0, m - 1 - default)
 
 
+@pytest.mark.parametrize("m", EDGE_WIDTHS)
+def test_next_start_block_plain_matches_pallas_on_edge_rows(m):
+    """Single flags around every span end and read-ahead end of the CUDA
+    kernel, only at m - 1, none; batched and 1-D, at every default the
+    tests use."""
+    flags = next_start_edge_rows(m)
+    for default in (m, 0, 100, m // 2):
+        got = KS.next_start_block(torch.from_numpy(flags), default).numpy()
+        assert (got == _next_start_oracle(flags, default)).all(), default
+        for row in range(len(flags)):
+            want = np.asarray(PS.next_start_block(jnp.asarray(flags[row]),
+                                                  default))
+            assert (got[row] == want).all(), (default, row)
+            one = KS.next_start_block(torch.from_numpy(flags[row]), default)
+            assert (one.numpy() == want).all(), (default, row)
+
+
+def test_next_start_edges_follow_the_kernel():
+    """SPAN and AHEAD, which place the edge rows, are the CUDA kernel's
+    span and read-ahead."""
+    src = (pathlib.Path(KS.__file__).parent / "csrc" / "scans.cu").read_text()
+    threads = int(re.search(r"kSpanThreads = (\d+);", src).group(1))
+    assert 16 * threads == KS.SPAN
+    assert int(re.search(r"kAhead = (\d+);", src).group(1)) == KS.AHEAD
+
+
 def test_next_start_block_takes_any_flag_dtype():
     flags = _flags(np.random.default_rng(3), 384)
     want = KS.next_start_block(torch.from_numpy(flags), 100)
@@ -144,3 +179,15 @@ def test_scan_kernels_match_plain_on_the_card(m, cuda):
         assert torch.equal(KS.next_start_block(flags.to(torch.int32) * 3,
                                                default), got)
         assert KS.next_start_block.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", EDGE_WIDTHS)
+def test_next_start_block_matches_plain_on_edge_rows_on_the_card(m, cuda):
+    flags = torch.from_numpy(next_start_edge_rows(m)).to(cuda)
+    for default in (m, 0, 100, m // 2):
+        assert torch.equal(KS.next_start_block(flags, default),
+                           KS.next_start_block_plain(flags, default))
+        for row in flags:
+            assert torch.equal(KS.next_start_block(row, default),
+                               KS.next_start_block_plain(row, default))

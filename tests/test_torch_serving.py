@@ -193,11 +193,12 @@ def test_framed_serving_roundtrip_and_interop():
         stats = srv.stats
     for p, fr, b in zip(payloads, frames, backs):
         assert b == p
-        assert fr == framing.compress(p, "auto", device="cpu")
+        assert fr == framing.compress(p, sidecar="auto", device="cpu")
         if golden.available():
             assert golden.uncompress_framed(fr, max_out=len(p) + 16) == p
     assert back_sc == payloads[0]
-    assert fr_sc == framing.compress(payloads[0], "always", device="cpu")
+    assert fr_sc == framing.compress(payloads[0], sidecar="always",
+                                     device="cpu")
     assert stats.waves_by_kind.get("scd")  # root maps rode their own wave
     if golden.available():  # depth hints need the native simulator
         assert stats.waves_by_kind.get("dcd")
@@ -497,7 +498,7 @@ def test_server_on_the_card_matches_api(cuda):
         kinds = srv.stats.waves_by_kind
     assert got["raw"] == api.compress(data)
     for p in POLICIES:
-        assert got[p] == framing.compress(data, p)
+        assert got[p] == framing.compress(data, sidecar=p)
     assert all(got[f"{k} back"] == data for k in ("raw",) + POLICIES)
     assert set(kinds) == {"enc", "dec", "scd", "dcd"}
 
@@ -519,5 +520,5 @@ def test_server_across_cards_matches_api(cuda):
         got = _framed_mix(srv, data)
     assert got["raw"] == comp
     for p in POLICIES:
-        assert got[p] == framing.compress(data, p)
+        assert got[p] == framing.compress(data, sidecar=p)
     assert all(got[f"{k} back"] == data for k in ("raw",) + POLICIES)

@@ -283,8 +283,10 @@ def test_new_modes_on_the_card_match_cpu(batch, mode, cuda):
     args = tuple(t.to(cuda) for t in batch["t"])
     for collapse in (True, False):
         for fields in ("auto", "kernel"):
-            _same(TD.decode_fragments(*args, mode, fields, collapse),
-                  TD.decode_fragments(*batch["t"], mode, fields, collapse))
+            _same(TD.decode_fragments(*args, resolve=mode, fields=fields,
+                                      collapse_runs=collapse),
+                  TD.decode_fragments(*batch["t"], resolve=mode,
+                                      fields=fields, collapse_runs=collapse))
 
 
 @pytest.mark.gpu
@@ -309,6 +311,8 @@ def test_opening_and_depth_on_the_card_match_cpu(batch, cuda, monkeypatch):
     monkeypatch.setattr(TD, "WINDOWED_OPENING", True)
     launches = TD._gatherwin.gather_window_anchored.launches
     for collapse in (True, False):
-        _same(TD.decode_fragments(*args, "hybrid", "auto", collapse),
-              TD.decode_fragments(*batch["t"], "hybrid", "auto", collapse))
+        _same(TD.decode_fragments(*args, resolve="hybrid",
+                                  collapse_runs=collapse),
+              TD.decode_fragments(*batch["t"], resolve="hybrid",
+                                  collapse_runs=collapse))
     assert TD._gatherwin.gather_window_anchored.launches == launches + 4

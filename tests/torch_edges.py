@@ -14,7 +14,11 @@ kernels' tile restatements against the plain versions and the Pallas
 kernels on the CPU. `tiled_resolve_rows`, `resolved_flags` and
 `depth_variant` are the maps, flags and depths of the tiled resolves
 (ops/kernels/tiledres.py), for tests/test_torch_tiledres.py and
-chip_smoke.py's phase 3; `place_edge_rows` the adversarial destinations
+chip_smoke.py's phase 3, whose maps also feed resolve_block
+(tests/test_torch_doubling.py); `next_start_edge_rows` the single flags
+at next_start_block's span and read-ahead edges (ops/kernels/scans.py),
+for tests/test_torch_scans.py and phase 3; `place_edge_rows` the
+adversarial destinations
 of place_block and `limb_rows` those of the windowed scatter at 1-3 limbs
 and other out_cells, for tests/test_torch_place.py, test_torch_kernels.py
 and phase 3. numpy only, besides the kernel modules and the port's corpus
@@ -23,7 +27,7 @@ synthesis.
 
 import numpy as np
 
-from tpu_snappy_torch.ops.kernels import emit, matcher, tiledres
+from tpu_snappy_torch.ops.kernels import emit, matcher, scans, tiledres
 from tpu_snappy_torch.utils import corpus
 
 SEED = 20261016
@@ -266,6 +270,20 @@ def tiled_resolve_rows(rows: int, seed: int = SEED + 9):
     src = kinds[np.arange(rows) % len(kinds)]
     lit = rng.integers(0, 256, (rows, N)).astype(np.int32)
     return lit, src
+
+
+def next_start_edge_rows(m: int) -> np.ndarray:
+    """(rows, m) bool flags at next_start_block's span edges: for every
+    span end e inside the row (a multiple of scans.SPAN) and every end of
+    its read-ahead (e + scans.AHEAD), one row whose only set flag sits at
+    e - 1, at e and at e + 1; a row set only at m - 1; and an all-zero
+    row. For m < SPAN the row's end is the only span end."""
+    edges = sorted({p for e in range(scans.SPAN, m, scans.SPAN)
+                    for c in (e, e + scans.AHEAD)
+                    for p in (c - 1, c, c + 1) if 0 <= p < m} | {m - 1})
+    rows = np.zeros((len(edges) + 1, m), bool)
+    rows[np.arange(len(edges)), edges] = True
+    return rows
 
 
 #: The `resolved` flags resolve_tiled is held at: none given, every row

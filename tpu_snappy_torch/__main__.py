@@ -97,8 +97,7 @@ def main(argv=None):
         # Framed chunks are independent, so the container composes with
         # mesh sharding and streaming directly.
         def compress_fn(d):
-            return framing.compress(d, args.sidecar, cfg=cfg, device=dev,
-                                    mesh=mesh)
+            return framing.compress(d, cfg, mesh, args.sidecar, device=dev)
 
         def decompress_fn(c):
             return framing.decompress(c, device=dev, mesh=mesh)
@@ -121,8 +120,8 @@ def main(argv=None):
             with args.infile.open("rb") as src, args.outfile.open("wb") as dst:
                 if args.framed:
                     out_n = framing.compress_stream(
-                        src, dst, n, args.sidecar, device=dev, mesh=mesh,
-                        blocks_per_wave=args.blocks_per_wave, cfg=cfg)
+                        src, dst, n, mesh, args.blocks_per_wave, cfg,
+                        args.sidecar, device=dev)
                 else:
                     stats = streaming.compress_stream(
                         src, dst, n, mesh,

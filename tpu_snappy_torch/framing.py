@@ -9,9 +9,12 @@ re-batching. The encoder may put a decode sidecar (sidecar.py) before each
 compressed chunk: a 0x80 root map or 0x81 depth hints, both skippable by
 spec.
 
-Entry points: `compress(data, sidecar="off" | "auto" | "always", cfg=...)`,
-`decompress(framed, use_sidecar=True)` (and `decompress_with_stats`), and
-the streaming forms `compress_stream` / `decompress_stream`. They run on
+Entry points, in the JAX package's argument order: `compress(data, cfg,
+mesh, sidecar="off" | "auto" | "always")`, `decompress(framed, cfg, mesh,
+use_sidecar=True)` (and `decompress_with_stats`), and the streaming forms
+`compress_stream(src, dst, total_len, mesh, blocks_per_wave, cfg,
+sidecar)` / `decompress_stream(src, dst, mesh, chunks_per_wave, cfg,
+use_sidecar)`; `device` is keyword-only after them. They run on
 the CUDA card unless the caller passes `device="cpu"`; with no CUDA device
 visible, the default raises. The block encode and each of the three
 decode paths (root map, hinted, normal) run through the sharded codec
@@ -190,20 +193,42 @@ def _check_policy(policy: str) -> None:
         raise ValueError(f"sidecar {policy!r}: one of {POLICIES}")
 
 
+def _check_kinds(cfg, mesh, **flags) -> None:
+    """Raise TypeError, naming the argument, for a value of the wrong kind
+    in a positional slot of the JAX package's order (framing.py there):
+    `cfg` a CodecConfig, `mesh` None or a Mesh, a flag a bool, a wave
+    size an int (_check_policy vets the sidecar policy). A call in an
+    older order (a policy, a flag or a mesh where `cfg` or `mesh` now
+    stands) raises here instead of binding silently."""
+    if not isinstance(cfg, CodecConfig):
+        raise TypeError(f"cfg: expected a CodecConfig, got {cfg!r}")
+    if mesh is not None and not isinstance(mesh, meshlib.Mesh):
+        raise TypeError(f"mesh: expected None or a Mesh, got {mesh!r}")
+    kinds = {"use_sidecar": bool, "blocks_per_wave": int,
+             "chunks_per_wave": int}
+    for name, value in flags.items():
+        kind = kinds[name]
+        if not isinstance(value, kind) or (kind is int
+                                           and isinstance(value, bool)):
+            raise TypeError(f"{name}: expected a {kind.__name__}, got "
+                            f"{value!r}")
+
+
 def _mesh(device, mesh):
     """The mesh to run on: `mesh`, or one shard on `device` (which raises
     for CUDA when no card is visible)."""
     return meshlib.make_mesh(1, device=device) if mesh is None else mesh
 
 
-def compress(data: bytes, sidecar: str = "off", *, device="cuda",
-             cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> bytes:
+def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, mesh=None,
+             sidecar: str = "off", *, device="cuda") -> bytes:
     """Compress to a framed stream: one data chunk per 64 KB block, every
     block encoded at `cfg` sharded over `mesh` (default: one shard on
     `device`) in waves of api.API_WAVE blocks a shard; a chunk is stored
     uncompressed where compression would not shrink it. `sidecar` ("off",
     "auto" or "always") puts a decode sidecar before each compressed chunk
-    (see _sidecar_chunk)."""
+    (see _sidecar_chunk). The arguments take the JAX package's order."""
+    _check_kinds(cfg, mesh)
     _check_policy(sidecar)
     mesh = _mesh(device, mesh)
     if not data:
@@ -214,14 +239,17 @@ def compress(data: bytes, sidecar: str = "off", *, device="cuda",
     return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
 
 
-def compress_stream(src, dst, total_len: int, sidecar: str = "off", *,
-                    device="cuda", blocks_per_wave: int = 64,
-                    cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> int:
+def compress_stream(src, dst, total_len: int, mesh=None,
+                    blocks_per_wave: int = 64,
+                    cfg: CodecConfig = DEFAULT_CONFIG, sidecar: str = "off",
+                    *, device="cuda") -> int:
     """Stream `total_len` bytes from src into a framed stream on dst, in
     waves of `blocks_per_wave` blocks, each sharded over `mesh` (default:
     one shard on `device`); byte-identical to compress() on the whole
     input. The chunk assembly of one wave overlaps the next wave's encode
-    on a worker thread. Returns the bytes written."""
+    on a worker thread. Returns the bytes written. The arguments take the
+    JAX package's order."""
+    _check_kinds(cfg, mesh, blocks_per_wave=blocks_per_wave)
     _check_policy(sidecar)
     mesh = _mesh(device, mesh)
     dst.write(STREAM_ID)
@@ -515,21 +543,22 @@ def _decode_data_chunks(bodies: list, mesh, use_sidecar: bool,
     return [p for p in out_parts if p is not None]
 
 
-def decompress(framed: bytes, use_sidecar: bool = True, *,
-               device="cuda", cfg: CodecConfig = DEFAULT_CONFIG,
-               mesh=None) -> bytes:
+def decompress(framed: bytes, cfg: CodecConfig = DEFAULT_CONFIG, mesh=None,
+               use_sidecar: bool = True, *, device="cuda") -> bytes:
     """Decompress and validate a framed stream (structure and every CRC).
     use_sidecar=False ignores the decode sidecars (skippable by spec).
     Every decode path shards over `mesh` (default: one shard on
-    `device`)."""
-    return decompress_with_stats(framed, use_sidecar, device=device,
-                                 mesh=mesh)[0]
+    `device`). The arguments take the JAX package's order; `cfg` is
+    checked and, as there, the decode does not depend on it."""
+    return decompress_with_stats(framed, cfg, mesh, use_sidecar,
+                                 device=device)[0]
 
 
-def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
-                          device="cuda", cfg: CodecConfig = DEFAULT_CONFIG,
-                          mesh=None):
+def decompress_with_stats(framed: bytes, cfg: CodecConfig = DEFAULT_CONFIG,
+                          mesh=None, use_sidecar: bool = True, *,
+                          device="cuda"):
     """decompress, also returning the FramedStats of the paths taken."""
+    _check_kinds(cfg, mesh, use_sidecar=use_sidecar)
     mesh = _mesh(device, mesh)
     stats = FramedStats()
     bodies = [(t, framed[off: off + ln])
@@ -538,12 +567,15 @@ def decompress_with_stats(framed: bytes, use_sidecar: bool = True, *,
                                         stats)), stats
 
 
-def decompress_stream(src, dst, use_sidecar: bool = True, *, device="cuda",
-                      chunks_per_wave: int = 64,
-                      cfg: CodecConfig = DEFAULT_CONFIG, mesh=None) -> int:
+def decompress_stream(src, dst, mesh=None, chunks_per_wave: int = 64,
+                      cfg: CodecConfig = DEFAULT_CONFIG,
+                      use_sidecar: bool = True, *, device="cuda") -> int:
     """Stream-decode a framed stream from src to dst in windows of
     `chunks_per_wave` data chunks, each sharded over `mesh` (default: one
-    shard on `device`). Returns the bytes written."""
+    shard on `device`). Returns the bytes written. The arguments take the
+    JAX package's order."""
+    _check_kinds(cfg, mesh, use_sidecar=use_sidecar,
+                 chunks_per_wave=chunks_per_wave)
     mesh = _mesh(device, mesh)
     if src.read(len(STREAM_ID)) != STREAM_ID:
         raise ValueError("missing stream identifier chunk")

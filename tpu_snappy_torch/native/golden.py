@@ -1,10 +1,11 @@
 """ctypes binding of the repository's clean-room C++ Snappy codec (native/).
 
-The port's own binding, with only what it calls: `compress`,
-`uncompress`, `scan_index` (the decoder's host fragment split),
-`available`, and for the framed container `crc32c`, `root_map` and
-`depth_hints` (the 0x80 and 0x81 sidecars' payloads), `compress_framed`
-and `uncompress_framed` (an independent framed codec). It builds the
+The port's own binding, with only what it calls: `compress` (in
+MODE_BASELINE or MODE_DENSE), `uncompress`, `scan_index` (the decoder's
+host fragment split), `available`, and for the framed container
+`crc32c`, `root_map` and `depth_hints` (the 0x80 and 0x81 sidecars'
+payloads), `compress_framed` and `uncompress_framed` (an independent
+framed codec). It builds the
 shared sources in native/ at the repository root with CMake and Ninja, as
 tpu_snappy/native/golden.py does, but into a directory of its own
 (`_build/` beside this file, git-ignored), under a file lock, so
@@ -25,6 +26,11 @@ import numpy as np
 _ROOT = pathlib.Path(__file__).resolve().parent.parent.parent
 _NATIVE = _ROOT / "native"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+
+#: sr_compress's modes (native/snappy_ref.h): software Snappy's sparse
+#: parse, and the dense one that inserts every position.
+MODE_BASELINE = 0
+MODE_DENSE = 1
 
 _ERRORS = {
     1: "truncated stream",
@@ -120,12 +126,13 @@ def available() -> bool:
     return True
 
 
-def compress(data: bytes) -> bytes:
-    """Raw Snappy stream of `data` (baseline mode)."""
+def compress(data: bytes, mode: int = MODE_BASELINE) -> bytes:
+    """Raw Snappy stream of `data` in `mode` (MODE_BASELINE or
+    MODE_DENSE)."""
     lib = _load()
     cap = lib.sr_max_compressed_length(len(data))
     out = ctypes.create_string_buffer(cap)
-    n = lib.sr_compress(data, len(data), out, 0)
+    n = lib.sr_compress(data, len(data), out, mode)
     return out.raw[:n]
 
 
@@ -201,11 +208,12 @@ def depth_hints(elems: bytes, ulen: int, tail_cap: int, tile: int):
     return np.frombuffer(out, dtype=np.uint8).copy()
 
 
-def compress_framed(data: bytes) -> bytes:
-    """A Snappy framed stream (framing_format.txt) of `data`."""
+def compress_framed(data: bytes, mode: int = MODE_BASELINE) -> bytes:
+    """A Snappy framed stream (framing_format.txt) of `data`, each chunk
+    compressed in `mode` as compress does."""
     lib = _load()
     out = ctypes.create_string_buffer(lib.sr_max_framed_length(len(data)))
-    n = lib.sr_compress_framed(data, len(data), out, 0)
+    n = lib.sr_compress_framed(data, len(data), out, mode)
     return out.raw[:n]
 
 

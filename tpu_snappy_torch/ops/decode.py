@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import format as fmt
+from ..config import CodecConfig, DEFAULT_CONFIG
 from . import scan
 from .kernels import doubling as _doubling
 from .kernels import fields as _fields
@@ -397,11 +398,15 @@ def _check_modes(resolve: str, fields: str) -> None:
 
 
 def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
-                     ulens: torch.Tensor, resolve: str = "auto",
-                     fields: str = "auto", collapse_runs: bool = True):
+                     ulens: torch.Tensor, cfg: CodecConfig = DEFAULT_CONFIG,
+                     *, resolve: str = "auto", fields: str = "auto",
+                     collapse_runs: bool = True):
     """Decode a batch of fragments (decode.py:292). frags (B, M) uint8
     zero-padded, M a multiple of 1024 (frag_width gives one); clens, ulens
-    (B,) int32. resolve: one of RESOLVES, all giving the same bytes;
+    (B,) int32. cfg: the JAX package's argument (decode.py:746), checked
+    and, as there, unused: no decode depends on it. The port's options
+    are keyword-only after it. resolve: one of RESOLVES, all giving the
+    same bytes;
     "auto" is the TPU default "tiledtail" (dense rounds, then the resolve
     kernel with each fragment's `resolved` flag: cnt == 0). fields: one of
     FIELDS. collapse_runs: the periodic-run collapse before the resolve.
@@ -409,6 +414,8 @@ def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
     under "hybrid" includes the sparse chase's convergence; the rounds the
     resolve launched: dense, windowed, local or stability rounds, 0 for
     "tiled" and "kernel")."""
+    if not isinstance(cfg, CodecConfig):
+        raise TypeError(f"cfg: expected a CodecConfig, got {cfg!r}")
     _check_modes(resolve, fields)
     lit_out, src, ok = parse_transport(frags, clens, ulens, fields,
                                        collapse_runs)
@@ -443,8 +450,9 @@ def decode_corpus(frags: torch.Tensor, clens: torch.Tensor,
     what decode_fragments gives for the whole batch."""
     return _in_waves(
         "decode_corpus",
-        lambda f, c, u: decode_fragments(f, c, u, resolve, fields,
-                                         collapse_runs),
+        lambda f, c, u: decode_fragments(f, c, u, resolve=resolve,
+                                         fields=fields,
+                                         collapse_runs=collapse_runs),
         (frags, clens, ulens), wave)
 
 

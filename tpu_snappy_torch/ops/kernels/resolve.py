@@ -4,10 +4,12 @@ Port of tpu_snappy/ops/pallas/resolve.py:resolve_block, the decoder's
 resolve="kernel": pointer doubling to the fixed point (at most 16 rounds,
 1024-position tiles that went stable skipped), then the byte gather. The
 CUDA kernel is csrc/resolve.cu: one block per row keeps the map in shared
-memory as uint16 and doubles it in place (see its note). Its
-precondition, as decode guarantees: 0 <= src[p] <= p. In-place doubling
-then reaches the synchronous rounds' fixed point, so the bytes are the
-TPU's.
+memory as uint16 and doubles the whole row in place, one barrier a round,
+skipping pairs of positions whose pointers reached their roots (see its
+note). Its preconditions, as decode guarantees: 0 <= src[p] <= p, and lit
+holds byte values (the kernel gathers from a byte plane). In-place
+doubling then reaches the synchronous rounds' fixed point, so the bytes
+are the TPU's.
 """
 
 from __future__ import annotations
@@ -39,13 +41,15 @@ def resolve_block_plain(lit: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 def resolve_block(lit: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Resolve (B, 65536) int32 maps with 0 <= src[p] <= p against (B,
-    65536) int32 bytes `lit`. Returns (B, 65536) int32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    65536) int32 `lit` holding byte values (0-255). Returns (B, 65536)
+    int32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (rows 16-byte aligned)."""
     if _build.on_cpu(lit, src):
         return resolve_block_plain(lit, src)
     batch = lit.shape[0]
     _build.require(lit, torch.int32, (batch, N), "lit")
     _build.require(src, torch.int32, (batch, N), "src")
+    _build.require_aligned("resolve_block", lit, src)
     out = torch.empty_like(lit)
     if batch:
         rc = _build.lib().snk_resolve_block(lit.data_ptr(), src.data_ptr(),

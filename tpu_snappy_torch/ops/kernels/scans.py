@@ -2,8 +2,12 @@
 next-set-position scan.
 
 Port of tpu_snappy/ops/pallas/scans.py:cumsum_block and
-next_start_block. The CUDA kernels are csrc/scans.cu: one block a row,
-walking it in tiles of 4096 with a carry (see its note). As in the JAX
+next_start_block. The CUDA kernels are csrc/scans.cu (see its note): the
+cumsum walks each row with one block in tiles of 4096 and a carry;
+next_start_block splits each row into SPAN-position spans, one block a
+span, each finding the first set flag right of its span by reading ahead
+(AHEAD flags, then steps of 4 spans) instead of waiting for its
+neighbour. As in the JAX
 package, no codec path runs them: scan.exclusive_cumsum and
 scan.next_element_start keep their plain PyTorch forms, the counterparts
 of the XLA scans the JAX codec keeps (scans.py:9-16 records the Pallas
@@ -29,6 +33,12 @@ REPLACES = {"cumsum_block": "tpu_snappy/ops/pallas/scans.py:80",
 #: Row widths the kernels take are multiples of this (scans.py:34).
 LANES = 128
 
+#: next_start_block's kernel: positions a block (kSpan in csrc/scans.cu),
+#: and flags its warp 0 reads past the span's end (kAhead). The tests'
+#: edge rows put single flags around multiples of both.
+SPAN = 4096
+AHEAD = 512
+
 _I32_MAX = torch.iinfo(torch.int32).max
 
 
@@ -42,8 +52,8 @@ def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t contiguous and 16-byte aligned (the kernels load rows in 16- or
-    4-byte words)."""
+    """t contiguous and 16-byte aligned (the kernels load rows in 16-byte
+    words)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

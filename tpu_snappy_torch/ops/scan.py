@@ -56,10 +56,15 @@ def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         idx, 0, table.shape[-1] - 1).to(torch.int64))
 
 
-def segment_exit_maps(jump: torch.Tensor) -> torch.Tensor:
+def segment_exit_maps(jump: torch.Tensor,
+                      bounded: bool = False) -> torch.Tensor:
     """Within-segment chase tables. jump: (B, N) int32, every entry >= 1.
     Returns (B, N//S, S): entry state d -> exit state (distance past the
-    segment end; >= S where one jump overshoots the next segment)."""
+    segment end; >= S where one jump overshoots the next segment).
+    bounded: the JAX package's argument (scan.py:91), the caller's
+    promise that every jump is at most S. There it lets the TPU run the
+    map rounds in bf16; the values are the same either way, so here it
+    changes nothing."""
     b, n = jump.shape
     t = torch.arange(S, dtype=torch.int32, device=jump.device) \
         + jump.reshape(b, n // S, S)

@@ -146,21 +146,22 @@ def gather_manifest(shards: list, mesh: meshlib.Mesh) -> np.ndarray:
     return fetch_global(local, mesh)
 
 
-def assemble_compact(shards: list, lens_np: np.ndarray, nblocks: int,
+def assemble_compact(dense: list, lens_np: np.ndarray, nblocks: int,
                      mesh: meshlib.Mesh) -> list:
-    """Host assembly from the compacted form: each shard's dense payload
-    cut to its exact total and fetched once. Returns the payload pieces in
-    block order (one a shard that holds blocks; across processes, one a
-    process, gathered on every process). Rows past `nblocks` are padding
-    and hold no bytes."""
+    """Host assembly from the compacted form: `dense` holds, per local
+    shard, encode_local's (dense payload, out_lens, total); each payload is
+    cut to its exact total and fetched once. Returns the payload pieces
+    in block order (one a shard that holds blocks; across processes, one
+    a process, gathered on every process). Rows past `nblocks` are
+    padding and hold no bytes."""
     per = len(lens_np) // mesh.size
     first = mesh.rank * len(mesh.devices)
     pieces = []
-    for i, (dense, _lens, _t) in enumerate(shards):
+    for i, (payload, _lens, _t) in enumerate(dense):
         g = first + i
         nb = min(max(nblocks - g * per, 0), per)
         total = int(lens_np[g * per: g * per + nb].sum())
-        pieces.append(dense[:total].cpu().numpy().tobytes())
+        pieces.append(payload[:total].cpu().numpy().tobytes())
     if mesh.group is None:
         return [p for p in pieces if p]
     joined = np.frombuffer(b"".join(pieces), np.uint8)
@@ -239,11 +240,15 @@ def decode_sidecar_sharded(mesh: meshlib.Mesh, elems, starts, vals, ulens,
         lambda e, s, v, u: sc.decode_chunks(e, s, v, u, wrows))
 
 
-def decode_dp(comp: bytes, mesh: meshlib.Mesh) -> bytes:
+def decode_dp(comp: bytes, mesh: meshlib.Mesh,
+              cfg: CodecConfig = DEFAULT_CONFIG) -> bytes:
     """Fragment-parallel decompression sharded over `mesh`. Fragments that
     fail the device's checks re-decode on the host with the decoded prefix
     as context (api._splice_failed_fragments); a corrupt stream raises
-    ValueError."""
+    ValueError. `cfg` is the JAX package's argument (shard.py:222),
+    checked and, as there, unused: no decode depends on it."""
+    if not isinstance(cfg, CodecConfig):
+        raise TypeError(f"cfg: expected a CodecConfig, got {cfg!r}")
     total, start = fmt.varint_decode(comp)
     if total == 0:
         return b""
