@@ -8,15 +8,18 @@ Run from the repository root on a machine with an NVIDIA H100:
 With --parent DIR (a checkout of an earlier commit, for example unpacked
 with `git archive` into a git-ignored directory), phase 9 also times that
 checkout's kernels named in REDESIGNED (the two matchers, the two
-emissions, the two tiled resolves, doubling_round, place_block, the
-windowed scatter, resolve_block and next_start_block) beside this one's
+emissions, the three tiled resolves, doubling_round, place_block, the
+windowed scatter, resolve_block, next_start_block, ffill and
+local_round) beside this one's
 on every captured call, in turns (their outputs must be equal, every
 tensor), with each turn's bound share and library ratio, the tiled
 resolves, doubling_round, place_block and resolve_block also on each
 call's first 8 rows, the tiled resolves and resolve_block on the period-1
 chain, next_start_block at M 384, 57344, 65536 and 69632 (128 rows and
 1-D), and sweeps the tiles of the two scatters and of place_block's
-windowed scatter and ffill's chunk.
+windowed scatter, ffill's chunk, and every tile of the five tiled kernels
+(SWEPT: resolve_tiled, resolve_tiled_dual, resolve_tiled_depth,
+resolve_tiled_flag and local_round, each on its captured call).
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -35,10 +38,13 @@ Phases, each printing its results; any failure raises (non-zero exit):
    on parses at their tile edges: a 65536-byte literal run,
    runs of 60, 61, 256 and 257 on tile boundaries, 3-byte copies whose
    header bytes cross one, n inside a run, an all-copy row, a
-   block-opening literal; resolve_tiled, resolve_tiled_depth and
-   resolve_tiled_dual on tests/torch_edges.py's tiled-resolve rows at 1,
-   8, 128 and 133 rows under every `resolved` flag and declared depth
-   kind (0, under, over, above 11, negative); the resolve kernels on the
+   block-opening literal; resolve_tiled, resolve_tiled_dual,
+   resolve_tiled_depth, resolve_tiled_flag and local_round at every tile
+   they take (128 to 65536) on tests/torch_edges.py's tiled-resolve rows
+   at 1, 8, 128 and 133 rows under every `resolved` flag (check 1 and 3,
+   every variant), declared depth kind (0, under, over, above the cap,
+   negative) and root-flag kind (exact, over, zero), an illegal tile,
+   check or variant refused; the resolve kernels on the
    JAX tests' maps, the period-1 chain and a depth-10000 chain among them,
    with exact, over-approximate and all-zero root flags and partly stable
    tiles, resolve_block also on the tiled-resolve rows at 1, 8, 128 and
@@ -67,7 +73,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    random and all-one flags;
    ffill at B 2, 126 and 128, widths 57344 and 65536, 1 to 4 payloads,
    masks set only at 0, only at m - 1, only at each chunk's last position,
-   empty and full, at every chunk size);
+   empty and full, at every chunk size, and with max_gap 1 to 4096);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -186,10 +192,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
-                         LIMB_WROWS, OUT_CELLS, PLACE_KINDS, RESOLVED_KINDS,
-                         SEED, depth_variant, emit_edge_parses, limb_rows,
-                         make_data, matcher_edge_rows, place_edge_rows,
-                         next_start_edge_rows, resolved_flags,
+                         FLAG_KINDS, LIMB_WROWS, OUT_CELLS, PLACE_KINDS,
+                         RESOLVED_KINDS, SEED, depth_variant,
+                         emit_edge_parses, limb_rows, make_data,
+                         matcher_edge_rows, place_edge_rows,
+                         next_start_edge_rows, resolved_flags, root_flags,
                          synthetic_parse, tiled_resolve_rows)
 
 ROUND_TRIP_BYTES = 16 << 20
@@ -260,6 +267,7 @@ def check_kernels(dev) -> None:
         print(f"kernel ffill        B={BATCH} M={m} k=1..4: "
               f"max_abs_err={max(errs)}")
     errs += _ffill_edges(ffill, rng, t)
+    errs += _ffill_gaps(ffill, rng, t)
     report["ffill"] = max(errs)
 
     # scatter_windowed: transport-shaped dests (nondecreasing, dropped
@@ -336,55 +344,106 @@ def check_kernels(dev) -> None:
 #: Rows of phase 3's tiled-resolve checks: one, a server wave, an API
 #: wave, and more rows than the card has SMs.
 TILED_BATCHES = (1, 8, 128, 133)
+#: resolve_tiled's `check` values phase 3 runs at every tile.
+CHECKS = (1, 3)
+#: The 8-row batch's pairs of rows resolve_tiled_dual runs on (the second
+#: holds the period-1 chain).
+DUAL_PAIRS = (0, 4)
 
 
 def check_tiled_resolves(tiledres, t, report: dict) -> None:
-    """Phase 3, resolve_tiled, resolve_tiled_dual and resolve_tiled_depth
-    against their plain versions on tests/torch_edges.py's tiled-resolve
-    rows (every lane at 0, chains of tiles - 1 hops, the period-1 chain,
-    the identity, random maps, ...) at TILED_BATCHES rows: resolve_tiled
-    under every RESOLVED_KINDS flag (`resolved` on maps not at their fixed
-    point among them), resolve_tiled_depth under every DEPTH_KINDS depth
-    (exact, over- and under-declared, 0, above 11, negative, mixed; the
-    period-1 chain's exact depth is 10 in every tile), and
-    resolve_tiled_dual on the 8-row batch's pairs of rows under each
-    flag."""
-    errs, depth_errs, dual_errs = [], [], []
+    """Phase 3, the five tiled kernels at every tile they take
+    (tiledres.TILES, 128 to 65536) against their plain versions on
+    tests/torch_edges.py's tiled-resolve rows (every lane at 0, chains of
+    tiles - 1 hops, the period-1 chain, the identity, random maps, ...) at
+    TILED_BATCHES rows: resolve_tiled under every RESOLVED_KINDS flag
+    (`resolved` on maps not at their fixed point among them), at check 1
+    and 3 and every variant ("pair" refused at 65536); resolve_tiled_dual
+    on two pairs of the 8-row batch under each flag and check;
+    resolve_tiled_depth under every DEPTH_KINDS depth of the tile (exact,
+    over- and under-declared, 0, above the cap, negative, mixed; the
+    period-1 chain's exact depth is 10 in every 1024-tile);
+    resolve_tiled_flag under every FLAG_KINDS flag; local_round. An
+    illegal tile, check or variant must raise ValueError."""
+    from tpu_snappy_torch.ops.kernels import localround
+
+    errs = {k: [] for k in ("resolve_tiled", "resolve_tiled_dual",
+                            "resolve_tiled_depth", "resolve_tiled_flag",
+                            "local_round")}
     for batch in TILED_BATCHES:
         lit_np, src_np = tiled_resolve_rows(batch)
         lit, src = t(lit_np), t(src_np)
-        for kind in RESOLVED_KINDS:
-            flags = resolved_flags(kind, batch)
-            res = None if flags is None else t(flags)
-            errs.append(_exact(tiledres.resolve_tiled(lit, src, res),
-                               tiledres.resolve_tiled_plain(lit, src, res)))
-        exact = tiledres.tile_depths_plain(torch.from_numpy(src_np)).numpy()
-        if batch > 5 and exact[5].tolist() != [10] * (N // tiledres.DEPTH_TILE):
-            raise AssertionError(f"chain depths {exact[5].tolist()}")
-        for kind in DEPTH_KINDS:
-            d = t(depth_variant(kind, exact))
-            depth_errs.append(_exact(
-                tiledres.resolve_tiled_depth(lit, src, d),
-                tiledres.resolve_tiled_depth_plain(lit, src, d)))
-        for row in range(0, batch, 2) if batch == 8 else ():
+        flag_sets = {k: t(root_flags(k, src_np)) for k in FLAG_KINDS}
+        for tile in tiledres.TILES:
             for kind in RESOLVED_KINDS:
-                flags = resolved_flags(kind, 2)
+                flags = resolved_flags(kind, batch)
                 res = None if flags is None else t(flags)
-                pair = (lit[row:row + 2].contiguous(),
-                        src[row:row + 2].contiguous())
-                dual_errs.append(_exact(
-                    tiledres.resolve_tiled_dual(*pair, res),
-                    tiledres.resolve_tiled_dual_plain(*pair, res)))
-    report["resolve_tiled"] = max(errs)
-    report["resolve_tiled_depth"] = max(depth_errs)
-    report["resolve_tiled_dual"] = max(dual_errs)
-    print(f"kernel resolve_tiled B={TILED_BATCHES} (the tiled-resolve rows; "
-          f"resolved {', '.join(RESOLVED_KINDS)}): max_abs_err={max(errs)}")
-    print(f"kernel resolve_depth B={TILED_BATCHES} (same rows; depths "
-          f"{', '.join(DEPTH_KINDS)}): max_abs_err={max(depth_errs)}")
-    print(f"kernel resolve_tiled_dual (2, {N}) (pairs of the 8-row batch; "
-          f"resolved {', '.join(RESOLVED_KINDS)}): "
-          f"max_abs_err={max(dual_errs)}")
+                for check in CHECKS:
+                    want = tiledres.resolve_tiled_plain(lit, src, res, tile,
+                                                        check)
+                    for variant in tiledres.VARIANTS:
+                        if variant == "pair" and tile == N:
+                            continue
+                        errs["resolve_tiled"].append(_exact(
+                            tiledres.resolve_tiled(lit, src, res, tile,
+                                                   check, variant), want))
+                    for row in DUAL_PAIRS if batch == 8 else ():
+                        pair = (lit[row:row + 2].contiguous(),
+                                src[row:row + 2].contiguous())
+                        res2 = None if res is None else res[row:row + 2]
+                        errs["resolve_tiled_dual"].append(_exact(
+                            tiledres.resolve_tiled_dual(*pair, res2, tile,
+                                                        check),
+                            tiledres.resolve_tiled_dual_plain(
+                                *pair, res2, tile, check)))
+            exact = tiledres.tile_depths_plain(src, tile).cpu().numpy()
+            if (tile == tiledres.DEPTH_TILE and batch > 5
+                    and exact[5].tolist() != [10] * (N // tile)):
+                raise AssertionError(f"chain depths {exact[5].tolist()}")
+            for kind in DEPTH_KINDS:
+                d = t(depth_variant(kind, exact))
+                errs["resolve_tiled_depth"].append(_exact(
+                    tiledres.resolve_tiled_depth(lit, src, d, tile),
+                    tiledres.resolve_tiled_depth_plain(lit, src, d, tile)))
+            for kind, f in flag_sets.items():
+                errs["resolve_tiled_flag"].append(_exact(
+                    tiledres.resolve_tiled_flag(lit, src, f, tile),
+                    tiledres.resolve_tiled_flag_plain(lit, src, f, tile)))
+            errs["local_round"].append(_exact(
+                localround.local_round(src, tile),
+                localround.local_round_plain(src, tile)))
+    one = (t(tiled_resolve_rows(1)[0]), t(tiled_resolve_rows(1)[1]))
+    refused = [lambda: tiledres.resolve_tiled(*one, None, N, 1, "pair"),
+               lambda: tiledres.resolve_tiled(*one, None, 4096, 0),
+               lambda: tiledres.resolve_tiled(*one, None, 4096, 1, "dual"),
+               lambda: tiledres.resolve_tiled(*one, None, 2048 + 128),
+               lambda: tiledres.resolve_tiled_flag(*one, one[1], 64),
+               lambda: localround.local_round(one[1], 2 * N)]
+    for call in refused:
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("an illegal tile, check or variant ran")
+    for name, found in errs.items():
+        report[name] = max(report.get(name, 0), max(found))
+    print(f"kernel resolve_tiled B={TILED_BATCHES} tiles {tiledres.TILES} "
+          f"(the tiled-resolve rows; resolved {', '.join(RESOLVED_KINDS)}; "
+          f"check {CHECKS}; variants {tiledres.VARIANTS}): "
+          f"max_abs_err={report['resolve_tiled']}")
+    print(f"kernel resolve_tiled_dual (2, {N}) at every tile (pairs "
+          f"{DUAL_PAIRS} of the 8-row batch; resolved "
+          f"{', '.join(RESOLVED_KINDS)}; check {CHECKS}): "
+          f"max_abs_err={report['resolve_tiled_dual']}")
+    print(f"kernel resolve_depth B={TILED_BATCHES} at every tile (same "
+          f"rows; depths {', '.join(DEPTH_KINDS)}): "
+          f"max_abs_err={report['resolve_tiled_depth']}")
+    print(f"kernel resolve_flag B={TILED_BATCHES} at every tile (same rows; "
+          f"flags {', '.join(FLAG_KINDS)}): "
+          f"max_abs_err={report['resolve_tiled_flag']}")
+    print(f"kernel local_round B={TILED_BATCHES} at every tile (same rows): "
+          f"max_abs_err={report['local_round']}; illegal tiles, check and "
+          f"variant refused")
 
 
 def _ffill_edge_masks(m: int) -> list:
@@ -436,6 +495,39 @@ def _ffill_edges(ffill, rng, t) -> list:
         print(f"kernel ffill        B 2/126/128 M={m} k=1..4, masks at 0 "
               f"only, m-1 only, each chunk's last position, empty, full, "
               f"random; chunks {ffill.CHUNKS}: max_abs_err={max(errs)}")
+    return errs
+
+
+#: The TPU fill's `max_gap` values phase 3 runs: windows of 2, 128, 1024
+#: and 2048 (gap 1024 fills 1023 positions, 1025 one more) and the
+#: sidecar's SPLIT_LEN.
+FFILL_GAPS = (1, 2, 100, 1024, 1025, 4096)
+
+
+def _ffill_gaps(ffill, rng, t) -> list:
+    """Phase 3, the fill with the TPU kernel's `max_gap` (FFILL_GAPS) on
+    _ffill_edge_masks' rows at B 2 (each pair of rows in a call) and 128,
+    widths 57344 and 65536, 1 and 4 payloads, every chunk size: the masks'
+    gaps lie below, at and above each window. Returns the differences."""
+    errs = []
+    for m in (57344, N):
+        edges = _ffill_edge_masks(m)
+        masks = [np.stack([edges[i], edges[(i + 1) % len(edges)]])
+                 for i in range(0, len(edges), 2)]
+        masks.append(np.stack([edges[i % len(edges)] for i in range(128)]))
+        for mask in masks:
+            mk, b = t(mask), mask.shape[0]
+            for k in (1, 4):
+                vals = tuple(t(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                            (b, m), dtype=np.int64)
+                               .astype(np.int32)) for _ in range(k))
+                for gap in FFILL_GAPS:
+                    want = ffill.ffill_plain(mk, vals, gap)
+                    for chunk in (None, *ffill.CHUNKS):
+                        got = ffill.ffill(mk, vals, chunk=chunk, max_gap=gap)
+                        errs += [_exact(g, w) for g, w in zip(got, want)]
+    print(f"kernel ffill        max_gap {FFILL_GAPS} on the same masks, B "
+          f"2/128, k 1 and 4, every chunk: max_abs_err={max(errs)}")
     return errs
 
 
@@ -778,7 +870,7 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
         got = localround.local_round(s)
         errs.append(_exact(got, localround.local_round_plain(s)))
         s = got
-    report["local_round"] = max(errs)
+    report["local_round"] = max(errs + [report["local_round"]])
     print(f"kernel local_round  B={BATCH} (the maps, 3 chained rounds): "
           f"max_abs_err={max(errs)}")
 
@@ -841,7 +933,7 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
         errs.append(_exact(tiledres.resolve_tiled_flag(lit, src, flags),
                            tiledres.resolve_tiled_flag_plain(lit, src,
                                                              flags)))
-    report["resolve_tiled_flag"] = max(errs)
+    report["resolve_tiled_flag"] = max(errs + [report["resolve_tiled_flag"]])
     print(f"kernel resolve_tiled_flag B={BATCH} (the maps; flags exact, over, "
           f"zero, one): max_abs_err={max(errs)}")
 
@@ -1551,8 +1643,8 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     plain_ms = _timed(lambda: tiledres.resolve_tiled_plain(lit, chain), dev, 5)
     print(f"time resolve_tiled ({batch}, {N}) src=max(i-1,0), depth 65535: "
           f"kernel {ms} ms, plain {plain_ms} ms [{card}]")
-    ms = _timed(lambda: tiledres.resolve_tiled_depth(lit, chain, deps), dev,
-                20)
+    ms = _timed(lambda: tiledres.resolve_tiled_depth(
+        lit, chain, deps, tiledres.DEPTH_TILE), dev, 20)
     print(f"time resolve_tiled_depth ({batch}, {N}) on the same chain, "
           f"depth 10 a tile: kernel {ms} ms [{card}]")
     resolve = kernels["resolve_block"]
@@ -1590,11 +1682,14 @@ def _extreme(pick, values: list):
 
 #: The kernels whose earlier design `--parent` times beside this one.
 #: scatter_windowed's kernels now also serve place_block (templated on
-#: the limb count), so its own calls are timed against the parent's too.
+#: the limb count), so its own calls are timed against the parent's too;
+#: ffill, resolve_tiled_flag and local_round took the TPU kernels'
+#: max_gap and tiles, so their main-path calls are held to the parent's.
 REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
               "emit_block", "resolve_tiled", "resolve_tiled_depth",
               "doubling_round", "place_block", "scatter_windowed",
-              "resolve_block", "next_start_block")
+              "resolve_block", "next_start_block", "ffill",
+              "resolve_tiled_flag", "local_round")
 #: The REDESIGNED kernels `--parent` also times on each captured call's
 #: first SERVER_ROWS rows: the server's wave, where a serial walk's latency
 #: does not shrink with the batch, and where a grid of few rows fills less
@@ -1622,9 +1717,23 @@ def _parent_kernels(parent: str) -> dict:
     sys.modules["parent_port"] = module
     spec.loader.exec_module(module)
     kernels = _kernel_modules()
-    return {name: getattr(importlib.import_module(
+    return {name: _known_keywords(getattr(importlib.import_module(
         kernels[name].__name__.replace("tpu_snappy_torch", "parent_port")),
-        name) for name in REDESIGNED}
+        name)) for name in REDESIGNED}
+
+
+def _known_keywords(fn):
+    """fn, dropping the keyword arguments it does not take: a parent
+    wrapper that predates an argument (the tiled resolves' `tile` and
+    `variant`) runs the value the main path passes (the decoder's tiles,
+    "fori") without it."""
+    import inspect
+    names = set(inspect.signature(fn).parameters)
+
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        return fn(*args, **{k: v for k, v in kw.items() if k in names})
+    return call
 
 
 def _first_rows(args, kw: dict, n: int):
@@ -1719,23 +1828,24 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
                   f"{_kernel_split(lambda: new(*a, **k))} [{card}]")
     lit, chain, deps = _chain_case(dev, captured)
     rng = np.random.default_rng(SEED + 2)
-    extra = [("resolve_tiled", (lit, chain), "the period-1 chain"),
-             ("resolve_tiled_depth", (lit, chain, deps),
+    hint = {"tile": kernels["resolve_tiled_depth"].DEPTH_TILE}
+    extra = [("resolve_tiled", (lit, chain), {}, "the period-1 chain"),
+             ("resolve_tiled_depth", (lit, chain, deps), hint,
               "the period-1 chain"),
-             ("resolve_block", (lit, chain), "the period-1 chain")]
+             ("resolve_block", (lit, chain), {}, "the period-1 chain")]
     for m in (384, 57344, 65536, 69632):
         flags = torch.from_numpy(rng.random((128, m)) < 0.1).to(dev)
-        extra += [("next_start_block", (flags, m), "seeded flags"),
-                  ("next_start_block", (flags[0], m), "a 1-D row")]
-    for name, a, what in extra:
+        extra += [("next_start_block", (flags, m), {}, "seeded flags"),
+                  ("next_start_block", (flags[0], m), {}, "a 1-D row")]
+    for name, a, k, what in extra:
         new = getattr(kernels[name], name)
-        outs = new(*a)
-        if _exact(old[name](*a), outs):
+        outs = new(*a, **k)
+        if _exact(old[name](*a, **k), outs):
             raise AssertionError(f"{name}: the parent's output differs")
         bound_ms, _ = _bound(name, a, outs)
         shape = tuple(a[0 if name == "next_start_block" else 1].shape)
         print(f"parent against this: {name} {shape} on {what}: "
-              f"{_in_turns(dev, old[name], new, a, {}, bound_ms, None)} "
+              f"{_in_turns(dev, old[name], new, a, k, bound_ms, None)} "
               f"[{card}]")
 
 
@@ -1791,6 +1901,52 @@ def tile_sweep(dev, captured: dict, card: str) -> None:
                        f" {_graph_ms(fn, dev)} ms")
         print(f"sweep {name} in {stage} {shapes} {scalars}, graph_ms: "
               f"{'; '.join(res)} [{card}]")
+
+
+#: The tiled kernels resolve_tile_sweep times at every tile, and the tile
+#: each runs at on the main path (the decoder's TAIL_TILE, HINT_TILE and
+#: PARA_TILE).
+SWEPT = {"resolve_tiled": 4096, "resolve_tiled_dual": 4096,
+         "resolve_tiled_depth": 1024, "resolve_tiled_flag": 4096,
+         "local_round": 4096}
+
+
+def resolve_tile_sweep(dev, captured: dict, card: str) -> None:
+    """With `--parent DIR`, the tiled kernels at every tile they take
+    (tiledres.TILES), device only (graph_ms), on each one's largest
+    captured main-path call (resolve_tiled_dual on the first two rows of
+    resolve_tiled's, with its `resolved` flags; resolve_tiled_depth with
+    each tile's exact depths of the captured map, tile_depths_plain), each
+    output equal to the plain version's at that tile; the main path's tile
+    is marked."""
+    kernels = _kernel_modules()
+    for name, main_tile in SWEPT.items():
+        base = "resolve_tiled" if name == "resolve_tiled_dual" else name
+        calls = [c for (n, *_), c in captured.items() if n == base]
+        args, kw = max(calls, key=lambda c: c[0][0].numel())
+        # The tensors alone: local_round's tile comes by position.
+        args = tuple(a for a in args if isinstance(a, torch.Tensor))
+        kw = dict(kw)
+        if name == "resolve_tiled_dual":
+            args = tuple(a[:2].contiguous() for a in args)
+            kw = {k: v[:2].contiguous() if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items() if k == "resolved"}
+            args, kw = (*args, kw.pop("resolved", None)), {}
+        mod = kernels[name]
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        res = []
+        for tile in mod.TILES:
+            a, k = args, {**kw, "tile": tile}
+            if name == "resolve_tiled_depth":
+                a = (*args[:2], mod.tile_depths_plain(args[1], tile))
+            fn = functools.partial(kern, *a, **k)
+            if _exact(fn(), plain(*a, **k)):
+                raise AssertionError(f"{name} at tile {tile} differs")
+            mark = " (main path)" if tile == main_tile else ""
+            res.append(f"tile {tile}{mark} {_graph_ms(fn, dev)} ms")
+        shapes = tuple(tuple(t.shape) for t in _tensors(args))
+        print(f"tile sweep {name} {shapes}, graph_ms: {'; '.join(res)} "
+              f"[{card}]")
 
 
 #: Blocks of phase 8's traced compresses above K 16 (_wide_k).
@@ -2594,6 +2750,7 @@ def main() -> None:
     if opts.parent:
         compare_parent(dev, captured, stages, opts.parent, card)
         tile_sweep(dev, captured, card)
+        resolve_tile_sweep(dev, captured, card)
     parallel_and_surfaces(dev, data, comp, framed, framed_stats, wrappers,
                           card)
     serving_phase(dev, data, framed, wrappers, card)

@@ -78,8 +78,9 @@ def test_local_round_plain_matches_pallas(maps):
         assert (got == want).all()
         assert not (got == s).all()
         s = got
-    with pytest.raises(ValueError, match="4096"):
-        KL.local_round(_t(src), tile=2048)
+    for tile in (2000, 64, 131072):  # legal: 128 << k dividing 65536
+        with pytest.raises(ValueError, match="tile"):
+            KL.local_round(_t(src), tile=tile)
 
 
 def test_local_rounds_reach_the_tile_fixed_point(maps):

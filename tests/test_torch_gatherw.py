@@ -157,7 +157,7 @@ def test_resolve_tiled_dual_plain_matches_pallas():
     # Each half is resolve_tiled on its fragment.
     assert (got == KT.resolve_tiled(_t(lit2), _t(src2),
                                     _t(flags)).numpy()).all()
-    for kw in ({"tile": 2048}, {"check": 2}):
+    for kw in ({"tile": 2000}, {"check": 0}):  # an illegal tile, check
         with pytest.raises(ValueError, match="resolve_tiled_dual"):
             KT.resolve_tiled_dual(_t(lit2), _t(src2), **kw)
     with pytest.raises(ValueError, match="two"):

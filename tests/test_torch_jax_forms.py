@@ -9,18 +9,26 @@ wrong kind in `cfg`'s or `mesh`'s place (a policy string or a flag from
 an older order) raises TypeError naming the argument instead of binding
 silently. A guard compares the positional parameters of every public
 function the two packages share, by inspect.signature; the C++ golden's
-`mode` is among them.
+`mode` is among them. A second guard pairs each kernel wrapper of
+ops/kernels/ with the Pallas function its REPLACES names and requires the
+wrapper to take every parameter of it, and a third requires every public
+function, class and UPPER_CASE constant of a JAX module to have a
+counterpart in the port's module (ops.pallas.X in ops.kernels.X), or an
+entry in JAX_ONLY_NAMES with its reason.
 """
 
+import ast
 import importlib
 import inspect
 import io
+import pathlib
 import pkgutil
 
 import numpy as np
 import pytest
 import torch
 
+import tpu_snappy
 from tpu_snappy import framing as JF
 from tpu_snappy.config import DEFAULT_CONFIG as J_DEFAULT
 from tpu_snappy.config import FAST_CONFIG as J_FAST
@@ -57,6 +65,42 @@ JAX_ONLY = {
         "fetch_bucket": "JAX's bucketed slice sizes, which bound its count "
                         "of compiled fetch programs; the port fetches each "
                         "payload once and compiles nothing"},
+}
+
+#: Public names of JAX modules the port has no counterpart for, each with
+#: its reason: jit objects (the port runs eagerly), the JAX mesh's
+#: sharding objects, a TPU-only switch, and the Pallas kernels' VMEM
+#: layout constants.
+JIT = "a jax.jit of a function the port has; PyTorch runs eagerly"
+SHARDING = ("a JAX sharding object of the device mesh; the port's Mesh is "
+            "a tuple of devices and moves whole rows")
+LAYOUT = ("the Pallas kernel's VMEM layout (its (8, 128) tiling: rows, "
+          "lanes and blocks a grid step), which a CUDA kernel does not have")
+PALLAS_LAYOUT = {"LANES", "ROWS", "HI", "LO", "LO_BITS", "TR", "TC", "TILES",
+                 "WR", "NBLK"}
+JAX_ONLY_NAMES = {
+    ("ops.decode", "decode_fragments_jit"): JIT,
+    ("ops.decode", "decode_fragments_depth_jit"): JIT,
+    ("sidecar", "decode_chunks_jit"): JIT,
+    ("ops.pallas.gather", "gather_blocks"): JIT + " (gather_block is "
+                                                  "batched already)",
+    ("parallel.mesh", "P"): "jax.sharding.PartitionSpec, imported; "
+                            + SHARDING,
+    ("parallel.mesh", "block_sharding"): SHARDING,
+    ("parallel.mesh", "scalar_sharding"): SHARDING,
+    ("parallel.mesh", "replicated"): SHARDING,
+    ("ops.encode", "FORCE_XLA_MATCHER"): (
+        "a switch that keeps the TPU off its Pallas matcher; the port's "
+        "matcher route follows the CodecConfig alone (ops/encode.py:_match)"),
+    ("ops.pallas.gather", "N"): ("the table width the Pallas kernel fixes; "
+                                 "the port's gather_block takes any width"),
+    ("ops.pallas.fields", "FRAG_CAP"): (
+        "the Pallas kernel's input width; ops.decode.FRAG_CAP holds it, and "
+        "the port's elem_fields_block takes any multiple of WIDTH_STEP"),
+    ("ops.pallas.place", "SENT"): (
+        "the Pallas kernel's inactive-destination sentinel; the port's "
+        "place_block drops a destination outside [0, out_cells) and needs "
+        "none (ops.encode.SENT is the emission's)"),
 }
 
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
@@ -125,11 +169,111 @@ def test_every_shared_function_starts_with_the_jax_positions():
                  "framing.decompress", "framing.decompress_stream",
                  "ops.decode.decode_fragments", "parallel.shard.decode_dp",
                  "ops.scan.segment_exit_maps", "native.golden.compress",
-                 "serving.CodecServer.__init__", "api.compress"):
+                 "serving.CodecServer.__init__", "api.compress",
+                 "ops.decode.decode_fragment", "ops.encode.encode_block",
+                 "ops.scan.gather_s", "parallel.shard.pad_count",
+                 "utils.profiling.sync1", "native.golden.swcompression_path",
+                 "native.golden.depth_hints_sim"):
         assert must in checked, must
     for (rel, name), names in JAX_ONLY.items():
         theirs = getattr(importlib.import_module(f"tpu_snappy.{rel}"), name)
         assert set(names) <= set(_positional(theirs)), (rel, name)
+
+
+def _kernel_modules() -> dict:
+    """Every kernel module of the port, by name (ops.kernels.X)."""
+    import tpu_snappy_torch.ops.kernels as K
+    return {info.name: importlib.import_module(f"{K.__name__}.{info.name}")
+            for info in pkgutil.iter_modules(K.__path__)
+            if not info.name.startswith("_")}
+
+
+def _replaced() -> list:
+    """(wrapper, Pallas function) for every entry of every kernel module's
+    REPLACES ("file:line" of the Pallas function's def)."""
+    root = pathlib.Path(tpu_snappy.__file__).resolve().parent.parent
+    pairs = []
+    for mod in _kernel_modules().values():
+        rep = getattr(mod, "REPLACES", None)
+        if rep is None:
+            continue
+        if isinstance(rep, dict):
+            items = rep.items()
+        else:  # the module's one wrapper: its one launch counter
+            counted = [n for n, f in vars(mod).items()
+                       if callable(f) and hasattr(f, "launches")]
+            assert len(counted) == 1, (mod.__name__, counted)
+            items = [(counted[0], rep)]
+        for name, where in items:
+            path, line = where.split(":")
+            tree = ast.parse((root / path).read_text())
+            defs = [n.name for n in ast.walk(tree)
+                    if isinstance(n, ast.FunctionDef) and n.lineno == int(line)]
+            assert len(defs) == 1, f"{mod.__name__}: no def at {where}"
+            jax_mod = importlib.import_module(
+                path[:-3].replace("/", "."))
+            pairs.append((mod, getattr(mod, name),
+                          getattr(jax_mod, defs[0])))
+    return pairs
+
+
+def test_every_kernel_wrapper_takes_the_pallas_parameters():
+    """Each wrapper named in a REPLACES takes every parameter of its Pallas
+    function (`*vals` aside; an option by its name, a tensor input by its
+    name or its position): the kernels' arguments that change bytes
+    (tiles, variants, check counts, max_gap) cannot go missing."""
+    pairs, bad = _replaced(), []
+    for mod, wrapper, pallas in pairs:
+        theirs = inspect.signature(inspect.unwrap(pallas)).parameters
+        mine = inspect.signature(wrapper).parameters
+        slots = [q for q in mine.values() if q.kind in _POSITIONAL]
+        for i, p in enumerate(theirs.values()):
+            if p.kind is inspect.Parameter.VAR_POSITIONAL:
+                continue
+            # A tensor input (no default) may take a batched name
+            # (window_keys_block's `block`, the wrapper's `blocks`) in its
+            # place; an option must keep its name.
+            tensor = (p.default is inspect.Parameter.empty and i < len(slots)
+                      and slots[i].default is inspect.Parameter.empty)
+            if p.name not in mine and not tensor:
+                bad.append(f"{mod.__name__}.{wrapper.__name__} lacks "
+                           f"{pallas.__name__}'s {p.name}")
+    assert not bad, "\n".join(bad)
+    assert len(pairs) == 22  # every function reaching pl.pallas_call
+    names = {w.__name__ for _, w, _ in pairs}
+    assert {"ffill", "local_round", "resolve_tiled", "resolve_tiled_flag",
+            "resolve_tiled_depth", "resolve_tiled_dual"} <= names
+
+
+def _port_module_name(rel: str) -> str:
+    return ("tpu_snappy_torch." + rel.replace("ops.pallas", "ops.kernels", 1))
+
+
+def test_every_jax_name_has_a_port_counterpart():
+    replaced = {p.__name__ for _, _, p in _replaced()}
+    missing, seen = [], set()
+    for info in pkgutil.walk_packages(tpu_snappy.__path__, "tpu_snappy."):
+        rel = info.name.split(".", 1)[1]
+        theirs = importlib.import_module(info.name)
+        mine = importlib.import_module(_port_module_name(rel))
+        for name, obj in vars(theirs).items():
+            if name.startswith("_"):
+                continue
+            public = name.isupper() or (
+                callable(obj) and getattr(obj, "__module__", None)
+                == theirs.__name__)
+            if not public or hasattr(mine, name):
+                continue
+            seen.add((rel, name))
+            if (rel, name) in JAX_ONLY_NAMES:
+                continue
+            if rel.startswith("ops.pallas.") and (
+                    name in PALLAS_LAYOUT or name in replaced):
+                continue
+            missing.append(f"{rel}.{name}")
+    assert not missing, missing
+    stale = set(JAX_ONLY_NAMES) - seen
+    assert not stale, f"allowlisted names the port now has: {stale}"
 
 
 def test_framed_compress_in_the_jax_form():

@@ -8,7 +8,9 @@ constant and helper, every field of the four `config` presets, the
 decoder and sidecar constants the framed container's sidecars are built
 for, `utils.corpus.synth` for every kind and `utils.metrics` on a row set.
 The C++ golden binding builds
-into the port's own directory. `utils.profiling` times and traces torch
+into the port's own directory, its command-line harness
+(`swcompression_path`) and the depth hints' simulation
+(`depth_hints_sim`) included. `utils.profiling` times and traces torch
 work. The API runs on the card by default and,
 with no CUDA device visible, raises instead of running on the CPU.
 """
@@ -56,9 +58,18 @@ def test_import_loads_no_jax_and_no_jax_package():
         ROOT / "tpu_snappy_torch").with_suffix("")).replace("/", ".")
         for p in (ROOT / "tpu_snappy_torch").rglob("*.py")
         if p.name != "__init__.py" and "_build" not in p.parts)
+    # The golden's extras run too, where cmake and Ninja are there: the
+    # CLI harness's build and the depth hints' simulation.
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from tpu_snappy_torch.native import golden\n"
+            "from tpu_snappy_torch import format as fmt\n"
+            "if golden.available():\n"
+            "    assert golden.swcompression_path().exists()\n"
+            "    comp = golden.compress(b'snappy ' * 3000)\n"
+            "    total, start = fmt.varint_decode(comp)\n"
+            "    golden.depth_hints_sim(comp[start:], total, 0, 1024)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
             "             in ('jax', 'jaxlib', 'tpu_snappy'))\n"
             "print(bad)\n")
@@ -147,6 +158,12 @@ def test_golden_builds_in_its_own_directory():
     data = b"snappy " * 3000
     comp = golden.compress(data)
     assert golden.uncompress(comp) == data
+    cli = golden.swcompression_path()
+    assert cli.parent == golden.BUILD_DIR and cli.exists()
+    total, start = fmt.varint_decode(comp)
+    hints = golden.depth_hints_sim(comp[start:], total, 0, 1024)
+    assert np.array_equal(hints, golden.depth_hints(comp[start:], total, 0,
+                                                    1024))
     assert reference_codec.decompress(comp) == data
     if realsnappy.available():
         assert realsnappy.uncompress(golden.compress(data)) == data

@@ -119,7 +119,8 @@ def test_resolve_tiled_depth_plain_matches_pallas(maps, kind):
     elif kind == "zero":
         deps = np.zeros_like(deps)
     deps = deps.astype(np.int32)
-    got = KT.resolve_tiled_depth(_t(lit), _t(src), _t(deps)).numpy()
+    got = KT.resolve_tiled_depth(_t(lit), _t(src), _t(deps),
+                                 tile=KT.DEPTH_TILE).numpy()
     for row in range(len(src)):
         want = PT.resolve_tiled_depth(
             jnp.asarray(lit[row]), jnp.asarray(src[row]),
@@ -304,7 +305,7 @@ def test_schedule_model_matches_the_walk(schedule_maps, kernel, kind):
     else:
         exact = KT.tile_depths_plain(src).numpy()
         deps = _t(depth_variant(kind, exact))
-        want = KT.resolve_tiled_depth_plain(lit, src, deps)
+        want = KT.resolve_tiled_depth_plain(lit, src, deps, KT.DEPTH_TILE)
         got, local = _schedule(lit, src, KT.DEPTH_TILE, depths=deps,
                                seed=len(kind))
     assert torch.equal(got, want), (kernel, kind)
@@ -334,9 +335,10 @@ def test_resolve_kernels_match_plain(schedule_maps, cuda):
                                    batch, kind)
         for kind in DEPTH_KINDS:
             dt = _t(depth_variant(kind, exact[pick])).to(cuda)
-            assert torch.equal(KT.resolve_tiled_depth(lt, st, dt),
-                               KT.resolve_tiled_depth_plain(lt, st, dt)), (
-                                   batch, kind)
+            assert torch.equal(
+                KT.resolve_tiled_depth(lt, st, dt, KT.DEPTH_TILE),
+                KT.resolve_tiled_depth_plain(lt, st, dt, KT.DEPTH_TILE)), (
+                    batch, kind)
 
 
 @pytest.mark.gpu

@@ -300,6 +300,24 @@ def resolved_flags(kind: str, rows: int):
     return np.arange(rows) % 2 == 0
 
 
+#: The root flags resolve_tiled_flag is held at: exact (flags[p] = 1 iff
+#: src[p] is a fixed point, what "flagtail" computes), over-approximate
+#: (also 1 on about half the unresolved lanes, which stops tiles early)
+#: and all zero (every round runs).
+FLAG_KINDS = ("exact", "over", "zero")
+
+
+def root_flags(kind: str, src: np.ndarray, seed: int = SEED + 11):
+    """(rows, 65536) int32 root flags of a FLAG_KINDS kind for src."""
+    exact = np.take_along_axis(src, src, axis=-1) == src
+    if kind == "over":
+        rng = np.random.default_rng(seed)
+        exact |= rng.random(src.shape) < 0.5
+    elif kind == "zero":
+        exact[:] = False
+    return exact.astype(np.int32)
+
+
 #: The depths resolve_tiled_depth is held at, from each tile's exact local
 #: depth: exact, over- and under-declared, all 0, above the kernel's cap
 #: of 11, negative, and a random mix of all of them.

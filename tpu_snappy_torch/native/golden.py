@@ -1,11 +1,12 @@
 """ctypes binding of the repository's clean-room C++ Snappy codec (native/).
 
-The port's own binding, with only what it calls: `compress` (in
-MODE_BASELINE or MODE_DENSE), `uncompress`, `scan_index` (the decoder's
-host fragment split), `available`, and for the framed container
-`crc32c`, `root_map` and `depth_hints` (the 0x80 and 0x81 sidecars'
-payloads), `compress_framed` and `uncompress_framed` (an independent
-framed codec). It builds the
+The port's own binding: `compress` (in MODE_BASELINE or MODE_DENSE),
+`uncompress`, `scan_index` (the decoder's host fragment split),
+`available`, and for the framed container `crc32c`, `root_map` and
+`depth_hints` (the 0x80 and 0x81 sidecars' payloads), `depth_hints_sim`
+(the hints' brute-force oracle), `compress_framed` and
+`uncompress_framed` (an independent framed codec); `swcompression_path`
+builds the codec's command-line harness. It builds the
 shared sources in native/ at the repository root with CMake and Ninja, as
 tpu_snappy/native/golden.py does, but into a directory of its own
 (`_build/` beside this file, git-ignored), under a file lock, so
@@ -46,17 +47,31 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> pathlib.Path:
-    lib = BUILD_DIR / "libsnappy_ref.so"
+def _build(target: str = "snappy_ref",
+           name: str = "libsnappy_ref.so") -> pathlib.Path:
+    """Build one CMake target of native/ into BUILD_DIR (configured once),
+    under the directory's file lock, unless its file `name` is there.
+    Returns the file's path."""
+    path = BUILD_DIR / name
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not lib.exists():
-            subprocess.run(["cmake", "-S", str(_NATIVE), "-B", str(BUILD_DIR),
-                            "-G", "Ninja"], check=True, capture_output=True)
+        if not path.exists():
+            if not (BUILD_DIR / "build.ninja").exists():
+                subprocess.run(["cmake", "-S", str(_NATIVE), "-B",
+                                str(BUILD_DIR), "-G", "Ninja"], check=True,
+                               capture_output=True)
             subprocess.run(["cmake", "--build", str(BUILD_DIR), "--target",
-                            "snappy_ref"], check=True, capture_output=True)
-    return lib
+                            target], check=True, capture_output=True)
+    return path
+
+
+def swcompression_path() -> pathlib.Path:
+    """Path to the C++ golden's command-line harness (native/
+    swcompression.cc: roundtrip, compress, uncompress and bench of a
+    file, in the baseline or the dense mode), built on demand into
+    BUILD_DIR."""
+    return _build("swcompression", "swcompression")
 
 
 def _load():
@@ -100,6 +115,8 @@ def _load():
                 ctypes.c_uint32, ctypes.c_uint32,
                 ctypes.POINTER(ctypes.c_uint8),
             ]
+            lib.sr_depth_hints_sim.restype = ctypes.c_int
+            lib.sr_depth_hints_sim.argtypes = lib.sr_depth_hints.argtypes
             lib.sr_crc32c.restype = ctypes.c_uint32
             lib.sr_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
             lib.sr_max_framed_length.restype = ctypes.c_size_t
@@ -205,6 +222,20 @@ def depth_hints(elems: bytes, ulen: int, tail_cap: int, tile: int):
     rc = lib.sr_depth_hints(elems, len(elems), ulen, tail_cap, tile, out)
     if rc:
         raise RuntimeError(f"depth_hints: {_ERRORS.get(rc, rc)}")
+    return np.frombuffer(out, dtype=np.uint8).copy()
+
+
+def depth_hints_sim(elems: bytes, ulen: int, tail_cap: int, tile: int):
+    """depth_hints by brute force (sr_depth_hints_sim): the decode
+    pipeline simulated on the stream, each tile's rounds counted; the
+    oracle the analytic depth_hints is held to. Returns a (65536 // tile,)
+    uint8 array. Raises RuntimeError on a malformed stream or past
+    capacity."""
+    lib = _load()
+    out = (ctypes.c_uint8 * (65536 // tile))()
+    rc = lib.sr_depth_hints_sim(elems, len(elems), ulen, tail_cap, tile, out)
+    if rc:
+        raise RuntimeError(f"depth_hints_sim: {_ERRORS.get(rc, rc)}")
     return np.frombuffer(out, dtype=np.uint8).copy()
 
 

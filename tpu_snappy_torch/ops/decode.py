@@ -17,7 +17,8 @@ off the TPU), "windowed" (four windowed rounds, then dense doubling) and
 fields="kernel" computes the element fields with elem_fields_block.
 decode_corpus runs a batch in waves under any of them, and
 decode_fragments_depth / decode_corpus_depth are the framed container's
-depth-hinted decode ("depthtail"). The forward fills, the transport
+depth-hinted decode ("depthtail"); decode_fragment decodes one fragment
+under any of them, "depthtail" included. The forward fills, the transport
 scatter, the gathers and every resolve run through the hand-written
 kernels (ops/kernels/).
 
@@ -59,6 +60,9 @@ OUT = fmt.BLOCK_SIZE
 TAIL_CAP = 57344
 #: Tile of the resolve after the dense rounds (decode.py:114).
 TAIL_TILE = _tiledres.TILE
+#: Variant of that resolve (decode.py:115); every one of
+#: tiledres.VARIANTS gives the same bytes.
+TAIL_VARIANT = "fori"
 #: Tile of the depth-hinted resolve (decode.py:126); the framed 0x81 hints
 #: are computed for it.
 HINT_TILE = _tiledres.DEPTH_TILE
@@ -331,7 +335,9 @@ def _resolve_mode(lit: torch.Tensor, src: torch.Tensor, resolve: str):
     """The resolve of every mode but "hybrid": (bytes, rounds)."""
     if resolve in ("auto", "tiledtail"):
         src, cnt, rounds = dense_rounds(src)
-        return _tiledres.resolve_tiled(lit, src, resolved=cnt == 0), rounds
+        return _tiledres.resolve_tiled(lit, src, resolved=cnt == 0,
+                                       tile=TAIL_TILE,
+                                       variant=TAIL_VARIANT), rounds
     if resolve == "tiled":
         return _tiledres.resolve_tiled(lit, src), 0
     if resolve == "flagtail":
@@ -342,7 +348,8 @@ def _resolve_mode(lit: torch.Tensor, src: torch.Tensor, resolve: str):
         litv = (src == oiota).to(torch.int32)
         src, _cnt, rounds = dense_rounds(src)
         flags = _gather.gather_block(litv, src, limbs=1)
-        return _tiledres.resolve_tiled_flag(lit, src, flags), rounds
+        return _tiledres.resolve_tiled_flag(lit, src, flags,
+                                            tile=TAIL_TILE), rounds
     if resolve == "paratail":
         # decode.py:439-464: one dense round (see PARA_CAP), in-tile local
         # rounds per fragment while its map moved, then absorbs only.
@@ -356,7 +363,9 @@ def _resolve_mode(lit: torch.Tensor, src: torch.Tensor, resolve: str):
             src = torch.where(moving[:, None], s2, src)
             rounds += 1
         done = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
-        return _tiledres.resolve_tiled(lit, src, resolved=done), rounds
+        return _tiledres.resolve_tiled(lit, src, resolved=done,
+                                       tile=PARA_TILE,
+                                       variant=TAIL_VARIANT), rounds
     if resolve == "kernel":
         return _resolve.resolve_block(lit, src), 0
     if resolve == "stable":
@@ -423,6 +432,38 @@ def decode_fragments(frags: torch.Tensor, clens: torch.Tensor,
     return _finish(out, ulens), ok, rounds
 
 
+def decode_fragment(c, clen, ulen, resolve: str = "auto",
+                    fields: str = "auto", collapse_runs: bool = True,
+                    depths=None, *, device="cuda"):
+    """Decode one fragment (decode.py:292): c (M,) uint8 zero-padded, M a
+    multiple of 1024 (FRAG_CAP is one), clen and ulen its lengths; arrays
+    or tensors, moved to `device` (a CUDA device unless the caller asks
+    for the CPU). resolve: one of RESOLVES, as decode_fragments takes it,
+    or "depthtail", the depth-hinted decode of decode_fragments_depth with
+    `depths` ((64,) int32, one per HINT_TILE tile), which only that mode
+    reads, as in JAX. fields, collapse_runs: as decode_fragments. Returns
+    (out (65536,) uint8, zero past ulen; ok, a bool 0-d tensor): row 0 of
+    what the batched decode gives for the fragment alone."""
+    c = torch.as_tensor(c, device=device).reshape(1, -1)
+    clens = torch.as_tensor(clen, dtype=torch.int32,
+                            device=device).reshape(1)
+    ulens = torch.as_tensor(ulen, dtype=torch.int32,
+                            device=device).reshape(1)
+    if resolve == "depthtail":
+        if depths is None:
+            raise ValueError("decode_fragment: resolve 'depthtail' needs "
+                             "depths")
+        deps = torch.as_tensor(depths, dtype=torch.int32,
+                               device=device).reshape(1, -1)
+        out, ok, _ = decode_fragments_depth(c, clens, ulens, deps, fields,
+                                            collapse_runs)
+    else:
+        out, ok, _ = decode_fragments(c, clens, ulens, resolve=resolve,
+                                      fields=fields,
+                                      collapse_runs=collapse_runs)
+    return out[0], ok[0]
+
+
 def _in_waves(name: str, decode, arrays: tuple, wave: int):
     """`decode` over waves of `wave` fragments of `arrays` (fragments on
     dim 0, a count that must be a multiple of `wave`, else ValueError).
@@ -470,7 +511,8 @@ def decode_fragments_depth(frags: torch.Tensor, clens: torch.Tensor,
                                        collapse_runs)
     src, _cnt, rounds = dense_rounds(src)
     out = _tiledres.resolve_tiled_depth(lit_out, src,
-                                        depths.to(torch.int32).contiguous())
+                                        depths.to(torch.int32).contiguous(),
+                                        tile=HINT_TILE)
     return _finish(out, ulens), ok, rounds
 
 

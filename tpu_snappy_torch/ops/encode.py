@@ -30,6 +30,7 @@ overflow scatter, the TPU default), "single" (single-lane emission and
 the N + 2048 sort), "emit" (two-lane emission kernel and the 2N sort),
 "sort" (XLA emission lanes and the 2N sort, the JAX package's CPU route)
 and "kernel" (XLA lanes and the windowed placement over both lanes).
+encode_block encodes one block (encode_blocks on a batch of one).
 """
 
 from __future__ import annotations
@@ -607,6 +608,21 @@ def encode_blocks(blocks: torch.Tensor, lengths: torch.Tensor,
         placed, _ = _place.place_block(pack >> 8, pack & 0xFF, cap // 128)
         return placed.to(torch.uint8), total
     return _sort_lanes(pack, total, cap)
+
+
+def encode_block(block, n, cfg: CodecConfig = DEFAULT_CONFIG,
+                 placement: str = "auto", *, device="cuda"):
+    """Encode one 64 KB block (encode.py:721): block (65536,) uint8,
+    zero-padded past n (at most cfg.block_size), as an array or tensor,
+    moved to `device` (a CUDA device unless the caller asks for the CPU).
+    placement: one of PLACEMENTS. Returns (out (cfg.block_capacity,) uint8
+    raw Snappy elements with no stream preamble, zero past out_len;
+    out_len, an int32 0-d tensor): row 0 of encode_blocks on the block
+    alone."""
+    blocks = torch.as_tensor(block, device=device).reshape(1, N)
+    lengths = torch.as_tensor(n, dtype=torch.int32, device=device).reshape(1)
+    out, out_lens = encode_blocks(blocks, lengths, cfg, placement)
+    return out[0], out_lens[0]
 
 
 #: Rows that compact_blocks masks at once: the mask's index tensor takes

@@ -36,18 +36,18 @@ I = ctypes.c_int
 #: c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "snk_window_keys": [P, P, P, I, P],
-    "snk_ffill": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+    "snk_ffill": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, I, I, P],
-    "snk_resolve_tiled": [P, P, P, P, I, P],
-    "snk_resolve_tiled_depth": [P, P, P, P, I, P],
+    "snk_resolve_tiled": [P, P, P, P, I, I, P],
+    "snk_resolve_tiled_depth": [P, P, P, P, I, I, P],
     "snk_gather": [P, P, P, I, I, I, I, P],
     "snk_matcher_packed": [P, P, P, P, P, I, I, I, I, P],
     "snk_matcher": [P, P, P, P, I, I, I, I, P],
     "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
     "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
     "snk_scatter_block": [P, P, P, I, I, I, I, I, P],
-    "snk_resolve_tiled_flag": [P, P, P, P, I, P],
-    "snk_local_round": [P, P, I, P],
+    "snk_resolve_tiled_flag": [P, P, P, P, I, I, P],
+    "snk_local_round": [P, P, I, I, P],
     "snk_doubling_round": [P, P, P, P, I, P],
     "snk_resolve_block": [P, P, P, I, P],
     "snk_elem_fields": [P, P, I, I, P],

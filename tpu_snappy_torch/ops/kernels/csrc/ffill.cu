@@ -5,7 +5,10 @@
 // answers a chip without a vector gather; this card has one. So the fill
 // is an index problem: last[i] = max over j <= i of (mask[j] ? j : -1), a
 // max-scan, then out[i] = val[last[i]] (or val[i] where no mask precedes
-// i).
+// i). With the TPU kernel's `max_gap` it runs L = max(1, bit_length(max_gap
+// - 1)) roll levels, which fill a position only from a set mask less than
+// 2^L behind it: here that is one more test at the gather, i - last[i] <
+// window (window = 2^L, or past the row when there is no max_gap).
 //
 // Bound on this card: bytes. Each payload is read and written once, the
 // mask read (here twice: about 11% more at one payload); the gather of
@@ -88,7 +91,7 @@ last_set_kernel(const uint8_t* __restrict__ mask, int m, int chunks,
 template <int G, int K>
 __global__ void __launch_bounds__(kThreads)
 fill_kernel(const uint8_t* __restrict__ mask, Payloads p,
-            const int* __restrict__ last, int m, int chunks) {
+            const int* __restrict__ last, int m, int chunks, int window) {
   __shared__ int warp_tot[G][kWarps];
   __shared__ int carry_s;
   const int lane = threadIdx.x & 31;
@@ -139,7 +142,7 @@ fill_kernel(const uint8_t* __restrict__ mask, Payloads p,
 #pragma unroll
     for (int e = 0; e < kGroup; ++e) {
       if ((w[u] >> (8 * e)) & 0xFFu) l = p0 + e;
-      src[e] = l >= 0 ? l : p0 + e;
+      src[e] = l >= 0 && p0 + e - l < window ? l : p0 + e;
     }
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -153,23 +156,32 @@ fill_kernel(const uint8_t* __restrict__ mask, Payloads p,
 
 template <int G, int K>
 int launch_fill(const uint8_t* mask, const Payloads& p, int* last, int m,
-                int chunks, int batch, cudaStream_t s) {
+                int chunks, int window, int batch, cudaStream_t s) {
   const dim3 grid(chunks, batch);
   last_set_kernel<G><<<grid, kThreads, 0, s>>>(mask, m, chunks, last);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fill_kernel<G, K><<<grid, kThreads, 0, s>>>(mask, p, last, m, chunks);
+  fill_kernel<G, K><<<grid, kThreads, 0, s>>>(mask, p, last, m, chunks,
+                                               window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int G>
 int launch_fill_k(const uint8_t* mask, const Payloads& p, int* last, int k,
-                  int m, int chunks, int batch, cudaStream_t s) {
+                  int m, int chunks, int window, int batch, cudaStream_t s) {
   switch (k) {
-    case 1: return launch_fill<G, 1>(mask, p, last, m, chunks, batch, s);
-    case 2: return launch_fill<G, 2>(mask, p, last, m, chunks, batch, s);
-    case 3: return launch_fill<G, 3>(mask, p, last, m, chunks, batch, s);
-    case 4: return launch_fill<G, 4>(mask, p, last, m, chunks, batch, s);
+    case 1:
+      return launch_fill<G, 1>(mask, p, last, m, chunks, window, batch,
+                                 s);
+    case 2:
+      return launch_fill<G, 2>(mask, p, last, m, chunks, window, batch,
+                                 s);
+    case 3:
+      return launch_fill<G, 3>(mask, p, last, m, chunks, window, batch,
+                                 s);
+    case 4:
+      return launch_fill<G, 4>(mask, p, last, m, chunks, window, batch,
+                                 s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -179,11 +191,13 @@ int launch_fill_k(const uint8_t* mask, const Payloads& p, int* last, int k,
 // mask: (batch, m) uint8 (0/1); in0..in3 / out0..out3: (batch, m) int32,
 // the first k used (1 <= k <= 4); all 16-byte aligned, m a multiple of
 // 128. last: (batch, ceil(m / chunk)) int32 scratch, every entry written.
-// chunk: 1024, 2048 or 4096 positions.
+// chunk: 1024, 2048 or 4096 positions. window: a position is filled only
+// from a set mask less than `window` positions behind it.
 SNK_EXPORT int snk_ffill(const void* mask, const void* in0, const void* in1,
                          const void* in2, const void* in3, void* out0,
                          void* out1, void* out2, void* out3, void* last,
-                         int k, int m, int chunk, int batch, void* stream) {
+                         int k, int m, int chunk, int window, int batch,
+                         void* stream) {
   Payloads p;
   p.in[0] = static_cast<const int32_t*>(in0);
   p.in[1] = static_cast<const int32_t*>(in1);
@@ -198,11 +212,12 @@ SNK_EXPORT int snk_ffill(const void* mask, const void* in0, const void* in1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = (m + chunk - 1) / chunk;
   switch (chunk) {
-    case kSpan: return launch_fill_k<1>(mk, p, lt, k, m, chunks, batch, s);
+    case kSpan:
+      return launch_fill_k<1>(mk, p, lt, k, m, chunks, window, batch, s);
     case 2 * kSpan:
-      return launch_fill_k<2>(mk, p, lt, k, m, chunks, batch, s);
+      return launch_fill_k<2>(mk, p, lt, k, m, chunks, window, batch, s);
     case 4 * kSpan:
-      return launch_fill_k<4>(mk, p, lt, k, m, chunks, batch, s);
+      return launch_fill_k<4>(mk, p, lt, k, m, chunks, window, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,9 +2,13 @@
 // fixed point, for maps with src[p] <= p (copy sources lie behind);
 // resolve_tiled_depth, the same tile walk with a given number of rounds a
 // tile; and resolve_tiled_flag, the walk steered by per-lane root flags.
+// Every kernel takes every tile the TPU kernels take: 128 << k positions,
+// k = 0..9.
 //
-// Replaces tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (the "fori"
-// variant, with its `resolved` flag), tiledres.py:resolve_tiled_depth and
+// Replaces tpu_snappy/ops/pallas/tiledres.py:resolve_tiled (every
+// variant: "fori", "pair", "tri" and "grid" give the same bytes, and
+// `check` only groups rounds between convergence tests, with its
+// `resolved` flag), tiledres.py:resolve_tiled_depth and
 // tiledres.py:resolve_tiled_flag.
 //
 // What the TPU computes. Its kernels walk a row's tiles left to right. In
@@ -13,24 +17,24 @@
 // where the lane's final pointer v >= b (the byte plane still holds
 // literals there), else out[v] (an earlier tile, already final). How many
 // doubling rounds a tile runs:
-//   * resolve_tiled (tile 4096): at most 13 (bit_length(4096)), stopping
-//     after the first round that moves nothing; none at all in a row whose
-//     `resolved` flag is set (the caller's proof that src is at its fixed
-//     point);
-//   * resolve_tiled_depth (tile 1024): exactly min(max(depths[t], 0), 11)
+//   * resolve_tiled: at most bit_length(tile) (13 at 4096), stopping
+//     after the first round (or group of `check` rounds) that moves
+//     nothing; none at all in a row whose `resolved` flag is set (the
+//     caller's proof that src is at its fixed point);
+//   * resolve_tiled_depth: exactly min(max(depths[t], 0), bit_length(tile))
 //     rounds, whether or not the tile is then at its local fixed point, so
 //     an under-declared depth gives the TPU's own wrong bytes (the framed
 //     chunk CRC rejects them). A round that moves nothing changes nothing,
 //     so the loop may stop there;
-//   * resolve_tiled_flag (tile 4096): a flag f[q] ("my pointer is at a
-//     root") rides beside each pointer, and a round moves both, s2 = s[d]
-//     and f2 = f[d], from one snapshot. The tile runs rounds while some
-//     lane points in-tile with f == 0, at most 13, on the current state;
+//   * resolve_tiled_flag: a flag f[q] ("my pointer is at a root") rides
+//     beside each pointer, and a round moves both, s2 = s[d] and f2 =
+//     f[d], from one snapshot. The tile runs rounds while some lane points
+//     in-tile with f == 0, at most bit_length(tile), on the current state;
 //     no `moved` break and no `resolved` skip, exactly the TPU's loop
 //     (tiledres.py:_make_kernel_flag). Exact flags end each tile after its
 //     productive rounds; an over-approximate flag (1 on an unresolved
 //     lane) stops a tile early and gives the TPU's own wrong bytes, and
-//     all-zero flags run all 13 rounds and stay exact.
+//     all-zero flags run every round and stay exact.
 //
 // resolve_tiled and resolve_tiled_depth keep the walk's bytes but not its
 // order: one block of 1024 threads a row, the row's map in shared memory
@@ -39,33 +43,41 @@
 // memory, and no step that waits for the tile before it:
 //   1. load the map with 16-byte loads, the whole row at once, and
 //      prefetch lit into L2 behind it;
-//   2. local rounds in 1024-tiles, every tile at once, each on one warp
-//      with no barrier shared with another tile, synchronous (every lane
-//      reads, a warp vote, every lane writes): resolve_tiled_depth runs
-//      exactly the declared count, since an under-declared depth must
-//      leave the TPU's state after exactly that many rounds;
-//      resolve_tiled runs them until nothing moves (see below);
+//   2. local rounds in every tile at once, synchronous (every lane reads,
+//      a vote, every lane writes): resolve_tiled_depth runs exactly the
+//      declared count, since an under-declared depth must leave the TPU's
+//      state after exactly that many rounds; resolve_tiled runs them until
+//      nothing moves (see below). Up to 1024-tiles a tile runs on one warp
+//      with no barrier shared with another tile (a warp holds 2048 lanes,
+//      so it runs 2048 / tile tiles one after the other); a larger tile
+//      spans tile / 2048 warps, and its rounds take the block barrier
+//      (named barriers, one a tile, would need 16 at the 4096-tile: all
+//      the card has, the block's own among them);
 //   3. the absorbs, as merges: a lane is terminal when its pointer v lies
 //      at or right of its tile base (the walk gives it lit[v]); any other
 //      lane's pointer lies in an earlier tile, where the walk gives it
 //      out[v]. Level k merges pairs of blocks of 2^k tiles: a lane of the
 //      right block whose pointer lies in the left one takes that lane's
-//      pointer unless it is terminal. log2(tiles) levels (6 for 64 tiles,
-//      4 for 16), a block barrier each, instead of `tiles` serial
-//      absorbs; then every non-terminal lane points at a terminal lane,
-//      where the walk's recursion out[p] = out[v] ends;
+//      pointer unless it is terminal. log2(tiles) levels (from 9 at the
+//      128-tile to none at 65536), a block barrier each, instead of
+//      `tiles` serial absorbs; then every non-terminal lane points at a
+//      terminal lane, where the walk's recursion out[p] = out[v] ends;
 //   4. stage lit's bytes from L2 into shared memory, and write out[p] =
 //      lit[s[p]] for a terminal lane, lit[s[s[p]]] for another, as int32,
 //      with 16-byte stores.
+// The tile is a template parameter (kShift, its log2) of both kernels, so
+// that the merge levels stay unrolled with constant block tests; the
+// entry points pick the instance.
 // resolve_tiled's route. A `resolved` row runs the walk's absorbs alone:
-// merges of 4096-tiles on src. In any other row the walk's rounds (at
-// most 13 a 4096-tile, stopping when none moves) always reach each
-// tile's local fixed point (a chain inside a tile has fewer than 4096
-// hops, and 12 rounds cover 4096), and the absorbs compose those points:
-// the row's bytes are lit[fix(src)], whatever the tile. So the kernel
-// takes the cheaper route to the same bytes: rounds until nothing moves in
-// 1024-tiles (at most 11), then merges of 1024-tiles that follow every
-// pointer to its root, out[p] = lit[s[p]].
+// merges of tiles on src, at the caller's tile. In any other row the
+// walk's rounds (at most bit_length(tile) a tile, stopping when none
+// moves) always reach each tile's local fixed point (a chain inside a
+// tile has fewer than `tile` hops, and log2(tile) rounds cover it), and
+// the absorbs compose those points: the row's bytes are lit[fix(src)],
+// whatever the tile, the check and the variant. So the kernel takes the
+// cheaper route to the same bytes at every tile: rounds until nothing
+// moves in 1024-tiles (at most 11), then merges of 1024-tiles that follow
+// every pointer to its root, out[p] = lit[s[p]].
 // Bound on this card: at a 128-row wave, the row's bytes (lit, src, out:
 // 768 KB a row) for the loads and stores, which the L2 prefetch overlaps
 // with the merges; at the server's 8-row waves, the instructions of the
@@ -74,9 +86,13 @@
 // the levels so that block tests are constants.
 //
 // resolve_tiled_flag keeps the tile walk (its flags steer each tile's loop
-// on the state the earlier tiles left): one block per row, the tile's
-// pointers and flags in static shared memory, then the absorb from the
-// row's earlier, final tiles.
+// on the state the earlier tiles left): one block per row (one thread a
+// lane up to 1024-tiles, 1024 threads above), the tile's pointers and
+// flags in shared memory (int32 pointers in static shared memory up to
+// 8192-tiles, uint16 ones in dynamic shared memory above: 192 KB at
+// 65536), then the absorb from the row's earlier, final tiles.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -84,12 +100,12 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kN = snk::kBlock;
-constexpr int kTailTile = 4096;
 constexpr int kHintTile = 1024;
-constexpr int kTailShift = 12;
 constexpr int kHintShift = 10;
-// The 1024-tiles each warp runs its rounds in.
-constexpr int kWarpTiles = kN / kHintTile / kWarps;
+// The tiles the kernels take: 128 << k positions, k = 0..9 (the TPU
+// kernels' rule: a multiple of 128 that divides 65536).
+constexpr int kMinShift = 7;
+constexpr int kMaxShift = 16;
 // The row's map (uint16), then its literal bytes (uint8).
 constexpr int kSmem = kN * static_cast<int>(sizeof(uint16_t)) + kN;
 
@@ -97,8 +113,7 @@ __host__ __device__ constexpr int bit_length(int v) {
   return v ? 1 + bit_length(v >> 1) : 0;
 }
 
-// Rounds that bring a 1024-tile to its local fixed point, the cap of a
-// declared depth.
+// Rounds that bring a 1024-tile to its local fixed point.
 constexpr int kMaxLocal = bit_length(kHintTile);
 
 __device__ __forceinline__ uint32_t pack2(int lo, int hi) {
@@ -161,21 +176,27 @@ __device__ __forceinline__ void load_bytes(const int32_t* __restrict__ L,
   }
 }
 
-// Phase 2, every 1024-tile at once: this warp's two tiles, one after the
-// other, each with synchronous rounds (every lane reads, a warp vote, every
-// lane writes): min(max(depths[t], 0), 11) of them, or `rounds` in every
+// Phase 2 at tiles of up to 1024 positions: every tile at once, each on
+// one warp with no barrier shared with another tile. A warp holds 2048
+// lanes, 2048 / kTile tiles, and runs them one after the other, each with
+// synchronous rounds (every lane reads, a warp vote, every lane writes):
+// min(max(depths[t], 0), bit_length(kTile)) of them, or `rounds` in every
 // tile when depths is null. A round that moves nothing ends the tile's
-// loop: it would change nothing. A thread keeps its 16 pairs of lanes in
-// registers across the rounds and writes back the pairs that moved.
-__device__ __forceinline__ void local_rounds(uint16_t* s,
-                                             const int32_t* __restrict__ depths,
-                                             int rounds, int warp, int lane) {
-  constexpr int kPairs = kHintTile / 64;
+// loop: it would change nothing. A thread keeps its kTile / 64 pairs of
+// lanes in registers across the rounds and writes back the pairs that
+// moved.
+template <int kTile>
+__device__ __forceinline__ void warp_rounds(uint16_t* s,
+                                            const int32_t* __restrict__ depths,
+                                            int rounds, int warp, int lane) {
+  constexpr int kPairs = kTile / 64;
+  constexpr int kCap = bit_length(kTile);
+  constexpr int kWarpTiles = kN / kTile / kWarps;
   uint32_t* s2 = reinterpret_cast<uint32_t*>(s);
   for (int t = warp * kWarpTiles; t < (warp + 1) * kWarpTiles; ++t) {
-    const int base = t * kHintTile;
+    const int base = t * kTile;
     const int count =
-        depths != nullptr ? min(max(depths[t], 0), kMaxLocal) : rounds;
+        depths != nullptr ? min(max(depths[t], 0), kCap) : rounds;
     if (count == 0) continue;
     uint32_t pr[kPairs];
 #pragma unroll
@@ -186,10 +207,8 @@ __device__ __forceinline__ void local_rounds(uint16_t* s,
 #pragma unroll
       for (int j = 0; j < kPairs; ++j) {
         const int v0 = pr[j] & 0xffffu, v1 = pr[j] >> 16;
-        const int w0 = static_cast<unsigned>(v0 - base) < kHintTile ? s[v0]
-                                                                    : v0;
-        const int w1 = static_cast<unsigned>(v1 - base) < kHintTile ? s[v1]
-                                                                    : v1;
+        const int w0 = static_cast<unsigned>(v0 - base) < kTile ? s[v0] : v0;
+        const int w1 = static_cast<unsigned>(v1 - base) < kTile ? s[v1] : v1;
         nv[j] = pack2(w0, w1);
         moved |= nv[j] != pr[j];
       }
@@ -203,6 +222,55 @@ __device__ __forceinline__ void local_rounds(uint16_t* s,
         }
       __syncwarp();
     }
+  }
+}
+
+// Phase 2 at tiles of 2048 positions and more (resolve_tiled_depth only):
+// a tile spans kTile / 2048 warps, so the rounds are block-synchronous.
+// Pair j of a thread (lanes 2 (threadIdx.x + 1024 j) and the next) lies in
+// tile j / (kTile / 2048), the same tile for every thread. The block runs
+// the row's largest count of rounds; a tile whose own count is spent only
+// waits at the barriers. Every thread reads its pairs, the barrier (whose
+// vote ends the loop once no lane of the row moves), then it writes the
+// pairs that moved, holding the new values in registers in between: the
+// uint16 map leaves no room for a second copy.
+template <int kTile>
+__device__ __forceinline__ void block_rounds(
+    uint16_t* s, const int32_t* __restrict__ depths) {
+  constexpr int kTiles = kN / kTile;
+  constexpr int kCap = bit_length(kTile);
+  constexpr int kPairs = kN / 2 / kThreads;
+  constexpr int kPerTile = kTile / 2048;  // pairs j of one tile
+  __shared__ int count[kTiles];
+  uint32_t* s2 = reinterpret_cast<uint32_t*>(s);
+  if (threadIdx.x < kTiles)
+    count[threadIdx.x] = min(max(depths[threadIdx.x], 0), kCap);
+  __syncthreads();
+  int most = 0;
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) most = max(most, count[t]);
+  for (int r = 0; r < most; ++r) {
+    uint32_t nv[kPairs];
+    uint32_t moved = 0;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int t = j / kPerTile;
+      const uint32_t pr = s2[threadIdx.x + j * kThreads];
+      nv[j] = pr;
+      if (r < count[t]) {
+        const int base = t * kTile;
+        const int v0 = pr & 0xffffu, v1 = pr >> 16;
+        const int w0 = static_cast<unsigned>(v0 - base) < kTile ? s[v0] : v0;
+        const int w1 = static_cast<unsigned>(v1 - base) < kTile ? s[v1] : v1;
+        nv[j] = pack2(w0, w1);
+        if (nv[j] != pr) moved |= 1u << j;
+      }
+    }
+    if (!__syncthreads_or(moved != 0)) break;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j)
+      if (moved >> j & 1u) s2[threadIdx.x + j * kThreads] = nv[j];
+    __syncthreads();
   }
 }
 
@@ -286,13 +354,26 @@ __device__ __forceinline__ void merge_and_write(uint16_t* s, uint8_t* b,
   }
 }
 
-// resolve_tiled. A `resolved` row runs the walk's absorbs alone: merges of
-// 4096-tiles on src. Any other row gets lit[fix(src)] from the walk (its
-// rounds bring each 4096-tile to its local fixed point, and the absorbs
-// compose those), so it takes the same bytes by the shorter route: rounds
-// until nothing moves in 1024-tiles (at most 11: a chain inside one has
-// fewer than 1024 hops, and 10 rounds cover 1024), then merges of
-// 1024-tiles.
+// Phase 2 at tile kTile: the warp form up to 1024 positions, the block
+// form above.
+template <int kTile>
+__device__ __forceinline__ void local_rounds(uint16_t* s,
+                                             const int32_t* __restrict__ depths,
+                                             int rounds) {
+  if constexpr (kTile <= kHintTile)
+    warp_rounds<kTile>(s, depths, rounds, threadIdx.x >> 5, threadIdx.x & 31);
+  else
+    block_rounds<kTile>(s, depths);
+}
+
+// resolve_tiled at tile 2^kShift. A `resolved` row runs the walk's absorbs
+// alone: merges of 2^kShift-tiles on src. Any other row gets
+// lit[fix(src)] from the walk at every tile (its rounds bring each tile to
+// its local fixed point, and the absorbs compose those), so it takes the
+// same bytes by the shorter route: rounds until nothing moves in
+// 1024-tiles (at most 11: a chain inside one has fewer than 1024 hops, and
+// 10 rounds cover 1024), then merges of 1024-tiles.
+template <int kShift>
 __global__ void __launch_bounds__(kThreads, 1)
 resolve_tail_kernel(const int32_t* __restrict__ lit,
                     const int32_t* __restrict__ src,
@@ -306,16 +387,17 @@ resolve_tail_kernel(const int32_t* __restrict__ lit,
   __syncthreads();
   prefetch_lit(lit + row);
   if (resolved != nullptr && resolved[blockIdx.x] != 0) {
-    merge_and_write<kTailShift, false>(s, b, lit + row, out + row);
+    merge_and_write<kShift, false>(s, b, lit + row, out + row);
   } else {
-    local_rounds(s, nullptr, kMaxLocal, threadIdx.x >> 5, threadIdx.x & 31);
+    local_rounds<kHintTile>(s, nullptr, kMaxLocal);
     __syncthreads();
     merge_and_write<kHintShift, true>(s, b, lit + row, out + row);
   }
 }
 
-// resolve_tiled_depth: min(max(depths[row, t], 0), 11) synchronous rounds
-// in 1024-tile t, then merges of 1024-tiles.
+// resolve_tiled_depth at tile 2^kShift: min(max(depths[row, t], 0),
+// bit_length(tile)) synchronous rounds in tile t, then merges of tiles.
+template <int kShift>
 __global__ void __launch_bounds__(kThreads, 1)
 resolve_depth_kernel(const int32_t* __restrict__ lit,
                      const int32_t* __restrict__ src,
@@ -328,21 +410,40 @@ resolve_depth_kernel(const int32_t* __restrict__ lit,
   load_map(src + row, s);
   __syncthreads();
   prefetch_lit(lit + row);
-  local_rounds(s, depths + blockIdx.x * (kN / kHintTile), 0,
-               threadIdx.x >> 5, threadIdx.x & 31);
+  local_rounds<(1 << kShift)>(s, depths + blockIdx.x * (kN >> kShift), 0);
   __syncthreads();
-  merge_and_write<kHintShift, false>(s, b, lit + row, out + row);
+  merge_and_write<kShift, false>(s, b, lit + row, out + row);
 }
+
+// Threads of the flag walk's block at tile kTile: one a lane up to 1024.
+template <int kTile>
+constexpr int kFlagThreads = kTile < kThreads ? kTile : kThreads;
+
+// The flag walk's pointers and flags in shared memory: up to 8192-tiles
+// int32 pointers in static shared memory, as the 4096-tile kernel had
+// them (a form with dynamic shared memory and each pointer packed with its
+// flag in one register ran 14% slower there on an H100); above, uint16
+// pointers (0 <= src[p] <= p < 65536) in dynamic shared memory, kFlagSmem
+// bytes: 192 KB at the 65536-tile.
+template <int kTile>
+constexpr bool kFlagStatic = kTile <= 8192;
+template <int kTile>
+using FlagPtr = std::conditional_t<kFlagStatic<kTile>, int32_t, uint16_t>;
+template <int kTile>
+constexpr int kFlagSmem =
+    kFlagStatic<kTile> ? 0
+                       : kTile * static_cast<int>(sizeof(uint16_t) + 1);
 
 // The flag walk's absorb: lanes left of the tile read final bytes of
 // earlier tiles, the others read lit (what the TPU's byte plane still
 // holds there). Ends with a barrier, so the next tile may overwrite s.
 template <int kTile>
-__device__ __forceinline__ void absorb(const int32_t* s, int base,
+__device__ __forceinline__ void absorb(const FlagPtr<kTile>* s, int base,
                                        const int32_t* L, int32_t* O) {
+  constexpr int kT = kFlagThreads<kTile>;
 #pragma unroll
-  for (int j = 0; j < kTile / kThreads; ++j) {
-    const int q = threadIdx.x + j * kThreads;
+  for (int j = 0; j < kTile / kT; ++j) {
+    const int q = threadIdx.x + j * kT;
     const int v = s[q];
     O[base + q] = v >= base ? L[v] : O[v];
   }
@@ -350,17 +451,30 @@ __device__ __forceinline__ void absorb(const int32_t* s, int base,
 }
 
 // Flag variant at tile kTile: f[q] != 0 says s[q] is a root (a fixed point
-// of the map). flags: (batch, 65536) int32.
+// of the map). flags: (batch, 65536) int32. One block a row walks the
+// tiles; a round reads every lane's pointer and flag, then (after the
+// barrier) writes both.
 template <int kTile>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlagThreads<kTile>)
 resolve_flag_kernel(const int32_t* __restrict__ lit,
                     const int32_t* __restrict__ src,
                     const int32_t* __restrict__ flags, int32_t* out) {
-  constexpr int kPer = kTile / kThreads;
-  constexpr int kMaxLocal = bit_length(kTile);
+  constexpr int kT = kFlagThreads<kTile>;
+  constexpr int kPer = kTile / kT;
+  constexpr int kCap = bit_length(kTile);
   constexpr int kTiles = snk::kBlock / kTile;
-  __shared__ int32_t s[kTile];
-  __shared__ uint8_t f[kTile];
+  __shared__ int32_t s_static[kFlagStatic<kTile> ? kTile : 1];
+  __shared__ uint8_t f_static[kFlagStatic<kTile> ? kTile : 1];
+  extern __shared__ __align__(16) uint8_t smem[];
+  FlagPtr<kTile>* s;
+  uint8_t* f;
+  if constexpr (kFlagStatic<kTile>) {
+    s = s_static;
+    f = f_static;
+  } else {
+    s = reinterpret_cast<uint16_t*>(smem);
+    f = smem + kTile * sizeof(uint16_t);
+  }
   const size_t row = static_cast<size_t>(blockIdx.x) * snk::kBlock;
   const int32_t* L = lit + row;
   const int32_t* S = src + row;
@@ -370,25 +484,25 @@ resolve_flag_kernel(const int32_t* __restrict__ lit,
     const int base = t * kTile;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const int q = threadIdx.x + j * kThreads;
+      const int q = threadIdx.x + j * kT;
       s[q] = S[base + q];
       f[q] = F[base + q] != 0;
     }
-    for (int r = 0; r < kMaxLocal; ++r) {
+    for (int r = 0; r < kCap; ++r) {
       // Each lane tests its own lanes, which it wrote last; the barrier
       // then publishes the state the round reads.
       int open = 0;
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kThreads;
+        const int q = threadIdx.x + j * kT;
         open |= s[q] >= base && !f[q];
       }
       if (!__syncthreads_or(open)) break;
-      int nv[kPer];
+      FlagPtr<kTile> nv[kPer];
       uint8_t nf[kPer];
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kThreads;
+        const int q = threadIdx.x + j * kT;
         const int v = s[q];
         const int d = v - base;
         const bool in = d >= 0 && d < kTile;
@@ -398,7 +512,7 @@ resolve_flag_kernel(const int32_t* __restrict__ lit,
       __syncthreads();
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kThreads;
+        const int q = threadIdx.x + j * kT;
         s[q] = nv[j];
         f[q] = nf[j];
       }
@@ -407,47 +521,99 @@ resolve_flag_kernel(const int32_t* __restrict__ lit,
   }
 }
 
+// A kernel template's instance at tile 2^shift, or null for a shift
+// outside kMinShift..kMaxShift (the wrappers refuse those tiles first).
+template <int kShift = kMinShift>
+auto tail_kernel(int shift) -> decltype(&resolve_tail_kernel<kMinShift>) {
+  if constexpr (kShift > kMaxShift) {
+    return nullptr;
+  } else {
+    return shift == kShift ? resolve_tail_kernel<kShift>
+                           : tail_kernel<kShift + 1>(shift);
+  }
+}
+
+template <int kShift = kMinShift>
+auto depth_kernel(int shift) -> decltype(&resolve_depth_kernel<kMinShift>) {
+  if constexpr (kShift > kMaxShift) {
+    return nullptr;
+  } else {
+    return shift == kShift ? resolve_depth_kernel<kShift>
+                           : depth_kernel<kShift + 1>(shift);
+  }
+}
+
+// Launch the flag walk at tile 2^shift.
+template <int kShift = kMinShift>
+int launch_flag(int shift, const int32_t* lit, const int32_t* src,
+                const int32_t* flags, int32_t* out, int batch,
+                cudaStream_t stream) {
+  if constexpr (kShift > kMaxShift) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (shift != kShift)
+      return launch_flag<kShift + 1>(shift, lit, src, flags, out, batch,
+                                     stream);
+    constexpr int kTile = 1 << kShift;
+    constexpr int kT = kFlagThreads<kTile>;
+    constexpr int kBytes = kFlagSmem<kTile>;
+    auto* kernel = resolve_flag_kernel<kTile>;
+    if (kBytes > 0) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<batch, kT, kBytes, stream>>>(lit, src, flags, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// Launch a 1024-thread row kernel with the map and lit in kSmem bytes of
+// dynamic shared memory.
+template <typename Kernel, typename... Args>
+int launch_row_kernel(Kernel kernel, int batch, cudaStream_t stream,
+                      Args... args) {
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch, kThreads, kSmem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // lit, src, out: (batch, 65536) int32, src 16-byte aligned; resolved:
-// (batch,) bool, or null.
+// (batch,) bool, or null; tile_shift: log2 of the tile (7..16), which only
+// the `resolved` rows' merges depend on.
 SNK_EXPORT int snk_resolve_tiled(const void* lit, const void* src,
                                  const void* resolved, void* out, int batch,
-                                 void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      resolve_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  resolve_tail_kernel<<<batch, kThreads, kSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
+                                 int tile_shift, void* stream) {
+  return launch_row_kernel(
+      tail_kernel(tile_shift), batch, static_cast<cudaStream_t>(stream),
       static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
       static_cast<const uint8_t*>(resolved), static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
 // lit, src, out: (batch, 65536) int32, src 16-byte aligned; depths:
-// (batch, 64) int32.
+// (batch, 65536 >> tile_shift) int32; tile_shift 7..16.
 SNK_EXPORT int snk_resolve_tiled_depth(const void* lit, const void* src,
                                        const void* depths, void* out,
-                                       int batch, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      resolve_depth_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  resolve_depth_kernel<<<batch, kThreads, kSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
+                                       int batch, int tile_shift,
+                                       void* stream) {
+  return launch_row_kernel(
+      depth_kernel(tile_shift), batch, static_cast<cudaStream_t>(stream),
       static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(depths), static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
 }
 
-// lit, src, flags, out: (batch, 65536) int32.
+// lit, src, flags, out: (batch, 65536) int32; tile_shift 7..16.
 SNK_EXPORT int snk_resolve_tiled_flag(const void* lit, const void* src,
                                       const void* flags, void* out, int batch,
-                                      void* stream) {
-  resolve_flag_kernel<kTailTile><<<batch, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
-      static_cast<const int32_t*>(flags), static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                      int tile_shift, void* stream) {
+  return launch_flag(tile_shift, static_cast<const int32_t*>(lit),
+                     static_cast<const int32_t*>(src),
+                     static_cast<const int32_t*>(flags),
+                     static_cast<int32_t*>(out), batch,
+                     static_cast<cudaStream_t>(stream));
 }

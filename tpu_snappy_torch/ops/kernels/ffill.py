@@ -1,11 +1,13 @@
 """Multi-payload forward fill from the latest set mask position.
 
-Port of tpu_snappy/ops/pallas/ffill.py:ffill_block (without `max_gap`,
-which only the framed sidecar uses); the CUDA kernel is csrc/ffill.cu:
-each row is cut into chunks (`fill_chunk`), a first pass writes each
-chunk's latest set index, and a second max-scans each chunk from the
-carry of the earlier chunks and gathers every payload (see its note).
-Positions before the first set mask keep their own entry.
+Port of tpu_snappy/ops/pallas/ffill.py:ffill_block, with its `max_gap`
+(the framed sidecar's split mode passes it); the CUDA kernel is
+csrc/ffill.cu: each row is cut into chunks (`fill_chunk`), a first pass
+writes each chunk's latest set index, and a second max-scans each chunk
+from the carry of the earlier chunks and gathers every payload (see its
+note). Positions before the first set mask keep their own entry, and so
+does a position whose latest set mask lies `fill_window(max_gap, m)` or
+more positions behind it.
 """
 
 from __future__ import annotations
@@ -20,13 +22,26 @@ REPLACES = "tpu_snappy/ops/pallas/ffill.py:70"
 MAX_PAYLOADS = 4
 
 
-def ffill_plain(mask: torch.Tensor, vals: tuple) -> tuple:
+def fill_window(max_gap: int | None, m: int) -> int:
+    """How far back a fill reaches: the TPU kernel runs L = max(1,
+    bit_length(gap - 1)) Hillis-Steele levels (gap = max_gap, or the width
+    m without one), which fill position i from its latest set mask j only
+    when i - j < 2^L. Returns 2^L."""
+    gap = m if max_gap is None else int(max_gap)
+    return 1 << max(1, (gap - 1).bit_length())
+
+
+def ffill_plain(mask: torch.Tensor, vals: tuple,
+                max_gap: int | None = None) -> tuple:
     """Plain PyTorch fill: last[i] = latest j <= i with mask[j], and
-    out[i] = v[last[i]] (v[i] where there is none), along the last axis."""
-    idx = torch.arange(mask.shape[-1], dtype=torch.int64,
+    out[i] = v[last[i]] where i - last[i] < fill_window(max_gap, m), else
+    v[i] (also where there is no such j), along the last axis."""
+    m = mask.shape[-1]
+    idx = torch.arange(m, dtype=torch.int64,
                        device=mask.device).expand(mask.shape)
     last = torch.where(mask, idx, -1).cummax(dim=-1).values
-    take = torch.where(last >= 0, last, idx)
+    near = (last >= 0) & (idx - last < fill_window(max_gap, m))
+    take = torch.where(near, last, idx)
     return tuple(torch.gather(v, -1, take) for v in vals)
 
 
@@ -51,11 +66,14 @@ def fill_chunk(batch: int, m: int) -> int:
     return CHUNKS[-1]
 
 
-def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None) -> tuple:
+def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None,
+          max_gap: int | None = None) -> tuple:
     """Fill each (B, M) int32 payload in `vals` (1 to 4 of them) from the
     latest position where the (B, M) bool `mask` holds (M a multiple of
-    128). CPU tensors take the plain version; CUDA tensors launch the
-    kernel, with `fill_chunk`'s chunk unless `chunk` (one of CHUNKS) is
+    128). max_gap: the TPU kernel's bound on the distance to that position
+    (None: the whole row); a position farther from it keeps its own entry
+    (fill_window). CPU tensors take the plain version; CUDA tensors launch
+    the kernel, with `fill_chunk`'s chunk unless `chunk` (one of CHUNKS) is
     given."""
     vals = tuple(vals)
     m = mask.shape[-1]
@@ -67,7 +85,7 @@ def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None) -> tuple:
     if chunk is not None and chunk not in CHUNKS:
         raise ValueError(f"ffill: chunk {chunk} (one of {CHUNKS})")
     if _build.on_cpu(mask, *vals):
-        return ffill_plain(mask, vals)
+        return ffill_plain(mask, vals, max_gap)
     batch = mask.shape[0]
     chunk = fill_chunk(batch, m) if chunk is None else chunk
     _build.require(mask, torch.bool, (batch, m), "mask")
@@ -83,6 +101,7 @@ def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None) -> tuple:
         ptrs = [o.data_ptr() for o in outs] + pad
         rc = _build.lib().snk_ffill(mask.data_ptr(), *ins, *ptrs,
                                     last.data_ptr(), len(vals), m, chunk,
+                                    min(fill_window(max_gap, m), 1 << 30),
                                     batch, _build.stream())
         _build.check(rc, "ffill")
         ffill.launches += 1

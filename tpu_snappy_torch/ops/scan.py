@@ -49,6 +49,19 @@ def next_element_start(flags: torch.Tensor, default: int) -> torch.Tensor:
     return out
 
 
+def gather_s(maps: torch.Tensor, idx: torch.Tensor,
+             small: bool = False) -> torch.Tensor:
+    """Within-segment gather (scan.py:34): y[..., g, t] = maps[..., g,
+    idx[..., g, t]], 0 where the index lies outside the segment (the JAX
+    one-hot finds no column there). maps (..., G, S), idx (..., G, T).
+    `small` is the TPU's hint that every value is below 256 (JAX then
+    feeds bf16 to its one-hot product); an integer gather needs no such
+    hint, and it changes no value in that domain. Returns maps' dtype."""
+    inside = (idx >= 0) & (idx < maps.shape[-1])
+    got = torch.gather(maps, -1, torch.where(inside, idx, 0).to(torch.int64))
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
 def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[..., idx] along the last axis, each index clamped into the
     table (the gather_s / _gather_d of scan.py)."""

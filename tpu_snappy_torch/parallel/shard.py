@@ -14,11 +14,11 @@ gathered. The shards of one process run one after another on the host
 (each device's queue still runs asynchronously); one process per card
 (multihost) runs cards side by side.
 
-Work is padded to whole waves of `wave = min(api.API_WAVE, per-shard
-count)` on every shard, the API's wave, with zero-length rows that encode
-to zero bytes (and decode to nothing), so the sharded streams are the
-single-device streams, and the JAX package's, byte for byte: no block's
-bytes depend on the wave or the shard it runs in.
+Work is padded to whole waves of `wave = min(DP_WAVE, per-shard count)`
+on every shard (DP_WAVE is the API's 128-row wave), with zero-length rows
+that encode to zero bytes (and decode to nothing), so the sharded streams
+are the single-device streams, and the JAX package's, byte for byte: no
+block's bytes depend on the wave or the shard it runs in.
 """
 
 from __future__ import annotations
@@ -37,14 +37,29 @@ from ..ops import encode as ops_encode
 from . import mesh as meshlib
 
 
+def pad_count(count: int, n_devices: int) -> int:
+    """Work items padded to a multiple of the mesh size (shard.py:26):
+    empty blocks encode to zero bytes and drop out at assembly."""
+    return -(-count // n_devices) * n_devices
+
+
+#: Rows per wave a shard runs (shard.py:37). JAX's 8 bounds the size of
+#: the one traced program a shard compiles; the port compiles nothing, and
+#: its cost is the launches a wave makes, the parse's host walk above all:
+#: decode_dp of a 16 MiB stream took 1.97 s at 8-row waves and 0.142 s at
+#: 128 on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 10;
+#: PERF.md section 6). So a shard runs the API's 128-row waves.
+DP_WAVE = 128
+
+
 def layout(count: int, n_shards: int) -> tuple:
     """(wave, padded rows) for `count` items over n_shards shards: each
-    shard gets a whole number of waves of min(api.API_WAVE, its share), so
+    shard gets a whole number of waves of min(DP_WAVE, its share), so
     small jobs stay one short wave (the rule of the JAX package's
-    shard.py:204-206, at the API's wave)."""
-    per = -(-max(count, 1) // n_shards)
-    wave = min(api.API_WAVE, per)
-    return wave, -(-per // wave) * wave * n_shards
+    shard.py:204-206, at the port's wave)."""
+    per = pad_count(max(count, 1), n_shards) // n_shards
+    wave = min(DP_WAVE, per)
+    return wave, pad_count(per, wave) * n_shards
 
 
 def blocks_of(data: bytes, block_size: int, padded: int, out=None):

@@ -325,16 +325,19 @@ def decode_chunks(elems: torch.Tensor, starts: torch.Tensor,
     elems (B, EW) uint8 (element bytes, zero-padded to an elems_width
     bucket); starts, vals (B, PW) int32; ulens (B,) int32. wrows=None is
     split mode (host-split pieces, fill gaps of at most split_len, window
-    of _wrows(split_len) rows): the TPU's fill stops after split_len
-    positions, and the fill here runs without a limit, which gives the
-    same values because no gap is longer. wrows=<a PARENT_WROWS bucket> is
-    parent-direct mode (the maximal wire pieces). As on the TPU, a piece
-    start dropped by the window makes its chunk not-ok. Returns (out
-    (B, 65536) uint8, zero past ulen; ok (B,) bool)."""
+    of _wrows(split_len) rows): the fill takes max_gap=split_len, as on the
+    TPU (sidecar.py:404), so a position farther behind its piece start
+    than that window reaches (ffill.fill_window) keeps its own value; on a
+    sidecar that keeps the split contract no gap is that long.
+    wrows=<a PARENT_WROWS bucket> is parent-direct mode (the maximal wire
+    pieces), whose fill has no limit. As on the TPU, a piece start dropped
+    by the window makes its chunk not-ok. Returns (out (B, 65536) uint8,
+    zero past ulen; ok (B,) bool)."""
     ew = elems.shape[-1]
     scattered, ovf = _scatter.scatter_windowed(
         starts, vals, _wrows(split_len) if wrows is None else wrows)
-    filled = _ffill.ffill(scattered != 0, (scattered,))[0]
+    filled = _ffill.ffill(scattered != 0, (scattered,),
+                          max_gap=split_len if wrows is None else None)[0]
     oiota = torch.arange(OUT, dtype=torch.int32, device=elems.device)
     slope = filled >> 17
     g = torch.clamp(slope * oiota + (filled & 0x1FFFF) - OUT, 0, ew - 1)

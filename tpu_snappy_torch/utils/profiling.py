@@ -3,6 +3,8 @@ tpu_snappy/utils/profiling.py).
 
   * `trace(path)`    — a torch.profiler trace of the CPU and the card,
                        written as a Chrome trace (open it in Perfetto).
+  * `sync` / `sync1` — wait for the card behind every tensor of a tree,
+                       or behind its first one only.
   * `Timer`          — named wall-clock sections, each synchronised with
                        the card at its end.
   * `device_bench()` — seconds a call on the card, from CUDA events
@@ -55,6 +57,16 @@ def sync(tree=None) -> None:
     tensors."""
     for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
         torch.cuda.synchronize(dev)
+
+
+def sync1(tree) -> None:
+    """Wait for the device of the first tensor of `tree` (profiling.py:66):
+    a card's queue runs in order, so the latest work on it bounds every
+    earlier launch there, and one synchronise is the whole wait. A no-op
+    for a CPU tensor or a tree without one."""
+    leaf = next(_tensors(tree), None)
+    if leaf is not None and leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
 
 
 @dataclasses.dataclass
