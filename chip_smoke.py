@@ -12,7 +12,8 @@ emissions, the three tiled resolves, doubling_round, place_block, the
 windowed scatter, resolve_block, next_start_block, ffill and
 local_round) beside this one's
 on every captured call, in turns (their outputs must be equal, every
-tensor), with each turn's bound share and library ratio, the tiled
+tensor; the matchers' calls above K 24, which the parent refuses, this
+checkout's alone), with each turn's bound share and library ratio, the tiled
 resolves, doubling_round, place_block and resolve_block also on each
 call's first 8 rows, the tiled resolves and resolve_block on the period-1
 chain, next_start_block at M 384, 57344, 65536 and 69632 (128 rows and
@@ -34,7 +35,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    K 2, 3, 8, 14, 15, 16, 17, 18 and 24, both sticky modes, lazy 0, 1
    and 2: ties in
    the propagation window, copies at every halo and tile edge, n at a tile
-   boundary and one past; the emissions on real and synthetic parses and
+   boundary and one past; the wide matcher kernel (K past FIXED_K) at
+   every K from 25 to 33 and at 40, 48, 64 and 96 (96 on two rows a
+   table) on the same rows, the collision row and random small-offset
+   tables, both forms, both sticky modes, lazy 0 and 2, each call
+   launching; the emissions on real and synthetic parses and
    on parses at their tile edges: a 65536-byte literal run,
    runs of 60, 61, 256 and 257 on tile boundaries, 3-byte copies whose
    header bytes cross one, n inside a run, an all-copy row, a
@@ -73,7 +78,10 @@ Phases, each printing its results; any failure raises (non-zero exit):
    random and all-one flags;
    ffill at B 2, 126 and 128, widths 57344 and 65536, 1 to 4 payloads,
    masks set only at 0, only at m - 1, only at each chunk's last position,
-   empty and full, at every chunk size, and with max_gap 1 to 4096);
+   empty and full, at every chunk size, and with max_gap 1 to 4096; and
+   with 5, 6, 8 and 9 payloads (a fill launch for each four) on those
+   masks at B 2 and 128, every chunk, without max_gap and at 100 and
+   1025);
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -108,7 +116,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    round trips, plus FAST, TURBO and flatten "off" compresses (FAST for
    the packed matcher at K=8 "exact" among the captured calls) and
    compresses of the first WIDE_BLOCKS blocks at K 17 "exact" and K 18
-   "sig" (the matchers above K 16), an "emit"
+   "sig" (the matchers above K 16) and at K 32 and 64, "exact" and "sig"
+   (the wide kernel), each stream equal to the port's CPU stream and
+   decoded by reference_codec, and of the first 128 blocks at K 32 and 64
+   at both sticky modes and at K 32 with flatten "off" (the wide kernel
+   at the API's wave), an "emit"
    and a "sort" placement wave and decode_corpus
    under "flagtail", "paratail", "kernel", "stable", "windowed", "hybrid"
    with the opening and fields="kernel", with a synchronised host clock
@@ -122,16 +134,20 @@ Phases, each printing its results; any failure raises (non-zero exit):
    really run at), the time of both on them (CUDA events; for the kernel
    also graph_ms, the device time alone: 20 calls captured in one CUDA
    graph and replayed), the least time the card could take for the same
-   work, and the time (and graph_ms) of one PyTorch call computing the
-   same function where there is one (for the scatters it allocates and
-   zeroes its output, as the kernels must). resolve_tiled_dual, on no
+   work (for the matchers, at every K, the operations this run's table
+   needs: torch_edges.matcher_ops), and the time (and graph_ms) of one PyTorch call
+   computing the same function where there is one (for the scatters it
+   allocates and zeroes its output, as the kernels must).
+   resolve_tiled_dual, on no
    decode path, runs on the first two rows of the captured resolve_tiled
    call; cumsum_block and next_start_block, on no codec path, on the
    captured arguments of scan.exclusive_cumsum and
    scan.next_element_start, each also giving that stage's result;
    beside resolve_block's captured call, resolve_tiled (no `resolved`
    flags, the same function for src[p] <= p) on the same tensors, equal
-   and timed. Host load averages print beside the times;
+   and timed; ffill on the captured mask of its call with the most
+   payloads, also with 8 payloads (two fill launches), equal and timed.
+   Host load averages print beside the times;
 10. parallel and surfaces: the same 16 MiB through shard.encode_dp and
    decode_dp on a one-card mesh and on a mesh of four shards on cuda:0
    (also decoding the C++ golden's stream), streaming.compress_stream in
@@ -166,7 +182,9 @@ The second-to-last lines are a JSON object of per-kernel results (its
 0 just before it; `worst_library_ratio` is the largest graph_ms over the
 library call's and `least_bound_share` the smallest bound over graph_ms,
 over the kernel's captured calls; the other numbers are its largest
-call's) and the nvidia-smi name/power line, after the run's
+call's; the matchers' calls above FIXED_K give their own `wide_*` keys:
+the largest such call's K, sticky, graph_ms and bound, and the least
+bound share over them) and the nvidia-smi name/power line, after the run's
 own seconds (from the start of main(), the build included); the last
 line is
 {"ok": true, "device": ...}.
@@ -195,7 +213,7 @@ from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
                          FLAG_KINDS, LIMB_WROWS, OUT_CELLS, PLACE_KINDS,
                          RESOLVED_KINDS, SEED, depth_variant,
                          emit_edge_parses, limb_rows, make_data,
-                         matcher_edge_rows, place_edge_rows,
+                         matcher_edge_rows, matcher_ops, place_edge_rows,
                          next_start_edge_rows, resolved_flags, root_flags,
                          synthetic_parse, tiled_resolve_rows)
 
@@ -268,6 +286,7 @@ def check_kernels(dev) -> None:
               f"max_abs_err={max(errs)}")
     errs += _ffill_edges(ffill, rng, t)
     errs += _ffill_gaps(ffill, rng, t)
+    errs += _ffill_many(ffill, rng, t)
     report["ffill"] = max(errs)
 
     # scatter_windowed: transport-shaped dests (nondecreasing, dropped
@@ -531,6 +550,39 @@ def _ffill_gaps(ffill, rng, t) -> list:
     return errs
 
 
+#: Payload counts past one fill launch's four that phase 3 runs.
+FFILL_MANY = (5, 6, 8, 9)
+
+
+def _ffill_many(ffill, rng, t) -> list:
+    """Phase 3, the fill with FFILL_MANY payloads (one fill launch for each
+    four, sharing the first pass's indices) on _ffill_edge_masks' rows at
+    B 2 (the first pair) and 128, widths 57344 and 65536, every chunk,
+    without max_gap and at gaps 100 and 1025. Returns the differences."""
+    errs = []
+    for m in (57344, N):
+        edges = _ffill_edge_masks(m)
+        for mask in (np.stack(edges[:2]),
+                     np.stack([edges[i % len(edges)] for i in range(128)])):
+            mk, b = t(mask), mask.shape[0]
+            for k in FFILL_MANY:
+                vals = tuple(t(rng.integers(-(1 << 31), (1 << 31) - 1,
+                                            (b, m), dtype=np.int64)
+                               .astype(np.int32)) for _ in range(k))
+                for gap in (None, 100, 1025):
+                    want = ffill.ffill_plain(mk, vals, gap)
+                    for chunk in (None, *ffill.CHUNKS):
+                        got = ffill.ffill(mk, vals, chunk=chunk, max_gap=gap)
+                        if len(got) != k:
+                            raise AssertionError(f"ffill gave {len(got)} of "
+                                                 f"{k} payloads")
+                        errs += [_exact(g, w) for g, w in zip(got, want)]
+    print(f"kernel ffill        {FFILL_MANY} payloads on the same masks, B "
+          f"2/128, M 57344/65536, every chunk, max_gap none/100/1025: "
+          f"max_abs_err={max(errs)}")
+    return errs
+
+
 def _piece_rows(rng, b: int, m: int, wrows: int) -> np.ndarray:
     """Sidecar-shaped piece starts: ascending with gaps that fit `wrows`
     (the widest a 1024-piece tile can span with its 8 rows of slop),
@@ -666,6 +718,66 @@ def _sig_collision_row(rng) -> np.ndarray:
     return row
 
 
+#: The K phase 3 holds the wide matcher kernel to (every K past the fixed
+#: instances' FIXED_K up to 33, then larger), and the one it runs on
+#: fewer rows.
+WIDE_KS = (25, 26, 27, 28, 29, 30, 31, 32, 33, 40, 48, 64, 96)
+WIDE_FEW_ROWS_K = 96
+
+
+def _wide_matchers(rng, t, rows, edge_rows, coll_rows) -> tuple:
+    """Phase 3, the wide matcher kernel (K above matcher.FIXED_K): the
+    packed tables of _matcher_rows', matcher_edge_rows' and the collision
+    row's blocks, and random packed tables of small offsets, at each of
+    WIDE_KS (at WIDE_FEW_ROWS_K two rows of each), sticky "exact" and
+    "sig", lazy 0 and 2, both forms against the plain version; every call
+    must launch. Returns the packed and unpacked differences."""
+    from tpu_snappy_torch import config
+    from tpu_snappy_torch.ops import encode
+    from tpu_snappy_torch.ops.kernels import matcher
+
+    errs, errs_u = [], []
+    launches = (matcher.matcher_block_packed.launches,
+                matcher.matcher_block.launches)
+    calls = 0
+    for k in WIDE_KS:
+        cfg = dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
+                                  probes=k)
+        rows_k = 2 if k == WIDE_FEW_ROWS_K else None
+        cases = []
+        for b, m in (rows, edge_rows, coll_rows):
+            b, m = b[:rows_k], m[:rows_k]
+            cases.append((*encode._candidate_offsets(
+                encode._window_keys(b, m), m, cfg), m))
+        nb = rows_k or BATCH
+        lo, hi = (rng.integers(0, 40, (nb, k // 2, N)) for _ in range(2))
+        cases.append((t(rng.integers(0, 40, (nb, N)).astype(np.int32)),
+                      t((lo | hi << 16).astype(np.int32)), rows[1][:nb]))
+        for pr, wd, m in cases:
+            cands = matcher.unpack_table(pr, wd, k).contiguous()
+            for sticky in ("exact", "sig"):
+                for lazy in (0, 2):
+                    want = matcher.matcher_block_packed_plain(
+                        pr, wd, m, k, lazy, sticky)
+                    got = matcher.matcher_block_packed(pr, wd, m, k, lazy,
+                                                       sticky)
+                    errs += [_exact(g, w) for g, w in zip(got, want)]
+                    got = matcher.matcher_block(cands, m, lazy, sticky)
+                    errs_u += [_exact(g, w) for g, w in zip(got, want)]
+                    calls += 1
+    ran = (matcher.matcher_block_packed.launches - launches[0],
+           matcher.matcher_block.launches - launches[1])
+    if ran != (calls, calls):
+        raise AssertionError(f"wide matcher: {ran} launches for {calls} "
+                             f"calls of each form")
+    print(f"kernel matcher      wide form, K {WIDE_KS} (K "
+          f"{WIDE_FEW_ROWS_K} on 2 rows a table): the encoder rows, the "
+          f"tile edges, the collision row, random small-offset tables; "
+          f"sticky exact/sig, lazy 0/2; {calls} calls a form: packed "
+          f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
+    return errs, errs_u
+
+
 def check_encode_kernels(dev, rng, t, report: dict) -> None:
     """Phase 3, the encoder's kernels: both matchers, both emissions,
     placement and overflow scatter against their plain versions."""
@@ -730,12 +842,14 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
                 errs += [_exact(g, w) for g, w in zip(got, want)]
                 got = matcher.matcher_block(cands, en, lazy, sticky)
                 errs_u += [_exact(g, w) for g, w in zip(got, want)]
-    report["matcher_block_packed"] = max(errs)
-    report["matcher_block"] = max(errs_u)
     print(f"kernel matcher      tile edges B={len(en)} (ties, copies at the "
           f"halo and tile edges, n at and past a tile boundary; K 2/3/8/14/"
           f"15/16/17/18/24, sticky exact/sig, lazy 0/1/2): packed "
           f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
+    wide, wide_u = _wide_matchers(rng, t, (blocks, n), (eb, en),
+                                  (coll, coll_n))
+    report["matcher_block_packed"] = max(errs + wide)
+    report["matcher_block"] = max(errs_u + wide_u)
 
     # emit: the committed parses of those rows, and synthetic parses with
     # long literal runs, far copies and a block-opening literal, through
@@ -1238,6 +1352,9 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         api.compress(data, _flat_off(), device="cuda")
         head = data[:WIDE_BLOCKS * len(blocks[0])]
         wide = [api.compress(head, cfg, device="cuda") for cfg in _wide_k()]
+        wave_data = data[:api.API_WAVE * len(blocks[0])]
+        wide_wave = [api.compress(wave_data, cfg, device="cuda")
+                     for cfg in _wide_k(WIDE_WAVE)]
         encode.encode_blocks(*wave, placement="emit")
         encode.encode_blocks(*wave, placement="sort")
         t4 = time.perf_counter()
@@ -1256,13 +1373,20 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         raise AssertionError("the traced round trip changed the data")
     if any(api.decompress(w, device="cuda") != head for w in wide):
         raise AssertionError("a stream above K 16 does not decode")
+    if any(api.decompress(w, device="cuda") != wave_data
+           for w in wide_wave):
+        raise AssertionError("a stream at the API's wave above K 24 does "
+                             "not decode")
+    _wide_against_cpu(head, wide)
     if any(not torch.equal(out, modes[0][0]) for out, _ in modes):
         raise AssertionError("the traced resolve modes disagree")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
           f" framed decompress auto + always {(t3 - t2) * 1e3} ms, FAST, "
-          f"TURBO and flatten off compresses, {WIDE_BLOCKS} blocks at K 17 "
-          f"and 18 + an emit and a sort wave "
+          f"TURBO and flatten off compresses, {WIDE_BLOCKS} blocks at each "
+          f"of {[(c.candidates, c.sticky) for c in _wide_k()]}, "
+          f"{api.API_WAVE} blocks at each (K, sticky, flatten) of "
+          f"{WIDE_WAVE} + an emit and a sort wave "
           f"{(t4 - t3) * 1e3} ms, "
           f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
           f"host-clock ms per stage over all waves; load average "
@@ -1271,6 +1395,26 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         print(f"  {name}: {clock[name]} ms in {calls[name]} calls")
     stages = {k: v for k, v in captured.items() if k[0] in CAPTURED_STAGES}
     return {k: v for k, v in captured.items() if k[0] in kernels}, stages
+
+
+def _wide_against_cpu(head: bytes, streams: list) -> None:
+    """Phase 8, continued: each traced compress of `head` above K 16
+    equals the port's CPU stream at its config and decodes under
+    reference_codec."""
+    from tpu_snappy_torch import api, reference_codec
+    for cfg, stream in zip(_wide_k(), streams):
+        t0 = time.perf_counter()
+        cpu = api.compress(head, cfg, device="cpu")
+        seconds = time.perf_counter() - t0
+        if stream != cpu:
+            raise AssertionError(f"K {cfg.candidates} {cfg.sticky}: the "
+                                 f"card's stream differs from the CPU's")
+        if reference_codec.decompress(stream) != head:
+            raise AssertionError(f"K {cfg.candidates} {cfg.sticky}: "
+                                 f"reference_codec decodes another input")
+        print(f"K {cfg.candidates} {cfg.sticky}, {WIDE_BLOCKS} blocks: "
+              f"{len(stream)} bytes, the card's stream == the CPU's (CPU "
+              f"compress {seconds} s), reference_codec decodes it")
 
 
 def scan_forms(dev, stages: dict, card: str) -> None:
@@ -1405,8 +1549,8 @@ def _both(fn, dev) -> tuple:
 
 #: Integer operations per element that the function needs, for the
 #: bound (elements: positions, or sources for the scatters); the matchers'
-#: count is _matcher_ops. The others do a few per element and are bound
-#: by bytes.
+#: count is torch_edges.matcher_ops, on the call's own table. The others
+#: do a few per element and are bound by bytes.
 _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "resolve_tiled": 2, "emit_block_single": 60, "place_block": 6,
         "scatter_block": 8, "gather_block": 3, "resolve_tiled_depth": 2,
@@ -1429,18 +1573,27 @@ def _doubling_rounds(src: torch.Tensor) -> int:
     return 16
 
 
-def _matcher_ops(k: int, sticky: str) -> int:
-    """Integer operations a position of the matcher needs: per sticky
-    level, at "exact" each of K+1 shifted offsets against K own ones, at
-    "sig" K bucket bits into the mask and K+1 tests (2K+1), but at the
-    last of the 4 levels only the default's test (K compares; at "sig" the
-    mask and one test), since nothing reads the last level's keeps (644
-    compares a position at K=14, where the 4 full levels would be 840);
-    at "sig" K compares to verify; then about 72 more (16 link compares,
-    3 phases, the 16-wide filter, 7 propagation levels, lazy, jump)."""
-    if sticky == "sig":
-        return 3 * (2 * k + 1) + (k + 1) + k + 72
-    return 3 * (k + 1) * k + k + 72
+def _matcher_k(name: str, args):
+    """K of a matcher call's arguments (None for another kernel)."""
+    if name == "matcher_block":
+        return args[0].shape[-1]
+    return args[3] if name == "matcher_block_packed" else None
+
+
+def _wide_call(name: str, args) -> bool:
+    """Whether a kernel call runs the wide matcher kernel: K above the
+    largest with an instance of its own (matcher.FIXED_K)."""
+    from tpu_snappy_torch.ops.kernels import matcher
+    k = _matcher_k(name, args)
+    return k is not None and k > matcher.FIXED_K
+
+
+def _unpacked(name: str, args) -> torch.Tensor:
+    """A matcher call's (B, N, K) candidate table."""
+    if name == "matcher_block":
+        return args[0]
+    from tpu_snappy_torch.ops.kernels import matcher
+    return matcher.unpack_table(args[0], args[1], args[3])
 
 
 def _bound(name: str, args, outs) -> tuple:
@@ -1471,11 +1624,8 @@ def _bound(name: str, args, outs) -> tuple:
     first = _tensors(args)[1 if name == "gather_block" else 0]
     sticky = ("sig" if any(isinstance(a, str) and a == "sig" for a in args)
               else "exact")
-    if name == "matcher_block":  # (B, N, K) table
-        ops = first.shape[0] * first.shape[1] * _matcher_ops(
-            first.shape[2], sticky)
-    elif name == "matcher_block_packed":
-        ops = first.numel() * _matcher_ops(args[3], sticky)
+    if _matcher_k(name, args) is not None:
+        ops = matcher_ops(_unpacked(name, args), sticky)
     elif name == "resolve_block":  # 3 a position a round, then the gather
         ops = first.numel() * (3 * _doubling_rounds(args[1]) + 1)
     else:
@@ -1607,19 +1757,26 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
         share = bound_ms / graph_ms if timed else None
         ratio = (graph_ms / library_graph_ms
                  if timed and isinstance(library_graph_ms, float) else None)
-        prev = report.get(name)
-        if prev is None or size > prev["size"]:
-            report[name] = {"size": size, "ms": ms, "graph_ms": graph_ms,
-                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                            "bound_by": bound_by, "library_ms": library_ms,
-                            "library_graph_ms": library_graph_ms,
-                            "err": max(err, prev["err"] if prev else 0),
-                            "shares": prev["shares"] if prev else [],
-                            "ratios": prev["ratios"] if prev else []}
+        numbers = {"size": size, "ms": ms, "graph_ms": graph_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms,
+                   "library_graph_ms": library_graph_ms}
+        entry = report.setdefault(name, {"size": -1, "err": 0, "shares": [],
+                                         "ratios": [], "wide": None,
+                                         "wide_shares": []})
+        entry["err"] = max(entry["err"], err)
+        if _wide_call(name, args):
+            # The wide matcher kernel: its own numbers, beside those of the
+            # DEFAULT path's instances that the kernel line carries.
+            entry["wide_shares"].append(share)
+            if entry["wide"] is None or size > entry["wide"]["size"]:
+                entry["wide"] = dict(numbers, k=_matcher_k(name, args),
+                                     sticky=scalars[-1])
         else:
-            prev["err"] = max(prev["err"], err)
-        report[name]["shares"].append(share)
-        report[name]["ratios"].append(ratio)
+            entry["shares"].append(share)
+            entry["ratios"].append(ratio)
+            if size > entry["size"]:
+                entry.update(numbers)
         print(f"main path {name} in {stage} {shapes} {scalars}: "
               f"max_abs_err={err}; kernel {ms} ms (graph_ms {graph_ms}), "
               f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}), "
@@ -1634,6 +1791,8 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     if any(r["err"] for r in report.values()):
         raise AssertionError(f"kernel disagrees with plain on the main "
                              f"path's tensors: {report}")
+
+    _ffill_beyond_four(dev, captured, card)
 
     # resolve_tiled's worst case: the period-1 chain, 65535 hops deep.
     tiledres = kernels["resolve_tiled"]
@@ -1652,6 +1811,37 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     print(f"time resolve_block ({batch}, {N}) on the same chain, at most "
           f"16 rounds: kernel {ms} ms [{card}]")
     return report
+
+
+def _ffill_beyond_four(dev, captured: dict, card: str) -> None:
+    """Phase 9, continued: the fill past one launch's four payloads (no
+    caller passes more today), on the largest captured ffill call's mask
+    with 8 distinct payloads made from its own (x ^ i): equal to the plain
+    version, timed with its bound beside the captured call itself (the
+    one with the most payloads, then the most positions)."""
+    from tpu_snappy_torch.ops.kernels import ffill
+    args, kw = max(((a, k) for (name, *_), (a, k) in captured.items()
+                    if name == "ffill"),
+                   key=lambda c: (len(c[0][1]), c[0][0].numel()))
+    mask, vals = args[0], tuple(args[1])
+    wide = tuple(vals[i % len(vals)] ^ i for i in range(8))
+    for payloads in (vals, wide):
+        outs = ffill.ffill(mask, payloads, **kw)
+        want = ffill.ffill_plain(mask, payloads, kw.get("max_gap"))
+        err = max(_exact(g, w) for g, w in zip(outs, want))
+        ms, graph_ms = _both(lambda: ffill.ffill(mask, payloads, **kw), dev)
+        plain_ms = _timed(lambda: ffill.ffill_plain(
+            mask, payloads, kw.get("max_gap")), dev, 5)
+        bound_ms, bound_by = _bound("ffill", (mask, payloads), outs)
+        print(f"ffill {tuple(mask.shape)} x {len(payloads)} payloads: "
+              f"max_abs_err={err}; kernel {ms} ms (graph_ms {graph_ms}), "
+              f"plain {plain_ms} ms, bound {bound_ms} ms ({bound_by}); "
+              f"kernels a call: "
+              f"{_kernel_split(lambda: ffill.ffill(mask, payloads, **kw))} "
+              f"[{card}]")
+        if err:
+            raise AssertionError(f"ffill with {len(payloads)} payloads "
+                                 f"differs from plain")
 
 
 def _chain_case(dev, captured: dict) -> tuple:
@@ -1806,6 +1996,18 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
         if name not in REDESIGNED:
             continue
         new = getattr(kernels[name], name)
+        if _wide_call(name, args):
+            # The parent's matchers refuse K above FIXED_K: this tree's
+            # wide kernel alone.
+            bound_ms, _ = _bound(name, (*args, *kw.values()),
+                                 new(*args, **kw))
+            ms, graph_ms = _both(lambda: new(*args, **kw), dev)
+            print(f"this alone (the parent refuses K "
+                  f"{_matcher_k(name, args)}): {name} in "
+                  f"{stage} {shapes} {scalars}: {ms} ms (graph_ms "
+                  f"{graph_ms}), bound {bound_ms} ms; kernels a call: "
+                  f"{_kernel_split(lambda: new(*args, **kw))} [{card}]")
+            continue
         calls = [("", args, kw)]
         if name in FIRST_ROWS and args[0].shape[0] > SERVER_ROWS:
             calls.append((f", its first {SERVER_ROWS} rows",
@@ -1949,19 +2151,33 @@ def resolve_tile_sweep(dev, captured: dict, card: str) -> None:
               f"[{card}]")
 
 
-#: Blocks of phase 8's traced compresses above K 16 (_wide_k).
+#: Blocks of phase 8's traced compresses above K 16 (_wide_k), each
+#: stream equal to the CPU's and decoded by reference_codec.
 WIDE_BLOCKS = 8
 
 
-def _wide_k():
+def _wide_k(ks=((17, "exact", "class"), (18, "sig", "class"),
+                (32, "exact", "class"), (32, "sig", "class"),
+                (64, "exact", "class"), (64, "sig", "class"))):
     """The matchers above K 16 on the main path (phase 8's traced
-    compresses of the first WIDE_BLOCKS blocks, which phase 9 holds against
-    plain): DEFAULT_CONFIG at K 17 "exact" and at K 18 "sig"."""
+    compresses, which phase 9 holds against plain): DEFAULT_CONFIG at each
+    (K, sticky, flatten) of `ks`; by default K 17 "exact" and 18 "sig"
+    (kernel instances of their own) and K 32 and 64 at "exact" and "sig"
+    (the wide kernel)."""
     from tpu_snappy_torch import config
-    return (dataclasses.replace(config.DEFAULT_CONFIG, candidates=17,
-                                probes=17),
-            dataclasses.replace(config.DEFAULT_CONFIG, candidates=18,
-                                probes=18, sticky="sig"))
+    return tuple(dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
+                                     probes=k, sticky=sticky,
+                                     flatten=flatten)
+                 for k, sticky, flatten in ks)
+
+
+#: The wide kernel's configs phase 8 also compresses at the API's wave
+#: (128 blocks), for phase 9's times at the main path's rows: the packed
+#: form at K 32 and 64, both sticky modes, and the unpacked one (flatten
+#: "off") at K 32.
+WIDE_WAVE = ((32, "exact", "class"), (32, "sig", "class"),
+             (64, "exact", "class"), (64, "sig", "class"),
+             (32, "exact", "off"))
 
 
 def _flat_off():
@@ -2768,6 +2984,14 @@ def main() -> None:
                         "library_graph_ms": r["library_graph_ms"],
                         "worst_library_ratio": _extreme(max, r["ratios"]),
                         "least_bound_share": _extreme(min, r["shares"])})
+        if r["wide"]:
+            w = r["wide"]
+            kernels[-1].update(wide_k=w["k"], wide_sticky=w["sticky"],
+                               wide_graph_ms=w["graph_ms"],
+                               wide_bound_ms=w["bound_ms"],
+                               wide_bound_by=w["bound_by"],
+                               wide_least_bound_share=_extreme(
+                                   min, r["wide_shares"]))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_snappy"))
     if foreign:

@@ -198,8 +198,8 @@ def test_ffill_refuses_what_the_kernel_does_not_take():
     mask, val = mask[:, :896], val[:, :896].contiguous()
     with pytest.raises(ValueError, match="chunk"):
         KF.ffill(mask, (val,), chunk=3072)
-    with pytest.raises(ValueError, match="payloads"):
-        KF.ffill(mask, (val,) * 5)
+    with pytest.raises(ValueError, match="payload"):
+        KF.ffill(mask, ())
     assert torch.equal(KF.ffill(mask, (val,), chunk=2048)[0], val)
 
 
@@ -221,7 +221,7 @@ def test_ffill_kernel_matches_plain_at_main_path_shapes(cuda, batch):
     rng = np.random.default_rng(batch)
     for m in (57344, N, 57344 + 128):
         mask = _t(_ffill_card_masks(batch, m)).to(cuda)
-        for k in range(1, KF.MAX_PAYLOADS + 1):
+        for k in range(1, KF.LAUNCH_PAYLOADS + 1):
             vals = tuple(_t(rng.integers(-(1 << 31), (1 << 31) - 1,
                                          (batch, m)).astype(np.int32))
                          .to(cuda) for _ in range(k))

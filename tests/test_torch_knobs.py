@@ -9,9 +9,9 @@ port's encode_blocks must equal tpu_snappy.ops.encode.encode_blocks byte
 for byte, api.compress must equal the JAX api.compress on a two-block
 input and round-trip, and the JAX package's trace-time asserts must be
 ValueErrors here. Candidate counts above 16 (K 17 and 18, sticky "exact"
-and "sig", which the matcher kernels take, and K 26, past their MAX_K,
-where the CPU runs the plain matcher) give the JAX api.compress bytes.
-The `gpu` tests repeat the encode on the card, where K 26 is refused.
+and "sig", which kernel instances of their own take on the card, and K
+26, which the wide matcher kernel takes) give the JAX api.compress bytes.
+The `gpu` tests repeat the encode on the card.
 """
 
 import dataclasses
@@ -113,10 +113,9 @@ def test_the_jax_asserts_are_value_errors():
 
 
 #: Candidate counts above 16, with the JAX package's stream sizes on _fox:
-#: K 17 and 18 run the matcher wrappers (the kernels on the card, the
-#: plain matcher on the CPU); K 26 is past matcher.MAX_K, where the CPU
-#: runs the plain matcher on the unpacked table, as the JAX package does
-#: off the TPU.
+#: each runs the packed matcher wrapper (on the CPU its plain version, on
+#: the card K 17 and 18 their own kernel instances and K 26, past
+#: matcher.FIXED_K, the wide kernel).
 WIDE_K = {"k18": (dict(candidates=18, probes=18), 9101),
           "k17": (dict(candidates=17, probes=17), 9101),
           "k18_sig": (dict(candidates=18, probes=18, sticky="sig"), 9758),
@@ -178,15 +177,12 @@ def test_knobs_on_the_card_match_the_cpu(knob, cuda):
 
 @pytest.mark.gpu
 def test_wide_k_on_the_card_matches_the_cpu(cuda):
-    """The matcher kernels at K 17 and 18 against the CPU's plain matcher;
-    past MAX_K the card refuses."""
+    """The matcher kernels at K 17, 18 and (the wide kernel, past
+    FIXED_K) 26 against the CPU's plain matcher: the same bytes."""
     data = _fox()
     for knob in WIDE_K:
         tcfg = _cfgs(WIDE_K[knob][0])[1]
-        if tcfg.candidates > KM.MAX_K:
-            with pytest.raises(ValueError, match="K from 2 to"):
-                api.compress(data, tcfg, device=cuda, small_fastpath=False)
-            continue
         assert (api.compress(data, tcfg, device=cuda, small_fastpath=False)
                 == api.compress(data, tcfg, device="cpu",
-                                small_fastpath=False))
+                                small_fastpath=False)), knob
+    assert _cfgs(WIDE_K["k26"][0])[1].candidates > KM.FIXED_K

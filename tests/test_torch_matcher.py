@@ -72,7 +72,7 @@ def jax_packed():
 
 
 def test_kernel_constants():
-    assert KM.MAX_K >= K and K % 2 == 0
+    assert KM.MIN_K <= K <= KM.FIXED_K and K % 2 == 0
     assert DEFAULT_CONFIG.sticky == "exact"
 
 
@@ -130,9 +130,9 @@ def test_matcher_plain_matches_pallas_interpret(port):
 
 def test_matcher_refuses_unported_forms(port):
     pref, words, n = port
-    with pytest.raises(ValueError, match="K from 2 to 24"):
-        KM.matcher_block_packed(pref, words, n, KM.MAX_K + 1, 2)
-    with pytest.raises(ValueError, match="K from 2 to 24"):
+    with pytest.raises(ValueError, match="K from 2"):
+        KM.matcher_block_packed(pref, words[:, :0], n, KM.MIN_K - 1, 2)
+    with pytest.raises(ValueError, match="K from 2"):
         KM.matcher_block(torch.zeros((1, N, 1), dtype=torch.int32), n[:1])
     with pytest.raises(ValueError, match="sticky"):
         KM.matcher_block_packed(pref, words, n, K, 2, "hash")

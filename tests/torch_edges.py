@@ -21,12 +21,20 @@ for tests/test_torch_scans.py and phase 3; `place_edge_rows` the
 adversarial destinations
 of place_block and `limb_rows` those of the windowed scatter at 1-3 limbs
 and other out_cells, for tests/test_torch_place.py, test_torch_kernels.py
-and phase 3. numpy only, besides the kernel modules and the port's corpus
-synthesis.
+and phase 3. `matcher_ops` restates the wide matcher kernel's sticky
+stage in torch (held to the plain composition by
+tests/test_torch_wide_k.py) and counts the integer operations a matcher
+call needs on its own table, at every K: chip_smoke.py's phase 9 bounds
+both matcher forms by it. numpy only elsewhere, besides the kernel
+modules and the port's corpus synthesis.
 """
 
-import numpy as np
+import functools
 
+import numpy as np
+import torch
+
+from tpu_snappy_torch.ops import encode
 from tpu_snappy_torch.ops.kernels import emit, matcher, scans, tiledres
 from tpu_snappy_torch.utils import corpus
 
@@ -156,6 +164,61 @@ def matcher_edge_rows(seed: int = SEED + 7):
     for i, (row, n) in enumerate(rows):
         blocks[i, :n] = row[:n]
     return blocks, np.array([n for _, n in rows], np.int32)
+
+
+#: Integer operations a position needs after the sticky stage: 16 link
+#: compares, 3 phases, the 16-wide filter, 7 propagation levels, lazy and
+#: the jump.
+LATER_STAGE_OPS = 72
+
+
+def matcher_ops(cands: torch.Tensor, sticky: str) -> int:
+    """Integer operations the matcher function needs on this (B, N, K)
+    table, as the wide kernel computes it (the keep sets after l levels
+    are the intersections of the original sets over windows of 2^l
+    positions 4 apart, the bucket masks compose by AND): per position the
+    K bucket bits of its mask, 3 a sticky level (the bucket test, the mask
+    AND, the select) and LATER_STAGE_OPS; at "exact", for each level's
+    default that passes the bucket test, the compares its window needs: at
+    each of its 2^l positions in turn the keeps up to the one equal to it,
+    all K where none is (and then no further position); at "sig" the
+    verification's compares likewise at the position itself, where the
+    default is not keep 0. Raises AssertionError where the sticky offsets
+    this walk gives differ from the plain composition's."""
+    b, n, k = cands.shape
+    iota = torch.arange(n, device=cands.device)
+    bits = torch.where(cands != 0, encode._sig_bit(cands), 0)
+    mask = functools.reduce(torch.bitwise_or, bits.unbind(-1))
+    del bits
+    d = cands[..., 0]
+    total = b * n * (k + 3 * encode.STICKY_LEVELS + LATER_STAGE_OPS)
+
+    def scan(at, x):
+        eq = at == x[..., None]
+        hit = eq.any(-1)
+        return torch.where(hit, eq.to(torch.int8).argmax(-1) + 1, k), hit
+
+    for lvl in range(encode.STICKY_LEVELS):
+        s = 4 << lvl
+        edge = iota < s
+        x = torch.roll(d, s, dims=1)
+        take = (x != 0) & ((mask & encode._sig_bit(x)) != 0) & ~edge
+        if sticky == "exact":
+            for i in range(1 << lvl):
+                length, hit = scan(torch.roll(cands, 4 * i, dims=1), x)
+                total += int(torch.where(take, length, 0).sum())
+                take &= hit
+        d = torch.where(take, x, d)
+        mask = torch.where(edge, mask, torch.roll(mask, s, dims=1) & mask)
+    if sticky == "sig":
+        length, hit = scan(cands, d)
+        need = (d != 0) & (d != cands[..., 0])
+        total += int(torch.where(need, length, 0).sum())
+        d = torch.where(hit & (d != 0), d, cands[..., 0])
+    if not torch.equal(d, encode._sticky_offsets(cands, sticky)):
+        raise AssertionError("the window-intersection sticky walk differs "
+                             "from the plain composition")
+    return total
 
 
 def emit_edge_parses(seed: int = SEED + 8):

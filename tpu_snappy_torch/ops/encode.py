@@ -12,17 +12,16 @@ position), rank-space candidate table, restore to position space, matcher,
 commit scan, emission, placement. The matcher route follows the table:
 
 * points with a flattening slot (every preset): the packed candidate form
-  feeds `matcher_block_packed`, as on the TPU;
-* flatten "off": the unpacked (B, N, K) table feeds `matcher_block`. The
-  TPU runs the XLA-form matcher here; the two are bit-identical
-  (tests/test_pallas.py:513-550), and the kernel keeps the plain body's
-  (B, N, K, K) compares off the card;
+  feeds `matcher_block_packed` at every K, as on the TPU (on the CPU its
+  plain version unpacks the table and runs `_matcher_xla`, the JAX
+  package's route off the TPU; on the card K 2-24 run a kernel instance
+  each and larger K the wide kernel);
+* flatten "off": the unpacked (B, N, K) table feeds `matcher_block` at
+  every K. The TPU runs the XLA-form matcher here; the two are
+  bit-identical (tests/test_pallas.py:513-550), and the kernel keeps the
+  plain body's membership compares off the card;
 * table "intervals": `_matcher_xla` with the interval-aware sticky scan,
-  which is XLA on the TPU too (no kernel takes the interval columns);
-* K above the kernels' `MAX_K` (24) on the CPU: `_matcher_xla` on the
-  unpacked table, as the JAX package runs it off the TPU (the Pallas
-  kernel takes any K; no preset goes above 16). On the card the matcher
-  wrapper refuses such a K.
+  which is XLA on the TPU too (no kernel takes the interval columns).
 
 Placements (`PLACEMENTS`, encode.py:721-735), all giving the same bytes:
 "auto" and "winplace" (single-lane emission, windowed placement and the
@@ -299,10 +298,10 @@ def _sticky_offsets(cands: torch.Tensor,
     composition of "keep the offset from i-4 if it is one of my
     candidates, else my default" over 2**STICKY_LEVELS stride-4 steps.
     Membership at "exact" compares with every keep ((B, N, K, K)
-    compares); at "sig" it is one AND with a 32-bucket bit mask of the
-    keeps, and the final choice is re-verified exactly against the
-    position's own table, falling back to column 0, so a bucket collision
-    only changes a tie-break."""
+    compares, in K passes of (B, N, K)); at "sig" it is one AND with a
+    32-bucket bit mask of the keeps, and the final choice is re-verified
+    exactly against the position's own table, falling back to column 0,
+    so a bucket collision only changes a tie-break."""
     keep = cands
     dflt = cands[..., 0]
     iota = _iota(cands.device)
@@ -316,7 +315,8 @@ def _sticky_offsets(cands: torch.Tensor,
             in_keep = (mask[..., None] & _sig_bit(a_keep)) != 0
             in_dflt = (mask & _sig_bit(a_dflt)) != 0
         else:
-            in_keep = (a_keep[..., None] == keep[..., None, :]).any(dim=-1)
+            in_keep = functools.reduce(torch.bitwise_or, (
+                a_keep == keep[..., m, None] for m in range(keep.shape[-1])))
             in_dflt = (a_dflt[..., None] == keep).any(dim=-1)
         new_keep = torch.where(in_keep & (a_keep > 0), a_keep, 0)
         new_dflt = torch.where(in_dflt & (a_dflt > 0), a_dflt, dflt)
@@ -465,8 +465,7 @@ def _match(blocks: torch.Tensor, n: torch.Tensor, cfg: CodecConfig):
         key = _window_keys(blocks, n)
     else:
         key = _window_keys_strided(blocks, n, cfg.stride)
-    wide = cfg.candidates > _matcher.MAX_K and key.device.type == "cpu"
-    if cfg.table == "intervals" or wide:
+    if cfg.table == "intervals":
         cands = _candidate_offsets(key, n, cfg, packed=False)
         return _matcher_xla(cands, n, cfg.lazy, cfg.sticky, cfg.table)
     if cfg.flatten == "off":

@@ -36,7 +36,7 @@ I = ctypes.c_int
 #: c_void_p, so ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "snk_window_keys": [P, P, P, I, P],
-    "snk_ffill": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "snk_ffill": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     "snk_scatter_windowed": [P, P, P, P, P, I, I, I, I, I, I, P],
     "snk_resolve_tiled": [P, P, P, P, I, I, P],
     "snk_resolve_tiled_depth": [P, P, P, P, I, I, P],

@@ -25,8 +25,10 @@
 //      load and store is one contiguous line; a warp-shuffle max-scan of
 //      the groups' latest set index, a scan of the warp totals and of the
 //      G segments, then the gather and one 16-byte store a group and
-//      payload. The payload count is a template parameter, so the loops
-//      unroll.
+//      payload. The payload count (1 to 4) is a template parameter, so
+//      the loops unroll. More payloads take one fill_kernel launch for
+//      each group of up to four, all reading the one `last` tensor that
+//      last_set_kernel wrote.
 // A one-pass decoupled look-back scan would read the mask once, but needs
 // a status word per chunk that must be reset every call.
 #include "common.cuh"
@@ -37,11 +39,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 4;                   // positions a group (one word)
 constexpr int kSpan = kThreads * kGroup;    // positions of one segment
-constexpr int kMaxPayloads = 4;
+constexpr int kLaunchPayloads = 4;  // payloads one fill launch takes
 
 struct Payloads {
-  const int32_t* in[kMaxPayloads];
-  int32_t* out[kMaxPayloads];
+  const int32_t* in[kLaunchPayloads];
+  int32_t* out[kLaunchPayloads];
 };
 
 // The highest set byte of a mask word, as a position, or -1.
@@ -155,12 +157,15 @@ fill_kernel(const uint8_t* __restrict__ mask, Payloads p,
 }
 
 template <int G, int K>
-int launch_fill(const uint8_t* mask, const Payloads& p, int* last, int m,
-                int chunks, int window, int batch, cudaStream_t s) {
+int launch_fill(const uint8_t* mask, const Payloads& p, int* last,
+                bool find_last, int m, int chunks, int window, int batch,
+                cudaStream_t s) {
   const dim3 grid(chunks, batch);
-  last_set_kernel<G><<<grid, kThreads, 0, s>>>(mask, m, chunks, last);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (find_last) {
+    last_set_kernel<G><<<grid, kThreads, 0, s>>>(mask, m, chunks, last);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   fill_kernel<G, K><<<grid, kThreads, 0, s>>>(mask, p, last, m, chunks,
                                                window);
   return static_cast<int>(cudaGetLastError());
@@ -168,20 +173,21 @@ int launch_fill(const uint8_t* mask, const Payloads& p, int* last, int m,
 
 template <int G>
 int launch_fill_k(const uint8_t* mask, const Payloads& p, int* last, int k,
-                  int m, int chunks, int window, int batch, cudaStream_t s) {
+                  bool find_last, int m, int chunks, int window, int batch,
+                  cudaStream_t s) {
   switch (k) {
     case 1:
-      return launch_fill<G, 1>(mask, p, last, m, chunks, window, batch,
-                                 s);
+      return launch_fill<G, 1>(mask, p, last, find_last, m, chunks, window,
+                               batch, s);
     case 2:
-      return launch_fill<G, 2>(mask, p, last, m, chunks, window, batch,
-                                 s);
+      return launch_fill<G, 2>(mask, p, last, find_last, m, chunks, window,
+                               batch, s);
     case 3:
-      return launch_fill<G, 3>(mask, p, last, m, chunks, window, batch,
-                                 s);
+      return launch_fill<G, 3>(mask, p, last, find_last, m, chunks, window,
+                               batch, s);
     case 4:
-      return launch_fill<G, 4>(mask, p, last, m, chunks, window, batch,
-                                 s);
+      return launch_fill<G, 4>(mask, p, last, find_last, m, chunks, window,
+                               batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -190,14 +196,16 @@ int launch_fill_k(const uint8_t* mask, const Payloads& p, int* last, int k,
 
 // mask: (batch, m) uint8 (0/1); in0..in3 / out0..out3: (batch, m) int32,
 // the first k used (1 <= k <= 4); all 16-byte aligned, m a multiple of
-// 128. last: (batch, ceil(m / chunk)) int32 scratch, every entry written.
-// chunk: 1024, 2048 or 4096 positions. window: a position is filled only
-// from a set mask less than `window` positions behind it.
+// 128. last: (batch, ceil(m / chunk)) int32, each chunk's latest set
+// index: find_last 1 writes every entry first (last_set_kernel), 0 reads
+// what an earlier call on the same mask and chunk wrote. chunk: 1024, 2048
+// or 4096 positions. window: a position is filled only from a set mask
+// less than `window` positions behind it.
 SNK_EXPORT int snk_ffill(const void* mask, const void* in0, const void* in1,
                          const void* in2, const void* in3, void* out0,
                          void* out1, void* out2, void* out3, void* last,
-                         int k, int m, int chunk, int window, int batch,
-                         void* stream) {
+                         int k, int find_last, int m, int chunk, int window,
+                         int batch, void* stream) {
   Payloads p;
   p.in[0] = static_cast<const int32_t*>(in0);
   p.in[1] = static_cast<const int32_t*>(in1);
@@ -213,11 +221,14 @@ SNK_EXPORT int snk_ffill(const void* mask, const void* in0, const void* in1,
   const int chunks = (m + chunk - 1) / chunk;
   switch (chunk) {
     case kSpan:
-      return launch_fill_k<1>(mk, p, lt, k, m, chunks, window, batch, s);
+      return launch_fill_k<1>(mk, p, lt, k, find_last != 0, m, chunks,
+                              window, batch, s);
     case 2 * kSpan:
-      return launch_fill_k<2>(mk, p, lt, k, m, chunks, window, batch, s);
+      return launch_fill_k<2>(mk, p, lt, k, find_last != 0, m, chunks,
+                              window, batch, s);
     case 4 * kSpan:
-      return launch_fill_k<4>(mk, p, lt, k, m, chunks, window, batch, s);
+      return launch_fill_k<4>(mk, p, lt, k, find_last != 0, m, chunks,
+                              window, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,8 +2,9 @@
 // candidate table.
 //
 // Replaces tpu_snappy/ops/pallas/matcher.py:matcher_block_packed and
-// matcher_block (sticky "exact" and "sig", K from 2 to 24). The TPU kernel
-// holds a whole 64K row in VMEM and runs every stage as full-row
+// matcher_block (sticky "exact" and "sig", any K >= 2: matcher_kernel<K>
+// for K 2-24, matcher_wide_kernel above; see "The wide form"). The TPU
+// kernel holds a whole 64K row in VMEM and runs every stage as full-row
 // Hillis-Steele rolls. What it computes, and what this kernel keeps bit
 // for bit:
 //   * sticky offsets: 4 levels of the windowed keep-set composition at
@@ -63,7 +64,7 @@
 // four at K <= 4; one at K 17-24, where two blocks' sticky planes at "sig"
 // (2K + 2 planes of 4 KB) pass the SM's 228 KB of shared memory, so a
 // thread may take 128 registers. Up to K = 24 one block's planes fit its
-// 227 KB at either sticky mode.
+// 227 KB at either sticky mode; past it the wide form holds no K planes.
 #include "common.cuh"
 
 namespace {
@@ -84,12 +85,18 @@ constexpr int kC1 = 2048;       // fmt.COPY1_MAX_OFFSET
 constexpr int kBlock = 32 * kPer;  // a warp's positions, a max block
 constexpr int kIdxBits = 11;    // region index bits of a window key
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFixedK = 24;     // the largest K with an instance of its own
 
 static_assert(kLen == 1 << kIdxBits, "a window key holds a region index");
 static_assert(kLeft % kPer == 0 && kTile % kPer == 0,
               "a thread's positions are all outputs or none");
 static_assert(kLeft >= 60 + 16 + 127 && kBlock == 128,
               "the propagation window is one warp block");
+
+// Shared memory of the stages after sticky (finish_tile): the suffix-max
+// keys, the match nibbles, the stride-4 ballots and each warp's first key.
+constexpr size_t kPostBytes =
+    (kLen + kThreads + 4 + kWarps * kPer + kWarps) * sizeof(int32_t);
 
 // Shared memory: the sticky planes (K + 1 planes of 16-bit values: the K
 // keeps and the default), at "sig" the original keeps (K planes), then the
@@ -99,9 +106,7 @@ struct Smem {
   static constexpr size_t kPlanes = (K + 1) * kLen * sizeof(uint16_t);
   static constexpr size_t kOrig = kSig ? K * kLen * sizeof(uint16_t) : 0;
   static constexpr size_t kOffs = kLen * sizeof(uint16_t);
-  static constexpr size_t kPost =
-      (kLen + kThreads + 4 + kWarps * kPer + kWarps) * sizeof(int32_t);
-  static_assert(kPost <= kPlanes, "the later stages fit in the planes");
+  static_assert(kPostBytes <= kPlanes, "the later stages fit in the planes");
   static constexpr size_t kTotal = kPlanes + kOrig + kOffs;
   static_assert(kTotal <= 227 * 1024, "a block's shared memory holds it");
 };
@@ -116,6 +121,158 @@ __device__ __forceinline__ void store4(uint16_t* at, uint32_t a, uint32_t b,
   *reinterpret_cast<uint2*>(at) =
       make_uint2((a & 0xFFFFu) | (b & 0xFFFFu) << 16,
                  (c & 0xFFFFu) | (d & 0xFFFFu) << 16);
+}
+
+// The stages after sticky, on one block's tile: d holds my kPer sticky
+// offsets (positions p0 .. p0 + 3 of the region, global gb .. gb + 3);
+// offs is the region's plane of sticky offsets and post kPostBytes of
+// shared memory, both free for this function. Writes my outputs.
+__device__ __forceinline__ void finish_tile(
+    const uint32_t (&d)[kPer], uint16_t* offs, unsigned char* post, int t0,
+    int n, size_t rbase, int gb, int32_t* __restrict__ jump,
+    int32_t* __restrict__ offo, int lazy) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int p0 = kPer * tid;
+  store4(offs + p0, d[0], d[1], d[2], d[3]);
+  __syncthreads();
+
+  // The later stages' arrays, in `post`.
+  int32_t* hs = reinterpret_cast<int32_t*>(post);  // suffix-max keys
+  uint32_t* hasw = reinterpret_cast<uint32_t*>(hs + kLen);  // match nibbles
+  uint32_t* bal = hasw + kThreads + 4;  // stride-4 equality ballots
+  int32_t* kfirst = reinterpret_cast<int32_t*>(bal + kWarps * kPer);
+
+  // --- quantised lengths: runs of equal offsets along the four stride-4
+  // chains. Equality with the next thread's offsets, balloted per chain;
+  // a run is the trailing ones of this warp's ballot and the next's. ---
+  uint32_t oq[kPer + 3];  // offsets at p0 .. p0 + 6
+  {
+    const bool last = tid + 1 == kThreads;
+    const uint2 w = last ? make_uint2(0u, 0u)
+                         : *reinterpret_cast<const uint2*>(offs + p0 + kPer);
+    const uint32_t on[kPer] = {w.x & 0xFFFFu, w.x >> 16, w.y & 0xFFFFu,
+                               w.y >> 16};
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      oq[q] = d[q];
+      const uint32_t b = __ballot_sync(kFull, !last && on[q] == d[q]);
+      if (lane == 0) bal[warp * kPer + q] = b;
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) oq[kPer + q] = on[q];
+  }
+  if (tid < 4) hasw[tid] = 0;
+  __syncthreads();
+  int mlq[kPer + 3];
+#pragma unroll
+  for (int c = 0; c < kPer + 3; ++c) {
+    const int q = c % kPer;
+    const uint32_t lo = bal[warp * kPer + q];
+    const uint32_t hi = warp + 1 < kWarps ? bal[(warp + 1) * kPer + q] : 0u;
+    // The chain's equalities from my lane (or the next) on; trailing ones,
+    // capped at 16.
+    const uint32_t ahead = __funnelshift_rc(lo, hi, lane + c / kPer);
+    const int run = __ffs(~ahead | 1u << 16) - 1;
+    mlq[c] = oq[c] != 0 ? 4 + 4 * run : 0;
+  }
+
+  // --- phase max over p = 1..3, capped at n - i ---
+  int ml[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const uint32_t o = oq[q];
+    int v = 0;
+    if (o != 0) {
+      v = mlq[q];
+#pragma unroll
+      for (int e = 1; e <= 3; ++e)
+        if (oq[q + e] == o) v = max(v, e + mlq[q + e]);
+    }
+    ml[q] = min(v, n - (gb + q));
+  }
+
+  // --- profitability filter: match starts in [i - 16, i - 1], none
+  // before the row (tile 0's left halo has no positions) ---
+  const bool neg = t0 == 0 && p0 < kLeft;
+  uint32_t nib = 0;
+  if (!neg) {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) nib |= static_cast<uint32_t>(ml[q] > 0) << q;
+  }
+  hasw[4 + tid] = nib;
+  __syncthreads();
+  const uint32_t win = hasw[tid] | hasw[tid + 1] << 4 | hasw[tid + 2] << 8 |
+                       hasw[tid + 3] << 12 | nib << 16;
+  int key[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int v = ml[q];
+    const bool isolated = __popc((win >> q) & 0xFFFFu) == 0;
+    const bool near = d[q] < kC1;
+    const bool keep = (v >= 5 || near) && (v >= 6 || near || !isolated);
+    const int pva = (keep ? v : 0) + gb + q;
+    key[q] = neg ? p0 + q : (pva + 1) << kIdxBits | (p0 + q);
+  }
+
+  // --- suffix propagation: the sliding max of the keys over [p - 127, p],
+  // a warp's prefix maxima with the previous warp's suffix maxima ---
+  int g[kPer], h[kPer];
+  g[0] = key[0];
+#pragma unroll
+  for (int q = 1; q < kPer; ++q) g[q] = max(g[q - 1], key[q]);
+  h[kPer - 1] = key[kPer - 1];
+#pragma unroll
+  for (int q = kPer - 2; q >= 0; --q) h[q] = max(h[q + 1], key[q]);
+  {
+    const int pre = snk::warp_scan_max(g[kPer - 1]);
+    int before = __shfl_up_sync(kFull, pre, 1);
+    if (lane == 0) before = -1;
+    int suf = h[0];
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      const int o = __shfl_down_sync(kFull, suf, dd);
+      if (lane + dd < 32) suf = max(suf, o);
+    }
+    int after = __shfl_down_sync(kFull, suf, 1);
+    if (lane == 31) after = -1;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      g[q] = max(g[q], before);
+      h[q] = max(h[q], after);
+    }
+  }
+  *reinterpret_cast<int4*>(hs + p0) = make_int4(h[0], h[1], h[2], h[3]);
+  if (lane == 0) kfirst[warp] = key[0];
+  __syncthreads();
+
+  // --- lazy deferral and the greedy jump, on my outputs ---
+  int gn = __shfl_down_sync(kFull, g[0], 1);  // the window at p0 + kPer
+  if (lane == 31) gn = warp + 1 < kWarps ? kfirst[warp + 1] : -1;
+  const int q0 = p0 - kLeft;  // my first output of the tile
+  if (q0 < 0 || q0 >= kTile || t0 + q0 >= kN) return;
+  int wk[kPer + 1];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) wk[q] = max(g[q], hs[p0 + q - (kBlock - 1)]);
+  wk[kPer] = max(gn, hs[p0 + kPer - (kBlock - 1)]);
+  int jv[kPer], ov[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int gm = gb + q;
+    int mlp = min((wk[q] >> kIdxBits) - 1 - gm, 68);
+    if (lazy) {
+      const int nx = gm == kN - 1
+          ? 0 : min((wk[q + 1] >> kIdxBits) - 1 - (gm + 1), 68);
+      if (mlp >= 4 && mlp < 64 && nx >= mlp + lazy) mlp = 0;
+    }
+    jv[q] = mlp < 4 ? 1 : (mlp <= 64 ? mlp : (mlp < 68 ? 60 : 64));
+    ov[q] = offs[wk[q] & (kLen - 1)];
+  }
+  *reinterpret_cast<int4*>(jump + rbase + gb) =
+      make_int4(jv[0], jv[1], jv[2], jv[3]);
+  *reinterpret_cast<int4*>(offo + rbase + gb) =
+      make_int4(ov[0], ov[1], ov[2], ov[3]);
 }
 
 template <int K, bool kSig>
@@ -134,8 +291,6 @@ matcher_kernel(const int32_t* __restrict__ pref,
   uint16_t* offs = reinterpret_cast<uint16_t*>(smem + S::kPlanes + S::kOrig);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int row = blockIdx.y;
   const int t0 = blockIdx.x * kTile;
   const int n = nlen[row];
@@ -289,144 +444,249 @@ matcher_kernel(const int32_t* __restrict__ pref,
       d[q] = ver && d[q] != 0 ? d[q] : c0;
     }
   }
-  store4(offs + p0, d[0], d[1], d[2], d[3]);
+  finish_tile(d, offs, smem, t0, n, rbase, gb, jump, offo, lazy);
+}
+
+// --- The wide form: any K, as a runtime argument ---
+//
+// The keep sets compose by intersection. At "exact" a level keeps the
+// members of the set at i - s that are also in the set at i, so after l
+// levels the set at i (where i >= 4 (2^l - 1)) is the intersection of the
+// original tables at i, i - 4, ..., i - 4 (2^l - 1), and the default moves
+// from i - s to i exactly when it lies in all of them. At "sig" the kept
+// members are those whose bucket is in my mask, so the masks compose by
+// AND over the same window, and only the masks decide the default. So a
+// position needs its own default, its mask and, at "exact", a membership
+// test against the original table at 2^l positions a level (15 in all),
+// which the table in device memory answers: neighbouring threads read
+// neighbouring positions, and the 28 positions of a window stay in L1.
+// The bucket mask filters first at "exact" too (a member's bucket is in
+// every mask of its window), and the test stops at the first position that
+// lacks it. No K planes are held: the default and mask planes take 12 KB,
+// so the tile, the halos and the stages after sticky are the fixed form's.
+//
+// Bound on this card: the bytes of the table (4 + 2K a position, packed)
+// and, at "exact", the window tests (at most 15 K compares a position, where
+// the fixed form makes about 3 K^2).
+
+// Keeps of the table, four consecutive positions q0 .. q0 + 3 of one row
+// at a time (q0 a multiple of 4). Packed: keep 0 is pref, keeps 1.. the
+// 16-bit halves of the (K/2, N) words in order (low first; at even K the
+// last word's high half is not a keep). Unpacked: the (N, K) entries.
+template <bool kPacked>
+struct Keeps {
+  const int32_t* __restrict__ pref;
+  const int32_t* __restrict__ table;
+  int k;
+  int row;
+
+  // Keep 0 of each position.
+  __device__ __forceinline__ void first(int q0, uint32_t (&c)[kPer]) const {
+    if constexpr (kPacked) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(
+          pref + static_cast<size_t>(row) * kN + q0));
+      c[0] = x.x & 0xFFFF; c[1] = x.y & 0xFFFF;
+      c[2] = x.z & 0xFFFF; c[3] = x.w & 0xFFFF;
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        c[e] = __ldg(entries(q0 + e)) & 0xFFFF;
+    }
+  }
+
+  // The OR of the bucket bits of each position's nonzero keeps.
+  __device__ __forceinline__ void masks(int q0, uint32_t (&m)[kPer]) const {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) m[e] = 0;
+    if constexpr (kPacked) {
+      uint32_t c[kPer];
+      first(q0, c);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) m[e] |= bit(c[e]);
+      for (int j = 0; j < k / 2; ++j) {
+        const int4 x = word(j, q0);
+        const uint32_t w[kPer] = {static_cast<uint32_t>(x.x),
+                                  static_cast<uint32_t>(x.y),
+                                  static_cast<uint32_t>(x.z),
+                                  static_cast<uint32_t>(x.w)};
+        const bool high = 2 + 2 * j < k;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          m[e] |= bit(w[e] & 0xFFFF) | (high ? bit(w[e] >> 16) : 0u);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        const int32_t* at = entries(q0 + e);
+        for (int c = 0; c < k; ++c) m[e] |= bit(__ldg(at + c) & 0xFFFF);
+      }
+    }
+  }
+
+  // Bit e set where x[e] is a keep of position q0 + e, for the positions
+  // of `want` (bits); stops once all of them are found.
+  __device__ __forceinline__ unsigned member(int q0, const uint32_t (&x)[kPer],
+                                             unsigned want) const {
+    unsigned found = 0;
+    if constexpr (kPacked) {
+      uint32_t c[kPer];
+      first(q0, c);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        found |= static_cast<unsigned>(c[e] == x[e]) << e;
+      found &= want;
+      for (int j = 0; j < k / 2 && found != want; ++j) {
+        const int4 v = word(j, q0);
+        const uint32_t w[kPer] = {static_cast<uint32_t>(v.x),
+                                  static_cast<uint32_t>(v.y),
+                                  static_cast<uint32_t>(v.z),
+                                  static_cast<uint32_t>(v.w)};
+        const bool high = 2 + 2 * j < k;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          found |= static_cast<unsigned>((w[e] & 0xFFFF) == x[e] ||
+                                         (high && w[e] >> 16 == x[e])) << e;
+        found &= want;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        if (!(want >> e & 1)) continue;
+        const int32_t* at = entries(q0 + e);
+        for (int c = 0; c < k; ++c) {
+          if (static_cast<uint32_t>(__ldg(at + c) & 0xFFFF) == x[e]) {
+            found |= 1u << e;
+            break;
+          }
+        }
+      }
+    }
+    return found;
+  }
+
+ private:
+  __device__ __forceinline__ static uint32_t bit(uint32_t v) {
+    return v ? sig_bit(v) : 0u;
+  }
+  __device__ __forceinline__ int4 word(int j, int q0) const {
+    return __ldg(reinterpret_cast<const int4*>(
+        table + (static_cast<size_t>(row) * (k / 2) + j) * kN + q0));
+  }
+  __device__ __forceinline__ const int32_t* entries(int q) const {
+    return table + (static_cast<size_t>(row) * kN + q) * k;
+  }
+};
+
+// Shared memory of the wide form: the bucket masks and the defaults of the
+// region (the stages after sticky reuse them), then the sticky offsets.
+constexpr size_t kWideMasks = kLen * sizeof(uint32_t);
+constexpr size_t kWideDflts = kLen * sizeof(uint16_t);
+constexpr size_t kWideBytes = kWideMasks + 2 * kWideDflts;
+static_assert(kPostBytes <= kWideMasks + kWideDflts,
+              "the later stages fit in the sticky planes");
+
+template <bool kPacked, bool kSig>
+__global__ void __launch_bounds__(kThreads, 2)
+matcher_wide_kernel(const int32_t* __restrict__ pref,
+                    const int32_t* __restrict__ table, int k,
+                    const int32_t* __restrict__ nlen,
+                    int32_t* __restrict__ jump, int32_t* __restrict__ offo,
+                    int lazy) {
+  __shared__ __align__(16) unsigned char smem[kWideBytes];
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem);
+  uint16_t* dflts = reinterpret_cast<uint16_t*>(smem + kWideMasks);
+  uint16_t* offs = dflts + kLen;
+
+  const int tid = threadIdx.x;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kTile;
+  const int n = nlen[row];
+  const size_t rbase = static_cast<size_t>(row) * kN;
+  const int p0 = kPer * tid;  // my first region position
+  const int gb = (t0 - kLeft + p0) & (kN - 1);
+  const Keeps<kPacked> keeps{pref, table, k, row};
+
+  uint32_t c0[kPer], msk[kPer], d[kPer];
+  keeps.first(gb, c0);
+  keeps.masks(gb, msk);
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) d[q] = c0[q];
+  store4(dflts + p0, d[0], d[1], d[2], d[3]);
+  *reinterpret_cast<uint4*>(masks + p0) =
+      make_uint4(msk[0], msk[1], msk[2], msk[3]);
   __syncthreads();
 
-  // The later stages' arrays, in the (now dead) planes.
-  int32_t* hs = reinterpret_cast<int32_t*>(smem);  // suffix-max keys
-  uint32_t* hasw = reinterpret_cast<uint32_t*>(hs + kLen);  // match nibbles
-  uint32_t* bal = hasw + kThreads + 4;  // stride-4 equality ballots
-  int32_t* kfirst = reinterpret_cast<int32_t*>(bal + kWarps * kPer);
-
-  // --- quantised lengths: runs of equal offsets along the four stride-4
-  // chains. Equality with the next thread's offsets, balloted per chain;
-  // a run is the trailing ones of this warp's ballot and the next's. ---
-  uint32_t oq[kPer + 3];  // offsets at p0 .. p0 + 6
-  {
-    const bool last = tid + 1 == kThreads;
-    const uint2 w = last ? make_uint2(0u, 0u)
-                         : *reinterpret_cast<const uint2*>(offs + p0 + kPer);
-    const uint32_t on[kPer] = {w.x & 0xFFFFu, w.x >> 16, w.y & 0xFFFFu,
-                               w.y >> 16};
+#pragma unroll 1
+  for (int lvl = 0; lvl < kLevels; ++lvl) {
+    const int s = 4 << lvl;
+    // Window edge (gidx < s), or context the tile never reads (p < s).
+    const bool ident = gb < s || p0 < s;
+    uint32_t nd[kPer], nm[kPer];
+    if (!ident) {
+      uint32_t x[kPer];
+      unsigned take = 0;
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      oq[q] = d[q];
-      const uint32_t b = __ballot_sync(kFull, !last && on[q] == d[q]);
-      if (lane == 0) bal[warp * kPer + q] = b;
+      for (int q = 0; q < kPer; ++q) {
+        x[q] = dflts[p0 + q - s];
+        take |= static_cast<unsigned>(x[q] != 0 &&
+                                      (msk[q] & sig_bit(x[q])) != 0) << q;
+      }
+      if constexpr (!kSig) {
+        // In the original table at every position of my window (gb >= s,
+        // so the window lies inside the row).
+        for (int i = 0; i < 1 << lvl && take; ++i)
+          take = keeps.member(gb - 4 * i, x, take);
+      }
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        nd[q] = take >> q & 1 ? x[q] : d[q];
+        nm[q] = masks[p0 + q - s] & msk[q];
+      }
     }
+    if (lvl + 1 == kLevels) {  // nothing reads the last level's planes
+      if (!ident) {
 #pragma unroll
-    for (int q = 0; q < 3; ++q) oq[kPer + q] = on[q];
-  }
-  if (tid < 4) hasw[tid] = 0;
-  __syncthreads();
-  int mlq[kPer + 3];
-#pragma unroll
-  for (int c = 0; c < kPer + 3; ++c) {
-    const int q = c % kPer;
-    const uint32_t lo = bal[warp * kPer + q];
-    const uint32_t hi = warp + 1 < kWarps ? bal[(warp + 1) * kPer + q] : 0u;
-    // The chain's equalities from my lane (or the next) on; trailing ones,
-    // capped at 16.
-    const uint32_t ahead = __funnelshift_rc(lo, hi, lane + c / kPer);
-    const int run = __ffs(~ahead | 1u << 16) - 1;
-    mlq[c] = oq[c] != 0 ? 4 + 4 * run : 0;
-  }
-
-  // --- phase max over p = 1..3, capped at n - i ---
-  int ml[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const uint32_t o = oq[q];
-    int v = 0;
-    if (o != 0) {
-      v = mlq[q];
-#pragma unroll
-      for (int e = 1; e <= 3; ++e)
-        if (oq[q + e] == o) v = max(v, e + mlq[q + e]);
+        for (int q = 0; q < kPer; ++q) d[q] = nd[q];
+      }
+      break;
     }
-    ml[q] = min(v, n - (gb + q));
-  }
-
-  // --- profitability filter: match starts in [i - 16, i - 1], none
-  // before the row (tile 0's left halo has no positions) ---
-  const bool neg = t0 == 0 && p0 < kLeft;
-  uint32_t nib = 0;
-  if (!neg) {
+    __syncthreads();
+    if (!ident) {
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) nib |= static_cast<uint32_t>(ml[q] > 0) << q;
-  }
-  hasw[4 + tid] = nib;
-  __syncthreads();
-  const uint32_t win = hasw[tid] | hasw[tid + 1] << 4 | hasw[tid + 2] << 8 |
-                       hasw[tid + 3] << 12 | nib << 16;
-  int key[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int v = ml[q];
-    const bool isolated = __popc((win >> q) & 0xFFFFu) == 0;
-    const bool near = d[q] < kC1;
-    const bool keep = (v >= 5 || near) && (v >= 6 || near || !isolated);
-    const int pva = (keep ? v : 0) + gb + q;
-    key[q] = neg ? p0 + q : (pva + 1) << kIdxBits | (p0 + q);
-  }
-
-  // --- suffix propagation: the sliding max of the keys over [p - 127, p],
-  // a warp's prefix maxima with the previous warp's suffix maxima ---
-  int g[kPer], h[kPer];
-  g[0] = key[0];
-#pragma unroll
-  for (int q = 1; q < kPer; ++q) g[q] = max(g[q - 1], key[q]);
-  h[kPer - 1] = key[kPer - 1];
-#pragma unroll
-  for (int q = kPer - 2; q >= 0; --q) h[q] = max(h[q + 1], key[q]);
-  {
-    const int pre = snk::warp_scan_max(g[kPer - 1]);
-    int before = __shfl_up_sync(kFull, pre, 1);
-    if (lane == 0) before = -1;
-    int suf = h[0];
-#pragma unroll
-    for (int dd = 1; dd < 32; dd <<= 1) {
-      const int o = __shfl_down_sync(kFull, suf, dd);
-      if (lane + dd < 32) suf = max(suf, o);
+      for (int q = 0; q < kPer; ++q) {
+        d[q] = nd[q];
+        msk[q] = nm[q];
+      }
+      store4(dflts + p0, d[0], d[1], d[2], d[3]);
+      *reinterpret_cast<uint4*>(masks + p0) =
+          make_uint4(msk[0], msk[1], msk[2], msk[3]);
     }
-    int after = __shfl_down_sync(kFull, suf, 1);
-    if (lane == 31) after = -1;
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      g[q] = max(g[q], before);
-      h[q] = max(h[q], after);
-    }
+    __syncthreads();
   }
-  *reinterpret_cast<int4*>(hs + p0) = make_int4(h[0], h[1], h[2], h[3]);
-  if (lane == 0) kfirst[warp] = key[0];
-  __syncthreads();
+  if constexpr (kSig) {
+    // Exact re-verification against my original keeps, falling back to
+    // keep 0 (which passes it whenever the default equals it).
+    unsigned want = 0;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      want |= static_cast<unsigned>(d[q] != 0 && d[q] != c0[q]) << q;
+    const unsigned ok = want ? keeps.member(gb, d, want) : 0u;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q)
+      if (d[q] == 0 || (want >> q & 1 && !(ok >> q & 1))) d[q] = c0[q];
+  }
+  finish_tile(d, offs, smem, t0, n, rbase, gb, jump, offo, lazy);
+}
 
-  // --- lazy deferral and the greedy jump, on my outputs ---
-  int gn = __shfl_down_sync(kFull, g[0], 1);  // the window at p0 + kPer
-  if (lane == 31) gn = warp + 1 < kWarps ? kfirst[warp + 1] : -1;
-  const int q0 = p0 - kLeft;  // my first output of the tile
-  if (q0 < 0 || q0 >= kTile || t0 + q0 >= kN) return;
-  int wk[kPer + 1];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) wk[q] = max(g[q], hs[p0 + q - (kBlock - 1)]);
-  wk[kPer] = max(gn, hs[p0 + kPer - (kBlock - 1)]);
-  int jv[kPer], ov[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) {
-    const int gm = gb + q;
-    int mlp = min((wk[q] >> kIdxBits) - 1 - gm, 68);
-    if (lazy) {
-      const int nx = gm == kN - 1
-          ? 0 : min((wk[q + 1] >> kIdxBits) - 1 - (gm + 1), 68);
-      if (mlp >= 4 && mlp < 64 && nx >= mlp + lazy) mlp = 0;
-    }
-    jv[q] = mlp < 4 ? 1 : (mlp <= 64 ? mlp : (mlp < 68 ? 60 : 64));
-    ov[q] = offs[wk[q] & (kLen - 1)];
-  }
-  *reinterpret_cast<int4*>(jump + rbase + gb) =
-      make_int4(jv[0], jv[1], jv[2], jv[3]);
-  *reinterpret_cast<int4*>(offo + rbase + gb) =
-      make_int4(ov[0], ov[1], ov[2], ov[3]);
+template <bool kPacked, bool kSig>
+int launch_wide(const void* pref, const void* table, int k, const void* n,
+                void* jump, void* off, int lazy, int batch, cudaStream_t s) {
+  dim3 grid(kTiles, batch);
+  matcher_wide_kernel<kPacked, kSig><<<grid, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(pref), static_cast<const int32_t*>(table),
+      k, static_cast<const int32_t*>(n), static_cast<int32_t*>(jump),
+      static_cast<int32_t*>(off), lazy);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K, bool kSig>
@@ -459,6 +719,17 @@ int dispatch(const void* pref, const void* table, bool packed, const void* n,
              void* jump, void* off, int k, int lazy, int sig, int batch,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > kFixedK) {
+    if (packed)
+      return sig ? launch_wide<true, true>(pref, table, k, n, jump, off,
+                                           lazy, batch, s)
+                 : launch_wide<true, false>(pref, table, k, n, jump, off,
+                                            lazy, batch, s);
+    return sig ? launch_wide<false, true>(pref, table, k, n, jump, off, lazy,
+                                          batch, s)
+               : launch_wide<false, false>(pref, table, k, n, jump, off,
+                                           lazy, batch, s);
+  }
 #define SNK_K(K)                                                       \
   case K:                                                              \
     return launch_k<K>(pref, table, packed, n, jump, off, lazy, sig, \
@@ -477,8 +748,9 @@ int dispatch(const void* pref, const void* table, bool packed, const void* n,
 
 // pref: (batch, 65536) int32; words: (batch, k/2, 65536) int32 (two 16-bit
 // offsets each, low half first); n: (batch,) int32; jump, off: (batch,
-// 65536) int32 outputs. k 2..24; lazy >= 0 (0: no deferral); sig: 1 for
-// sticky "sig", 0 for "exact".
+// 65536) int32 outputs. k >= 2 (2..24: matcher_kernel<k>; above:
+// matcher_wide_kernel); lazy >= 0 (0: no deferral); sig: 1 for sticky
+// "sig", 0 for "exact".
 SNK_EXPORT int snk_matcher_packed(const void* pref, const void* words,
                                   const void* n, void* jump, void* off, int k,
                                   int lazy, int sig, int batch, void* stream) {

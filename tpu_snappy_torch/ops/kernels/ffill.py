@@ -1,13 +1,15 @@
 """Multi-payload forward fill from the latest set mask position.
 
 Port of tpu_snappy/ops/pallas/ffill.py:ffill_block, with its `max_gap`
-(the framed sidecar's split mode passes it); the CUDA kernel is
-csrc/ffill.cu: each row is cut into chunks (`fill_chunk`), a first pass
-writes each chunk's latest set index, and a second max-scans each chunk
-from the carry of the earlier chunks and gathers every payload (see its
-note). Positions before the first set mask keep their own entry, and so
-does a position whose latest set mask lies `fill_window(max_gap, m)` or
-more positions behind it.
+(the framed sidecar's split mode passes it), for any number of payloads;
+the CUDA kernel is csrc/ffill.cu: each row is cut into chunks
+(`fill_chunk`), a first pass writes each chunk's latest set index, and a
+second max-scans each chunk from the carry of the earlier chunks and
+gathers the payloads, up to LAUNCH_PAYLOADS of them a launch (see its
+note; more payloads take one second-pass launch for each group of four,
+all reading the first pass's indices). Positions before the first set
+mask keep their own entry, and so does a position whose latest set mask
+lies `fill_window(max_gap, m)` or more positions behind it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from . import _build
 SOURCE = "tpu_snappy_torch/ops/kernels/csrc/ffill.cu"
 REPLACES = "tpu_snappy/ops/pallas/ffill.py:70"
 
-MAX_PAYLOADS = 4
+#: Payloads one fill launch gathers (csrc/ffill.cu's kLaunchPayloads).
+LAUNCH_PAYLOADS = 4
 
 
 def fill_window(max_gap: int | None, m: int) -> int:
@@ -68,7 +71,7 @@ def fill_chunk(batch: int, m: int) -> int:
 
 def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None,
           max_gap: int | None = None) -> tuple:
-    """Fill each (B, M) int32 payload in `vals` (1 to 4 of them) from the
+    """Fill each (B, M) int32 payload in `vals` (one or more) from the
     latest position where the (B, M) bool `mask` holds (M a multiple of
     128). max_gap: the TPU kernel's bound on the distance to that position
     (None: the whole row); a position farther from it keeps its own entry
@@ -77,8 +80,8 @@ def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None,
     given."""
     vals = tuple(vals)
     m = mask.shape[-1]
-    if not 1 <= len(vals) <= MAX_PAYLOADS:
-        raise ValueError(f"ffill takes 1 to {MAX_PAYLOADS} payloads")
+    if not vals:
+        raise ValueError("ffill takes at least one payload")
     if m % WIDTH_UNIT:
         raise ValueError(f"ffill: width {m} is not a multiple of "
                          f"{WIDTH_UNIT}")
@@ -96,14 +99,18 @@ def ffill(mask: torch.Tensor, vals: tuple, chunk: int | None = None,
     if batch and m:
         last = torch.empty((batch, -(-m // chunk)), dtype=torch.int32,
                            device=mask.device)
-        pad = [None] * (MAX_PAYLOADS - len(vals))
-        ins = [v.data_ptr() for v in vals] + pad
-        ptrs = [o.data_ptr() for o in outs] + pad
-        rc = _build.lib().snk_ffill(mask.data_ptr(), *ins, *ptrs,
-                                    last.data_ptr(), len(vals), m, chunk,
-                                    min(fill_window(max_gap, m), 1 << 30),
-                                    batch, _build.stream())
-        _build.check(rc, "ffill")
+        window = min(fill_window(max_gap, m), 1 << 30)
+        for g in range(0, len(vals), LAUNCH_PAYLOADS):
+            # The first group's launch also writes `last`; the others
+            # read it.
+            ins = [v.data_ptr() for v in vals[g:g + LAUNCH_PAYLOADS]]
+            pad = [None] * (LAUNCH_PAYLOADS - len(ins))
+            ptrs = [o.data_ptr() for o in outs[g:g + LAUNCH_PAYLOADS]]
+            rc = _build.lib().snk_ffill(
+                mask.data_ptr(), *ins, *pad, *ptrs, *pad, last.data_ptr(),
+                len(ins), int(g == 0), m, chunk, window, batch,
+                _build.stream())
+            _build.check(rc, "ffill")
         ffill.launches += 1
     return outs
 

@@ -3,19 +3,22 @@
 Port of tpu_snappy/ops/pallas/matcher.py: `matcher_block_packed` (the
 packed form: the gated default plus 16-bit halves in int32 words) and
 `matcher_block` (the unpacked (B, N, K) table, column 0 the default), at
-sticky "exact" and "sig" and any K from 2 to 24. The CUDA kernel is
-csrc/matcher.cu, one template for both forms that differ only in the load
-stage. On this card the sticky levels' compares bound it (integer
-operations); a block of THREADS threads owns one row's tile of TILE
-outputs plus its halos (LEFT and RIGHT positions), PER consecutive
-positions a thread (16-byte loads of the table and stores of the
-outputs, so the tables must start 16-byte aligned), the sticky planes
-single-buffered in shared memory and the later stages restated as
-ballots, a nibble window and a sliding max over 128-position warp blocks
-(see its note). The plain versions run
-the XLA-form matcher, encode._matcher_xla, on the (unpacked) table; the
-JAX suite proves it bit-identical to both Pallas kernels
-(tests/test_pallas.py:513-583).
+sticky "exact" and "sig" and any K from 2 up, as the Pallas kernels take.
+The CUDA kernels are in csrc/matcher.cu, each one template for both forms
+that differ only in the load stage. A block of THREADS threads owns one
+row's tile of TILE outputs plus its halos (LEFT and RIGHT positions), PER
+consecutive positions a thread (16-byte loads of the table and stores of
+the outputs, so the tables must start 16-byte aligned), and restates the
+stages after sticky as ballots, a nibble window and a sliding max over
+128-position warp blocks (see its note). Up to FIXED_K a kernel instance
+for each K holds the K sticky planes in shared memory; on this card their
+compares bound it (integer operations). Above FIXED_K one wide kernel
+takes K at run time: the keep sets compose by intersection over a window
+of the original table, so it holds only each position's default and
+bucket mask and tests membership in the table in device memory. The
+plain versions run the XLA-form matcher, encode._matcher_xla, on the
+(unpacked) table; the JAX suite proves it bit-identical to both Pallas
+kernels (tests/test_pallas.py:513-583).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ THREADS, PER, LEFT, RIGHT = 512, 4, 204, 68
 TILE = THREADS * PER - LEFT - RIGHT
 TILES = -(-N // TILE)
 
-#: Candidate counts the kernel takes: up to 24, where one block's sticky
-#: planes still fit its shared memory at either sticky mode (the JAX
-#: kernel takes any K; no preset and no JAX test goes above 16).
-MIN_K, MAX_K = 2, 24
+#: The least candidate count (at K 1 the JAX matcher fails too), and the
+#: largest with a kernel instance of its own (csrc/matcher.cu's kFixedK:
+#: one block's sticky planes fit its shared memory at either sticky mode);
+#: larger K run the wide kernel.
+MIN_K, FIXED_K = 2, 24
 STICKY = ("exact", "sig")
 
 
@@ -58,9 +62,8 @@ def unpack_table(pref: torch.Tensor, words: torch.Tensor,
 
 
 def _check_args(k: int, sticky: str) -> None:
-    if not MIN_K <= k <= MAX_K:
-        raise ValueError(f"matcher: K={k}; the kernel takes K from {MIN_K} "
-                         f"to {MAX_K}")
+    if k < MIN_K:
+        raise ValueError(f"matcher: K={k}; the kernels take K from {MIN_K}")
     if sticky not in STICKY:
         raise ValueError(f"matcher: sticky={sticky!r}; one of {STICKY}")
 

@@ -30,7 +30,8 @@ def ffill(mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 def ffill_many(mask: torch.Tensor, vals: tuple) -> tuple:
-    """Forward-fill up to four payloads from one mask in one pass."""
+    """Forward-fill any number of payloads from one mask (one scan of the
+    mask; on the card, one gather launch for each four payloads)."""
     return _ffill_kernel.ffill(mask, vals)
 
 
