@@ -778,6 +778,47 @@ def _wide_matchers(rng, t, rows, edge_rows, coll_rows) -> tuple:
     return errs, errs_u
 
 
+def _wide_at_fixed_k(rows, coll_rows) -> list:
+    """Phase 3, the wide matcher kernel where the instances run: through
+    matcher._wide at every K from MIN_K to FIXED_K, on the encoder tables
+    of _matcher_rows' blocks and of the collision row, both forms, sticky
+    "exact" and "sig", lazy 0 and 2, against the plain version; every call
+    must launch. Returns the differences."""
+    from tpu_snappy_torch import config
+    from tpu_snappy_torch.ops import encode
+    from tpu_snappy_torch.ops.kernels import matcher
+
+    errs = []
+    before = matcher._wide.launches
+    calls = 0
+    t0 = time.perf_counter()
+    for k in range(matcher.MIN_K, matcher.FIXED_K + 1):
+        cfg = dataclasses.replace(config.DEFAULT_CONFIG, candidates=k,
+                                  probes=k)
+        for b, m in (rows, coll_rows):
+            pr, wd = encode._candidate_offsets(encode._window_keys(b, m), m,
+                                               cfg)
+            cands = matcher.unpack_table(pr, wd, k).contiguous()
+            for sticky in ("exact", "sig"):
+                for lazy in (0, 2):
+                    want = matcher.matcher_block_packed_plain(
+                        pr, wd, m, k, lazy, sticky)
+                    for table in ((pr, wd), (cands,)):
+                        got = matcher._wide(table, m, k, lazy, sticky)
+                        errs += [_exact(g, w) for g, w in zip(got, want)]
+                        calls += 1
+    if matcher._wide.launches - before != calls:
+        raise AssertionError(f"matcher._wide: "
+                             f"{matcher._wide.launches - before} launches "
+                             f"for {calls} calls")
+    print(f"kernel matcher      wide form at the instances' K "
+          f"{matcher.MIN_K}-{matcher.FIXED_K} (matcher._wide): the encoder "
+          f"rows and the collision row, packed and unpacked, sticky "
+          f"exact/sig, lazy 0/2; {calls} calls, all launched: "
+          f"max_abs_err={max(errs)} ({time.perf_counter() - t0} s)")
+    return errs
+
+
 def check_encode_kernels(dev, rng, t, report: dict) -> None:
     """Phase 3, the encoder's kernels: both matchers, both emissions,
     placement and overflow scatter against their plain versions."""
@@ -848,8 +889,9 @@ def check_encode_kernels(dev, rng, t, report: dict) -> None:
           f"max_abs_err={max(errs)}, unpacked max_abs_err={max(errs_u)}")
     wide, wide_u = _wide_matchers(rng, t, (blocks, n), (eb, en),
                                   (coll, coll_n))
-    report["matcher_block_packed"] = max(errs + wide)
-    report["matcher_block"] = max(errs_u + wide_u)
+    fixed = _wide_at_fixed_k((blocks, n), (coll, coll_n))
+    report["matcher_block_packed"] = max(errs + wide + fixed)
+    report["matcher_block"] = max(errs_u + wide_u + fixed)
 
     # emit: the committed parses of those rows, and synthetic parses with
     # long literal runs, far copies and a block-opening literal, through
@@ -1763,8 +1805,12 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
                    "library_graph_ms": library_graph_ms}
         entry = report.setdefault(name, {"size": -1, "err": 0, "shares": [],
                                          "ratios": [], "wide": None,
-                                         "wide_shares": []})
+                                         "wide_shares": [],
+                                         "wide_at_fixed_k": []})
         entry["err"] = max(entry["err"], err)
+        if _matcher_k(name, args) is not None and not _wide_call(name, args):
+            entry["wide_at_fixed_k"].append(_wide_beside(
+                dev, name, args, kw, want, bound_ms, graph_ms, card))
         if _wide_call(name, args):
             # The wide matcher kernel: its own numbers, beside those of the
             # DEFAULT path's instances that the kernel line carries.
@@ -1811,6 +1857,39 @@ def check_main_path_calls(dev, captured: dict, stages: dict,
     print(f"time resolve_block ({batch}, {N}) on the same chain, at most "
           f"16 rounds: kernel {ms} ms [{card}]")
     return report
+
+
+def _wide_beside(dev, name: str, args, kw: dict, want: list,
+                 bound_ms: float, graph_ms, card: str) -> dict:
+    """Phase 9, continued: the wide matcher kernel (matcher._wide) on a
+    captured matcher call at an instance's K, equal to the plain version
+    and timed beside the instance (graph_ms; the bound is the call's own),
+    the evidence for routing every K to it. Returns its numbers."""
+    import inspect
+    from tpu_snappy_torch.ops.kernels import matcher
+    wrapper = getattr(matcher, name)
+    a = inspect.signature(wrapper).bind(*args, **kw)
+    a.apply_defaults()
+    a = a.arguments
+    if name == "matcher_block_packed":
+        table, k = (a["pref"], a["words"]), a["k"]
+    else:
+        table, k = (a["cands"],), a["cands"].shape[-1]
+    call = (table, a["n"], k, a["lazy"], a["sticky"])
+    err = max(_exact(g, w) for g, w in zip(matcher._wide(*call), want))
+    if err:
+        raise AssertionError(f"matcher._wide at K {k} differs from plain")
+    ms, wide_ms = _both(lambda: matcher._wide(*call), dev)
+    timed = isinstance(wide_ms, float) and wide_ms > 0
+    share = bound_ms / wide_ms if timed else None
+    print(f"wide at the instance's K: {name} K {k} {a['sticky']} lazy "
+          f"{a['lazy']} {tuple(a['n'].shape)} rows: max_abs_err={err}; "
+          f"wide kernel {ms} ms (graph_ms {wide_ms}), instance graph_ms "
+          f"{graph_ms}, bound {bound_ms} ms; bound / graph_ms wide {share}, "
+          f"instance {bound_ms / graph_ms if graph_ms else None} [{card}]")
+    return {"k": k, "sticky": a["sticky"], "packed": len(table) == 2,
+            "graph_ms": wide_ms, "bound_ms": bound_ms, "share": share,
+            "instance_graph_ms": graph_ms}
 
 
 def _ffill_beyond_four(dev, captured: dict, card: str) -> None:
@@ -1979,7 +2058,8 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
     """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
     this one on every captured main-path call (the scan kernels on the
     captured scan stages' arguments; the FIRST_ROWS kernels also on each
-    call's first SERVER_ROWS rows), timed in turns (parent, this, this,
+    call's first SERVER_ROWS rows; the matchers' wide calls against the
+    parent's wide kernel), timed in turns (parent, this, this,
     parent), each turn giving ms (wrapper included), graph_ms (device
     only), host_ms (the wrapper's host cost), bound share and library
     ratio, then the device time of each kernel (and memset) each tree's
@@ -1996,18 +2076,6 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
         if name not in REDESIGNED:
             continue
         new = getattr(kernels[name], name)
-        if _wide_call(name, args):
-            # The parent's matchers refuse K above FIXED_K: this tree's
-            # wide kernel alone.
-            bound_ms, _ = _bound(name, (*args, *kw.values()),
-                                 new(*args, **kw))
-            ms, graph_ms = _both(lambda: new(*args, **kw), dev)
-            print(f"this alone (the parent refuses K "
-                  f"{_matcher_k(name, args)}): {name} in "
-                  f"{stage} {shapes} {scalars}: {ms} ms (graph_ms "
-                  f"{graph_ms}), bound {bound_ms} ms; kernels a call: "
-                  f"{_kernel_split(lambda: new(*args, **kw))} [{card}]")
-            continue
         calls = [("", args, kw)]
         if name in FIRST_ROWS and args[0].shape[0] > SERVER_ROWS:
             calls.append((f", its first {SERVER_ROWS} rows",
@@ -2984,6 +3052,8 @@ def main() -> None:
                         "library_graph_ms": r["library_graph_ms"],
                         "worst_library_ratio": _extreme(max, r["ratios"]),
                         "least_bound_share": _extreme(min, r["shares"])})
+        if r["wide_at_fixed_k"]:
+            kernels[-1]["wide_at_fixed_k"] = r["wide_at_fixed_k"]
         if r["wide"]:
             w = r["wide"]
             kernels[-1].update(wide_k=w["k"], wide_sticky=w["sticky"],

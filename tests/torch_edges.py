@@ -25,7 +25,9 @@ and phase 3. `matcher_ops` restates the wide matcher kernel's sticky
 stage in torch (held to the plain composition by
 tests/test_torch_wide_k.py) and counts the integer operations a matcher
 call needs on its own table, at every K: chip_smoke.py's phase 9 bounds
-both matcher forms by it. numpy only elsewhere, besides the kernel
+both matcher forms by it. `wide_sticky`, `wide_mask` and `wide_lane_map`
+restate the wide kernel's walk, its prefilter and its unpacked mask
+pass's reads, for tests/test_torch_wide_matcher.py. numpy only elsewhere, besides the kernel
 modules and the port's corpus synthesis.
 """
 
@@ -219,6 +221,119 @@ def matcher_ops(cands: torch.Tensor, sticky: str) -> int:
         raise AssertionError("the window-intersection sticky walk differs "
                              "from the plain composition")
     return total
+
+
+def wide_mask(cands: torch.Tensor, sticky: str) -> torch.Tensor:
+    """(B, N) int64: each position's 32-bit bucket mask (encode._sig_bit)
+    as the wide kernel's mask pass builds it: of all K keeps at "exact",
+    zero keeps included (there it only prefilters), of the nonzero keeps at
+    "sig"."""
+    bits = encode._sig_bit(cands)
+    if sticky == "sig":
+        bits = torch.where(cands != 0, bits, 0)
+    return functools.reduce(torch.bitwise_or, bits.unbind(-1))
+
+
+#: The near bits the wide kernel's mask pass computes at "exact": whether
+#: keep 0 of the position 4u back, u = 1..NEAR, is one of a position's
+#: keeps (csrc/matcher.cu, kNear).
+NEAR = 3
+
+
+def wide_sticky(cands: torch.Tensor, sticky: str = "exact"):
+    """The wide matcher kernel's sticky stage as it walks (csrc/matcher.cu,
+    "The wide form") on a (B, N, K) table. Each default carries its origin
+    m: it is keep 0 of the position 4m back. At each level the candidate x
+    from i - s, of origin r = s / 4 + m, moves to i when the position's
+    composed mask admits it (the AND of the wide_mask bucket masks over
+    the window) and, at "exact", when it lies in the table at every window
+    position i - 4j, j < 2^l: there it is keep 0 of the position 4(r - j)
+    back, which the near bits answer for r - j <= NEAR; else keep 0, else
+    a scan of keeps 1..K-1 (for an asker no near bit has rejected). At
+    "sig" a default that is not keep 0 is verified by a scan of the
+    position's own keeps, falling back to keep 0. Returns (the sticky
+    offsets, counts): `admitted` defaults, `near` tests (a bit each),
+    `tests` at keep 0, and `scans`."""
+    b, n, k = cands.shape
+    iota = torch.arange(n, device=cands.device)
+    c0 = cands[..., 0]
+    d = c0.clone()
+    org = torch.zeros_like(d)
+    mask = wide_mask(cands, sticky)
+    if sticky == "exact":
+        near = torch.stack([
+            (torch.roll(c0, 4 * u, dims=1) != 0)
+            & (cands == torch.roll(c0, 4 * u, dims=1)[..., None]).any(-1)
+            for u in range(1, NEAR + 1)], dim=-1)
+    counts = dict.fromkeys(("admitted", "near", "tests", "scans"), 0)
+    for lvl in range(encode.STICKY_LEVELS):
+        s = 4 << lvl
+        edge = iota < s
+        x = torch.roll(d, s, dims=1)
+        ox = torch.roll(org, s, dims=1) + s // 4
+        take = (x != 0) & ((mask & encode._sig_bit(x)) != 0) & ~edge
+        counts["admitted"] += int(take.sum())
+        if sticky == "exact":
+            alive = take.clone()
+            need, hits = [], []
+            for j in range(1 << lvl):
+                at = torch.roll(cands, 4 * j, dims=1)
+                u = ox - j
+                by_bit = take & (u <= NEAR)
+                bit = torch.gather(torch.roll(near, 4 * j, dims=1), -1,
+                                   (u.clamp(1, NEAR) - 1)[..., None])[..., 0]
+                counts["near"] += int(by_bit.sum())
+                counts["tests"] += int((take & ~by_bit).sum())
+                alive &= ~by_bit | bit
+                need.append(take & ~by_bit & (at[..., 0] != x))
+                hits.append((at[..., 1:] == x[..., None]).any(-1))
+            for want, hit in zip(need, hits):
+                want = want & alive
+                counts["scans"] += int(want.sum())
+                alive &= ~want | hit
+            take = alive
+        d = torch.where(take, x, d)
+        org = torch.where(take, ox, org)
+        mask = torch.where(edge, mask, torch.roll(mask, s, dims=1) & mask)
+    if sticky == "sig":
+        want = (d != 0) & (d != c0)
+        ok = (cands[..., 1:] == d[..., None]).any(-1)
+        counts["scans"] += int(want.sum())
+        d = torch.where((d == 0) | (want & ~ok), c0, d)
+    return d, counts
+
+
+def wide_lane_map(k: int, t0: int) -> np.ndarray:
+    """The wide kernel's unpacked mask pass as an index map: for the tile
+    starting at output t0, the flat offset (position * K + column) into a
+    row's (N, K) table of every entry each (step, thread, read) takes.
+    Four neighbouring lanes share a region position, a step covers
+    THREADS / 4 positions; at K % 4 == 0 lane h reads the 16-byte words h,
+    h + 4, ... of its position, else the entries h, h + 4, ... The region
+    starts LEFT positions before t0 and wraps at the row's end (tile 0).
+    Returns an int64 array (steps, THREADS, reads) with -1 where a lane
+    reads nothing."""
+    threads, length = matcher.THREADS, matcher.THREADS * matcher.PER
+    per_step = threads // 4
+    steps = length // per_step
+    if k % 4 == 0:
+        words = -(-(k // 4) // 4)
+        reads = 4 * words
+    else:
+        reads = -(-k // 4)
+    out = np.full((steps, threads, reads), -1, np.int64)
+    for step in range(steps):
+        for tid in range(threads):
+            r = step * per_step + tid // 4
+            h = tid % 4
+            g = (t0 - matcher.LEFT + r) % N
+            if k % 4 == 0:
+                cols = [4 * i + c for i in range(h, k // 4, 4)
+                        for c in range(4)]
+            else:
+                cols = list(range(h, k, 4))
+            out[step, tid, :len(cols)] = [g * k + c for c in cols]
+    return out
 
 
 def emit_edge_parses(seed: int = SEED + 8):

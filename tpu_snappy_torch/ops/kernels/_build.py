@@ -43,6 +43,7 @@ SIGNATURES = {
     "snk_gather": [P, P, P, I, I, I, I, P],
     "snk_matcher_packed": [P, P, P, P, P, I, I, I, I, P],
     "snk_matcher": [P, P, P, P, I, I, I, I, P],
+    "snk_matcher_wide": [P, P, I, P, P, P, I, I, I, I, P],
     "snk_emit_single": [P, P, P, P, P, P, P, P, P, P, I, P],
     "snk_emit_two_lane": [P, P, P, P, P, P, P, P, I, P],
     "snk_scatter_block": [P, P, P, I, I, I, I, I, P],

@@ -457,22 +457,139 @@ matcher_kernel(const int32_t* __restrict__ pref,
 // members are those whose bucket is in my mask, so the masks compose by
 // AND over the same window, and only the masks decide the default. So a
 // position needs its own default, its mask and, at "exact", a membership
-// test against the original table at 2^l positions a level (15 in all),
-// which the table in device memory answers: neighbouring threads read
-// neighbouring positions, and the 28 positions of a window stay in L1.
-// The bucket mask filters first at "exact" too (a member's bucket is in
-// every mask of its window), and the test stops at the first position that
-// lacks it. No K planes are held: the default and mask planes take 12 KB,
-// so the tile, the halos and the stages after sticky are the fixed form's.
+// test against the original table at the 2^l positions of its window (15
+// a position over the four levels). No K planes are held, so the tile, the
+// halos and the stages after sticky are the fixed form's.
 //
-// Bound on this card: the bytes of the table (4 + 2K a position, packed)
-// and, at "exact", the window tests (at most 15 K compares a position, where
-// the fixed form makes about 3 K^2).
+// Bound on this card: the bytes of the table (4 + 2K a position packed, 4K
+// unpacked). The design:
+//   * Origins. A default is always keep 0 of a position 4m back (m <= 15
+//     after four levels), so a default carries m beside its value, and the
+//     test at window position i - 4j asks whether keep 0 of the position
+//     4(r - j) before it is one of its keeps (r the candidate's origin).
+//   * One streamed pass over the region's table builds each position's
+//     32-bit bucket mask and, at "exact", its near bits: whether keep 0 of
+//     each of the positions 4, 8 and 12 back is one of its keeps. Those
+//     answer every test of the first two levels and the near ones after.
+//     Packed, a thread reads its four positions' (K/2, N) words four
+//     16-byte loads at a time and tests two keeps a word against a
+//     candidate at once (w ^ (c | c << 16) has a zero half). Unpacked, four
+//     lanes share a position and read its contiguous entries in 16-byte
+//     steps (eight positions a warp load, where a thread's own four would
+//     touch 32 lines), then OR their results with two shuffles.
+//   * The other tests ask keep 0 of the window position in shared memory,
+//     and the rest are the warp's scans of the table in device memory, each
+//     warp load covering one word of many tests (warp_scan). A prefilter
+//     keeps the scans few: the composed bucket mask, zero keeps included at
+//     "exact" (a member of the window's intersection has its bucket in
+//     every mask, so it never rejects one). A 128-bit signature let fewer
+//     non-members through, but its seven more operations a keep cost more
+//     than the scans it saved once the near bits answer the first two
+//     levels. Scans a thread at a time, chains of L2 loads that read a
+//     32-byte sector for 4 bytes, cost more than the mask pass itself.
+//   * The masks and defaults are double-buffered in shared memory (one
+//     barrier a level), beside the region's keep 0 and near bits.
+//   * At "sig" the levels test only the masks, and the final verification
+//     scans the position's own table where the default is not its keep 0,
+//     one 16-byte load for four positions (own_scan).
 
-// Keeps of the table, four consecutive positions q0 .. q0 + 3 of one row
-// at a time (q0 a multiple of 4). Packed: keep 0 is pref, keeps 1.. the
-// 16-bit halves of the (K/2, N) words in order (low first; at even K the
-// last word's high half is not a keep). Unpacked: the (N, K) entries.
+// A position's mask: the 32-bit bucket mask (sig_bit) of its keeps, the
+// zero keeps too at "exact" (there it only prefilters, and a bit more only
+// admits more), the nonzero ones at "sig" (its bytes depend on it).
+template <bool kSig>
+struct Mask {
+  uint32_t w = 0;
+
+  __device__ __forceinline__ void add(uint32_t x) {
+    w |= kSig && x == 0 ? 0u : sig_bit(x);
+  }
+  // Whether the mask admits x.
+  __device__ __forceinline__ static bool admits(uint32_t mask, uint32_t x) {
+    return (mask & sig_bit(x)) != 0;
+  }
+};
+
+// A lane's tests a round of warp_scan, and a warp's.
+constexpr int kJobsLane = 8;
+constexpr int kJobsWarp = 32 * kJobsLane;
+
+// Shared memory of the wide form: two buffers of the masks (u32) and the
+// defaults (u32: the value, and at bits 16.. the origin m, the default being
+// keep 0 of the position 4m back), then keep 0 of the region (u16), the
+// near bits (u8), and each warp's list of tests for warp_scan (u32) and
+// their hits (u8). The stages after sticky take the first buffer (the last
+// level reads the second): the sticky offsets, then finish_tile's arrays.
+template <bool kSig>
+struct WideSmem {
+  static constexpr size_t kMasks = kLen * 4;
+  static constexpr size_t kBuf = kMasks + kLen * 4;
+  static constexpr size_t kFinish = kLen * sizeof(uint16_t) + kPostBytes;
+  static constexpr size_t kSlot =
+      ((kBuf > kFinish ? kBuf : kFinish) + 15) / 16 * 16;
+  static constexpr size_t kC0 = 2 * kSlot;
+  static constexpr size_t kNearAt = kC0 + kLen * sizeof(uint16_t);
+  static constexpr size_t kJobs = kNearAt + kLen;
+  static constexpr size_t kHits = kJobs + kWarps * kJobsWarp * 4;
+  static constexpr size_t kTotal = kHits + kWarps * kJobsWarp;
+  static_assert(2 * kTotal <= 227 * 1024, "two blocks an SM");
+};
+
+// The near bits of a region position r at "exact": whether keep 0 of each
+// of r - 4, r - 8, ..., r - 4 kNear (the candidates of the first two
+// levels, whose defaults come from at most 12 positions back) is one of r's
+// keeps. For P consecutive positions at once, the candidates read from the
+// region's keep 0 in shared memory; packed keeps fed in two to a word (a
+// half of w ^ (c | c << 16) is zero where that half is c), unpacked ones
+// one at a time. At "sig" none.
+constexpr int kNear = 3;
+
+template <bool kSig, int P>
+struct Near {
+  static constexpr int kU = kSig ? 0 : kNear;
+  uint32_t cc[kU > 0 ? kU : 1][P];   // candidates, in both halves
+  uint32_t acc[kU > 0 ? kU : 1][P];  // a zero half seen
+
+  // Positions p .. p + P - 1 (P 1 or kPer), their keep 0 `own`.
+  __device__ __forceinline__ Near(const uint16_t* c0, int p,
+                                  const uint32_t (&own)[P]) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+#pragma unroll
+      for (int e = 0; e < P; ++e) {
+        const int at = p + e - 4 * (u + 1);
+        const uint32_t v = at >= 0 ? c0[at] : 0u;
+        cc[u][e] = v | v << 16;
+        acc[u][e] = v != 0 && v == own[e] ? 0x8000u : 0u;
+      }
+    }
+  }
+  // Keeps lo and hi (w's halves) of position e; `high` false: lo alone.
+  __device__ __forceinline__ void test(int e, uint32_t w, bool high = true) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const uint32_t t = w ^ cc[u][e];
+      const uint32_t z = (t - 0x10001u) & ~t & 0x80008000u;
+      acc[u][e] |= high ? z : z & 0x8000u;
+    }
+  }
+  // One keep v of position e.
+  __device__ __forceinline__ void test1(int e, uint32_t v) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) acc[u][e] |= v == (cc[u][e] & 0xFFFFu);
+  }
+  // Position e's bits: bit u - 1 where the (nonzero) candidate was seen.
+  __device__ __forceinline__ unsigned bits(int e) const {
+    unsigned b = 0;
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      b |= static_cast<unsigned>(acc[u][e] != 0 && cc[u][e] != 0) << u;
+    return b;
+  }
+};
+
+// The table of one row. Packed: keep 0 is pref, keeps 1.. the 16-bit halves
+// of the (K/2, N) words in order (low first; at even K the last word's high
+// half is not a keep). Unpacked: the (N, K) entries.
 template <bool kPacked>
 struct Keeps {
   const int32_t* __restrict__ pref;
@@ -480,110 +597,313 @@ struct Keeps {
   int k;
   int row;
 
-  // Keep 0 of each position.
-  __device__ __forceinline__ void first(int q0, uint32_t (&c)[kPer]) const {
+  // Keep 0 of every region position r into c0 (u16) and dflt (u32: the
+  // default, origin 0). g0: the region's first global position.
+  __device__ __forceinline__ void firsts(int g0, uint16_t* c0,
+                                         uint32_t* dflt) const {
+    const int p0 = kPer * threadIdx.x;
+    uint32_t c[kPer];
     if constexpr (kPacked) {
-      const int4 x = __ldg(reinterpret_cast<const int4*>(
-          pref + static_cast<size_t>(row) * kN + q0));
-      c[0] = x.x & 0xFFFF; c[1] = x.y & 0xFFFF;
-      c[2] = x.z & 0xFFFF; c[3] = x.w & 0xFFFF;
+      const int4 v = __ldg(reinterpret_cast<const int4*>(
+          pref + static_cast<size_t>(row) * kN + ((g0 + p0) & (kN - 1))));
+      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
     } else {
 #pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        c[e] = __ldg(entries(q0 + e)) & 0xFFFF;
+      for (int e = 0; e < kPer; ++e) c[e] = first((g0 + p0 + e) & (kN - 1));
     }
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) c[e] &= 0xFFFFu;
+    store4(c0 + p0, c[0], c[1], c[2], c[3]);
+    *reinterpret_cast<uint4*>(dflt + p0) = make_uint4(c[0], c[1], c[2], c[3]);
   }
 
-  // The OR of the bucket bits of each position's nonzero keeps.
-  __device__ __forceinline__ void masks(int q0, uint32_t (&m)[kPer]) const {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) m[e] = 0;
+  // The mask pass, after firsts: the mask and, at "exact", the near bits
+  // of every region position, into masks (u32) and near (u8).
+  template <bool kSig>
+  __device__ __forceinline__ void mask_pass(int g0, const uint16_t* c0,
+                                            uint32_t* masks,
+                                            unsigned char* near) const {
+    const int tid = threadIdx.x;
     if constexpr (kPacked) {
+      // My four positions' (K/2, N) words, 16 bytes a load, four loads in
+      // flight.
+      constexpr int kB = 4;
+      const int p0 = kPer * tid;
+      const int gb = (g0 + p0) & (kN - 1);
       uint32_t c[kPer];
-      first(q0, c);
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) m[e] |= bit(c[e]);
-      for (int j = 0; j < k / 2; ++j) {
-        const int4 x = word(j, q0);
-        const uint32_t w[kPer] = {static_cast<uint32_t>(x.x),
-                                  static_cast<uint32_t>(x.y),
-                                  static_cast<uint32_t>(x.z),
-                                  static_cast<uint32_t>(x.w)};
-        const bool high = 2 + 2 * j < k;
-#pragma unroll
-        for (int e = 0; e < kPer; ++e)
-          m[e] |= bit(w[e] & 0xFFFF) | (high ? bit(w[e] >> 16) : 0u);
+      {
+        const uint2 v = *reinterpret_cast<const uint2*>(c0 + p0);
+        c[0] = v.x & 0xFFFFu; c[1] = v.x >> 16;
+        c[2] = v.y & 0xFFFFu; c[3] = v.y >> 16;
       }
-    } else {
+      Mask<kSig> m[kPer];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) {
-        const int32_t* at = entries(q0 + e);
-        for (int c = 0; c < k; ++c) m[e] |= bit(__ldg(at + c) & 0xFFFF);
+      for (int e = 0; e < kPer; ++e) m[e].add(c[e]);
+      Near<kSig, kPer> nb(c0, p0, c);
+      // Words whose both halves are keeps; at even K one more, its low half.
+      const int kw = k / 2, full = (k - 1) / 2;
+      const int4* at = words(gb);
+      int j = 0;
+      for (; j + kB <= full; j += kB) {
+        int4 v[kB];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) v[u] = __ldg(at + (j + u) * (kN / 4));
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const uint32_t x[kPer] = {static_cast<uint32_t>(v[u].x),
+                                    static_cast<uint32_t>(v[u].y),
+                                    static_cast<uint32_t>(v[u].z),
+                                    static_cast<uint32_t>(v[u].w)};
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) {
+            m[e].add(x[e] & 0xFFFFu);
+            m[e].add(x[e] >> 16);
+            nb.test(e, x[e]);
+          }
+        }
       }
-    }
-  }
-
-  // Bit e set where x[e] is a keep of position q0 + e, for the positions
-  // of `want` (bits); stops once all of them are found.
-  __device__ __forceinline__ unsigned member(int q0, const uint32_t (&x)[kPer],
-                                             unsigned want) const {
-    unsigned found = 0;
-    if constexpr (kPacked) {
-      uint32_t c[kPer];
-      first(q0, c);
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        found |= static_cast<unsigned>(c[e] == x[e]) << e;
-      found &= want;
-      for (int j = 0; j < k / 2 && found != want; ++j) {
-        const int4 v = word(j, q0);
-        const uint32_t w[kPer] = {static_cast<uint32_t>(v.x),
+      for (; j < kw; ++j) {
+        const int4 v = __ldg(at + j * (kN / 4));
+        const uint32_t x[kPer] = {static_cast<uint32_t>(v.x),
                                   static_cast<uint32_t>(v.y),
                                   static_cast<uint32_t>(v.z),
                                   static_cast<uint32_t>(v.w)};
-        const bool high = 2 + 2 * j < k;
+        const bool high = j < full;
 #pragma unroll
-        for (int e = 0; e < kPer; ++e)
-          found |= static_cast<unsigned>((w[e] & 0xFFFF) == x[e] ||
-                                         (high && w[e] >> 16 == x[e])) << e;
+        for (int e = 0; e < kPer; ++e) {
+          m[e].add(x[e] & 0xFFFFu);
+          if (high) m[e].add(x[e] >> 16);
+          nb.test(e, x[e], high);
+        }
+      }
+      *reinterpret_cast<uint4*>(masks + p0) =
+          make_uint4(m[0].w, m[1].w, m[2].w, m[3].w);
+      if constexpr (!kSig)
+        *reinterpret_cast<uint32_t*>(near + p0) =
+            nb.bits(0) | nb.bits(1) << 8 | nb.bits(2) << 16 | nb.bits(3) << 24;
+    } else {
+      // Four lanes a position, eight positions a warp load, a step of
+      // kThreads / 4 positions. At K % 4 == 0 lane h reads the 16-byte
+      // words h, h + 4, ... of its position's K entries; else the entries
+      // h, h + 4, ...
+      const int h = tid & 3;
+#pragma unroll 4
+      for (int r = tid >> 2; r < kLen; r += kThreads / 4) {
+        const int32_t* at = entries((g0 + r) & (kN - 1));
+        Mask<kSig> m;
+        // Keep 0 is among the entries lane 0 reads.
+        const uint32_t none[1] = {0};
+        Near<kSig, 1> nb(c0, r, none);
+        constexpr int e = 0;
+        if (k % 4 == 0) {
+          const int4* at4 = reinterpret_cast<const int4*>(at);
+#pragma unroll 2
+          for (int i = h; i < k / 4; i += 4) {
+            const int4 v = __ldg(at4 + i);
+            const uint32_t x[4] = {v.x & 0xFFFFu, v.y & 0xFFFFu,
+                                   v.z & 0xFFFFu, v.w & 0xFFFFu};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              m.add(x[q]);
+              nb.test1(e, x[q]);
+            }
+          }
+        } else {
+#pragma unroll 4
+          for (int i = h; i < k; i += 4) {
+            const uint32_t v = __ldg(at + i) & 0xFFFFu;
+            m.add(v);
+            nb.test1(e, v);
+          }
+        }
+        m.w |= __shfl_xor_sync(kFull, m.w, 1);
+        m.w |= __shfl_xor_sync(kFull, m.w, 2);
+        unsigned bits = nb.bits(e);
+        bits |= __shfl_xor_sync(kFull, bits, 1);
+        bits |= __shfl_xor_sync(kFull, bits, 2);
+        if (h == 0) {
+          masks[r] = m.w;
+          if constexpr (!kSig) near[r] = static_cast<unsigned char>(bits);
+        }
+      }
+    }
+  }
+
+  // Keep 0 of global position g.
+  __device__ __forceinline__ uint32_t first(int g) const {
+    return static_cast<uint32_t>(
+               kPacked ? __ldg(pref + static_cast<size_t>(row) * kN + g)
+                       : __ldg(entries(g))) & 0xFFFFu;
+  }
+
+  // Bit e set where x[e] is one of keeps 1..K-1 of position g + e (g a
+  // multiple of 4), for the positions of `want`: the "sig" verification,
+  // where neighbouring positions mostly all ask, each with its own keeps.
+  // Packed, one 16-byte load answers the four, four loads in flight, until
+  // all are found; unpacked, a position's entries eight at a time.
+  __device__ __forceinline__ unsigned own_scan(int g,
+                                               const uint32_t (&x)[kPer],
+                                               unsigned want) const {
+    unsigned found = 0;
+    if constexpr (kPacked) {
+      const int kw = k / 2;
+      const int4* at = words(g);
+      for (int j = 0; j < kw && found != want; j += 4) {
+        int4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = j + u < kw ? __ldg(at + (j + u) * (kN / 4))
+                            : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = j + u < kw;
+          const bool high = 2 + 2 * (j + u) < k;
+          const uint32_t w[kPer] = {static_cast<uint32_t>(v[u].x),
+                                    static_cast<uint32_t>(v[u].y),
+                                    static_cast<uint32_t>(v[u].z),
+                                    static_cast<uint32_t>(v[u].w)};
+#pragma unroll
+          for (int e = 0; e < kPer; ++e)
+            found |= static_cast<unsigned>(
+                (in && (w[e] & 0xFFFF) == x[e]) ||
+                (high && w[e] >> 16 == x[e])) << e;
+        }
         found &= want;
       }
     } else {
 #pragma unroll
       for (int e = 0; e < kPer; ++e) {
         if (!(want >> e & 1)) continue;
-        const int32_t* at = entries(q0 + e);
-        for (int c = 0; c < k; ++c) {
-          if (static_cast<uint32_t>(__ldg(at + c) & 0xFFFF) == x[e]) {
-            found |= 1u << e;
-            break;
-          }
+        const int32_t* at = entries(g + e);
+        bool hit = false;
+        for (int c = 1; c < k && !hit; c += 8) {
+          int v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            v[u] = c + u < k ? __ldg(at + c + u) : 0;
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            hit |= c + u < k &&
+                   static_cast<uint32_t>(v[u] & 0xFFFF) == x[e];
         }
+        found |= static_cast<unsigned>(hit) << e;
       }
     }
     return found;
   }
 
+  // The window tests that keep 0 did not answer, for the whole warp at
+  // once (every lane calls it). Bit q + 4 j of `need`: x[q] must be one of
+  // keeps 1..K-1 at global position gb + q - 4 j (gb my group's first,
+  // gb + q - 4 j >= 0). Each lane posts its tests to the warp's list
+  // (kJobsLane at a time); the warp splits the list's (test, word) pairs
+  // over its lanes, so a round's loads are all in flight at once, and each
+  // hit marks its test. Returns the bits of `need` found.
+  __device__ __forceinline__ unsigned warp_scan(unsigned need,
+                                                const uint32_t (&x)[kPer],
+                                                int gb, uint32_t* job,
+                                                unsigned char* hit) const {
+    const int lane = threadIdx.x & 31;
+    // A test's pairs: the words of the packed table (two keeps each), the
+    // entries 1..K-1 of the unpacked one.
+    const int per = kPacked ? k / 2 : k - 1;
+    // t / per = umulhi(t, inv) for the t here; per 1 has no 32-bit inv.
+    const uint32_t inv = 0xFFFFFFFFu / per + 1;
+    const int gbase = gb - 4 * lane;  // lane 0's group (mod kN)
+    unsigned found = 0;
+    while (__any_sync(kFull, need)) {
+      unsigned mine = 0;  // my next kJobsLane tests
+      for (int i = 0; i < kJobsLane && need; ++i) {
+        const unsigned b = need & (0u - need);
+        mine |= b;
+        need ^= b;
+      }
+      const int c = __popc(mine);
+      int incl = c;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += o;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      int at = incl - c;
+      for (unsigned m = mine; m; m &= m - 1) {
+        const int bit = __ffs(m) - 1;
+        const int q = bit & 3;
+        const uint32_t xq = q == 0 ? x[0] : q == 1 ? x[1] : q == 2 ? x[2]
+                                                                   : x[3];
+        job[at] = xq << 16 | static_cast<uint32_t>(lane) << 5 | bit;
+        hit[at] = 0;
+        ++at;
+      }
+      __syncwarp();
+      const int pairs = total * per;
+      // Packed, the pairs run word by word over the tests (the tests of
+      // neighbouring positions share their 32-byte sectors within one
+      // warp load); unpacked, test by test (a test's entries are
+      // contiguous).
+      const uint32_t tinv = 0xFFFFFFFFu / total + 1;
+      for (int t0 = lane; t0 < pairs; t0 += 4 * 32) {
+        uint32_t v[4], jw[4];
+        int tj[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u;
+          v[u] = 0;
+          jw[u] = 0;
+          tj[u] = 0;
+          if (t < pairs) {
+            int tjob, w;
+            if constexpr (kPacked) {
+              w = total == 1 ? t : __umulhi(t, tinv);
+              tjob = t - w * total;
+            } else {
+              tjob = per == 1 ? t : __umulhi(t, inv);
+              w = t - tjob * per;
+            }
+            const uint32_t jwu = job[tjob];
+            const int bit = jwu & 31;
+            const int g = ((gbase + 4 * static_cast<int>(jwu >> 5 & 31)) &
+                           (kN - 1)) + (bit & 3) - 4 * (bit >> 2);
+            v[u] = kPacked ? __ldg(table + (static_cast<size_t>(row) *
+                                            (k / 2) + w) * kN + g)
+                           : __ldg(entries(g) + 1 + w);
+            jw[u] = jwu;
+            tj[u] = tjob | (w << 16);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (t0 + 32 * u >= pairs) continue;
+          const uint32_t xv = jw[u] >> 16;
+          const int w = tj[u] >> 16;
+          const bool h = kPacked ? ((v[u] & 0xFFFFu) == xv ||
+                                    (2 + 2 * w < k && v[u] >> 16 == xv))
+                                 : (v[u] & 0xFFFFu) == xv;
+          if (h) hit[tj[u] & 0xFFFF] = 1;
+        }
+      }
+      __syncwarp();
+      at = incl - c;
+      for (unsigned m = mine; m; m &= m - 1) {
+        if (hit[at]) found |= 1u << (__ffs(m) - 1);
+        ++at;
+      }
+      __syncwarp();
+    }
+    return found;
+  }
+
  private:
-  __device__ __forceinline__ static uint32_t bit(uint32_t v) {
-    return v ? sig_bit(v) : 0u;
+  // Word 0 of the int4 column of positions g..g+3; word j at + j * kN / 4.
+  __device__ __forceinline__ const int4* words(int g) const {
+    return reinterpret_cast<const int4*>(
+        table + static_cast<size_t>(row) * (k / 2) * kN + g);
   }
-  __device__ __forceinline__ int4 word(int j, int q0) const {
-    return __ldg(reinterpret_cast<const int4*>(
-        table + (static_cast<size_t>(row) * (k / 2) + j) * kN + q0));
-  }
-  __device__ __forceinline__ const int32_t* entries(int q) const {
-    return table + (static_cast<size_t>(row) * kN + q) * k;
+  __device__ __forceinline__ const int32_t* entries(int g) const {
+    return table + (static_cast<size_t>(row) * kN + g) * k;
   }
 };
-
-// Shared memory of the wide form: the bucket masks and the defaults of the
-// region (the stages after sticky reuse them), then the sticky offsets.
-constexpr size_t kWideMasks = kLen * sizeof(uint32_t);
-constexpr size_t kWideDflts = kLen * sizeof(uint16_t);
-constexpr size_t kWideBytes = kWideMasks + 2 * kWideDflts;
-static_assert(kPostBytes <= kWideMasks + kWideDflts,
-              "the later stages fit in the sticky planes");
 
 template <bool kPacked, bool kSig>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -592,10 +912,19 @@ matcher_wide_kernel(const int32_t* __restrict__ pref,
                     const int32_t* __restrict__ nlen,
                     int32_t* __restrict__ jump, int32_t* __restrict__ offo,
                     int lazy) {
-  __shared__ __align__(16) unsigned char smem[kWideBytes];
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem);
-  uint16_t* dflts = reinterpret_cast<uint16_t*>(smem + kWideMasks);
-  uint16_t* offs = dflts + kLen;
+  using S = WideSmem<kSig>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* c0 = reinterpret_cast<uint16_t*>(smem + S::kC0);
+  unsigned char* near = smem + S::kNearAt;
+  uint32_t* job = reinterpret_cast<uint32_t*>(smem + S::kJobs) +
+                  (threadIdx.x >> 5) * kJobsWarp;
+  unsigned char* hit = smem + S::kHits + (threadIdx.x >> 5) * kJobsWarp;
+  auto masks = [&](int b) {
+    return reinterpret_cast<uint32_t*>(smem + b * S::kSlot);
+  };
+  auto dflts = [&](int b) {
+    return reinterpret_cast<uint32_t*>(smem + b * S::kSlot + S::kMasks);
+  };
 
   const int tid = threadIdx.x;
   const int row = blockIdx.y;
@@ -606,87 +935,153 @@ matcher_wide_kernel(const int32_t* __restrict__ pref,
   const int gb = (t0 - kLeft + p0) & (kN - 1);
   const Keeps<kPacked> keeps{pref, table, k, row};
 
-  uint32_t c0[kPer], msk[kPer], d[kPer];
-  keeps.first(gb, c0);
-  keeps.masks(gb, msk);
-#pragma unroll
-  for (int q = 0; q < kPer; ++q) d[q] = c0[q];
-  store4(dflts + p0, d[0], d[1], d[2], d[3]);
-  *reinterpret_cast<uint4*>(masks + p0) =
-      make_uint4(msk[0], msk[1], msk[2], msk[3]);
+  keeps.firsts(t0 - kLeft, c0, dflts(0));
+  // The near bits read other threads' keep 0; at "sig" a thread reads
+  // only its own.
+  if constexpr (!kSig) __syncthreads();
+  keeps.template mask_pass<kSig>(t0 - kLeft, c0, masks(0), near);
   __syncthreads();
+  // My defaults: the value, and at bits 16.. the origin m (the default is
+  // keep 0 of the position 4m back; the keep sets after l levels hold
+  // keep 0 of positions at most 4 (2^(l+1) - 1) back, 60 after four).
+  uint32_t d[kPer];
+  {
+    const uint4 v = *reinterpret_cast<const uint4*>(dflts(0) + p0);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
 
 #pragma unroll 1
   for (int lvl = 0; lvl < kLevels; ++lvl) {
+    const int cur = lvl & 1;
+    const uint32_t* ms = masks(cur);
+    const uint32_t* df = dflts(cur);
     const int s = 4 << lvl;
     // Window edge (gidx < s), or context the tile never reads (p < s).
     const bool ident = gb < s || p0 < s;
-    uint32_t nd[kPer], nm[kPer];
+    uint32_t x[kPer] = {0, 0, 0, 0};  // candidates, with their origins
+    unsigned take = 0;
     if (!ident) {
-      uint32_t x[kPer];
-      unsigned take = 0;
 #pragma unroll
       for (int q = 0; q < kPer; ++q) {
-        x[q] = dflts[p0 + q - s];
-        take |= static_cast<unsigned>(x[q] != 0 &&
-                                      (msk[q] & sig_bit(x[q])) != 0) << q;
-      }
-      if constexpr (!kSig) {
-        // In the original table at every position of my window (gb >= s,
-        // so the window lies inside the row).
-        for (int i = 0; i < 1 << lvl && take; ++i)
-          take = keeps.member(gb - 4 * i, x, take);
-      }
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        nd[q] = take >> q & 1 ? x[q] : d[q];
-        nm[q] = masks[p0 + q - s] & msk[q];
+        x[q] = df[p0 + q - s] + (static_cast<uint32_t>(s >> 2) << 16);
+        const uint32_t v = x[q] & 0xFFFFu;
+        take |= static_cast<unsigned>(
+            v != 0 && Mask<kSig>::admits(ms[p0 + q], v)) << q;
       }
     }
-    if (lvl + 1 == kLevels) {  // nothing reads the last level's planes
-      if (!ident) {
+    if constexpr (!kSig) {
+      // In the original table at every position of my window (gb >= s, so
+      // the window lies inside the row). The candidate is keep 0 of the
+      // position 4r back, so the test at my group less 4j asks for keep 0
+      // of the position 4(r - j) before it: its near bits answer it for
+      // r - j <= kNear; else keep 0 from shared memory, then the warp's
+      // scans of the rest. Bit q + 4j of `need` is asker q's scan there.
+      unsigned need = 0;
+      if (take) {
+        for (int j = 0; j < 1 << lvl; ++j) {
+          const uint2 c = *reinterpret_cast<const uint2*>(c0 + p0 - 4 * j);
+          const uint32_t nb = *reinterpret_cast<const uint32_t*>(
+              near + p0 - 4 * j);
+          const uint32_t cv[kPer] = {c.x & 0xFFFFu, c.x >> 16, c.y & 0xFFFFu,
+                                     c.y >> 16};
 #pragma unroll
-        for (int q = 0; q < kPer; ++q) d[q] = nd[q];
+          for (int q = 0; q < kPer; ++q) {
+            const int u = static_cast<int>(x[q] >> 16) - j;
+            const bool by_bit = u <= kNear;
+            const bool bit = nb >> ((8 * q + u - 1) & 31) & 1;
+            take &= ~(static_cast<unsigned>(by_bit && !bit) << q);
+            need |= static_cast<unsigned>(!by_bit && cv[q] != (x[q] & 0xFFFFu))
+                    << (q + 4 * j);
+          }
+        }
+        need &= take * 0x11111111u;
       }
+      if (__any_sync(kFull, need)) {
+        uint32_t xv[kPer];
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) xv[q] = x[q] & 0xFFFFu;
+        unsigned miss = need & ~keeps.warp_scan(need, xv, gb, job, hit);
+        miss |= miss >> 16;
+        miss |= miss >> 8;
+        take &= ~(miss | miss >> 4);
+      }
+    }
+    uint32_t nd[kPer];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) nd[q] = take >> q & 1 ? x[q] : d[q];
+    if (lvl + 1 == kLevels) {  // nothing reads the last level's planes
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) d[q] = nd[q];
       break;
     }
-    __syncthreads();
-    if (!ident) {
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        d[q] = nd[q];
-        msk[q] = nm[q];
+    {  // the masks compose by AND over the window
+      uint4 own = *reinterpret_cast<const uint4*>(ms + p0);
+      if (!ident) {
+        const uint4 sh = *reinterpret_cast<const uint4*>(ms + p0 - s);
+        own = make_uint4(own.x & sh.x, own.y & sh.y, own.z & sh.z,
+                         own.w & sh.w);
       }
-      store4(dflts + p0, d[0], d[1], d[2], d[3]);
-      *reinterpret_cast<uint4*>(masks + p0) =
-          make_uint4(msk[0], msk[1], msk[2], msk[3]);
+      *reinterpret_cast<uint4*>(masks(cur ^ 1) + p0) = own;
     }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) d[q] = nd[q];
+    *reinterpret_cast<uint4*>(dflts(cur ^ 1) + p0) =
+        make_uint4(d[0], d[1], d[2], d[3]);
     __syncthreads();
   }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) d[q] &= 0xFFFFu;
   if constexpr (kSig) {
     // Exact re-verification against my original keeps, falling back to
     // keep 0 (which passes it whenever the default equals it).
+    const uint2 c = *reinterpret_cast<const uint2*>(c0 + p0);
+    const uint32_t cv[kPer] = {c.x & 0xFFFFu, c.x >> 16, c.y & 0xFFFFu,
+                               c.y >> 16};
     unsigned want = 0;
 #pragma unroll
     for (int q = 0; q < kPer; ++q)
-      want |= static_cast<unsigned>(d[q] != 0 && d[q] != c0[q]) << q;
-    const unsigned ok = want ? keeps.member(gb, d, want) : 0u;
+      want |= static_cast<unsigned>(d[q] != 0 && d[q] != cv[q]) << q;
+    const unsigned ok = want ? keeps.own_scan(gb, d, want) : 0u;
 #pragma unroll
     for (int q = 0; q < kPer; ++q)
-      if (d[q] == 0 || (want >> q & 1 && !(ok >> q & 1))) d[q] = c0[q];
+      if (d[q] == 0 || (want >> q & 1 && !(ok >> q & 1))) d[q] = cv[q];
   }
-  finish_tile(d, offs, smem, t0, n, rbase, gb, jump, offo, lazy);
+  // The first buffer is free: the last level read the second.
+  finish_tile(d, reinterpret_cast<uint16_t*>(smem),
+              smem + kLen * sizeof(uint16_t), t0, n, rbase, gb, jump, offo,
+              lazy);
 }
 
 template <bool kPacked, bool kSig>
 int launch_wide(const void* pref, const void* table, int k, const void* n,
                 void* jump, void* off, int lazy, int batch, cudaStream_t s) {
+  const size_t bytes = WideSmem<kSig>::kTotal;
+  cudaError_t err = cudaFuncSetAttribute(
+      matcher_wide_kernel<kPacked, kSig>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(kTiles, batch);
-  matcher_wide_kernel<kPacked, kSig><<<grid, kThreads, 0, s>>>(
+  matcher_wide_kernel<kPacked, kSig><<<grid, kThreads, bytes, s>>>(
       static_cast<const int32_t*>(pref), static_cast<const int32_t*>(table),
       k, static_cast<const int32_t*>(n), static_cast<int32_t*>(jump),
       static_cast<int32_t*>(off), lazy);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide kernel at any K >= 2.
+int wide(const void* pref, const void* table, bool packed, const void* n,
+         void* jump, void* off, int k, int lazy, int sig, int batch,
+         cudaStream_t s) {
+  if (k < 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (packed)
+    return sig ? launch_wide<true, true>(pref, table, k, n, jump, off, lazy,
+                                         batch, s)
+               : launch_wide<true, false>(pref, table, k, n, jump, off, lazy,
+                                          batch, s);
+  return sig ? launch_wide<false, true>(pref, table, k, n, jump, off, lazy,
+                                        batch, s)
+             : launch_wide<false, false>(pref, table, k, n, jump, off, lazy,
+                                         batch, s);
 }
 
 template <int K, bool kSig>
@@ -719,17 +1114,8 @@ int dispatch(const void* pref, const void* table, bool packed, const void* n,
              void* jump, void* off, int k, int lazy, int sig, int batch,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k > kFixedK) {
-    if (packed)
-      return sig ? launch_wide<true, true>(pref, table, k, n, jump, off,
-                                           lazy, batch, s)
-                 : launch_wide<true, false>(pref, table, k, n, jump, off,
-                                            lazy, batch, s);
-    return sig ? launch_wide<false, true>(pref, table, k, n, jump, off, lazy,
-                                          batch, s)
-               : launch_wide<false, false>(pref, table, k, n, jump, off,
-                                           lazy, batch, s);
-  }
+  if (k > kFixedK)
+    return wide(pref, table, packed, n, jump, off, k, lazy, sig, batch, s);
 #define SNK_K(K)                                                       \
   case K:                                                              \
     return launch_k<K>(pref, table, packed, n, jump, off, lazy, sig, \
@@ -765,4 +1151,16 @@ SNK_EXPORT int snk_matcher(const void* cands, const void* n, void* jump,
                            void* stream) {
   return dispatch(nullptr, cands, false, n, jump, off, k, lazy, sig, batch,
                   stream);
+}
+
+// The wide kernel at any K >= 2, the instances' K included (to time and
+// hold it where they run): packed 1 takes pref and words as
+// snk_matcher_packed, packed 0 takes the (batch, 65536, k) table as
+// snk_matcher (pref unused); the rest as snk_matcher_packed.
+SNK_EXPORT int snk_matcher_wide(const void* pref, const void* table,
+                                int packed, const void* n, void* jump,
+                                void* off, int k, int lazy, int sig,
+                                int batch, void* stream) {
+  return wide(pref, table, packed != 0, n, jump, off, k, lazy, sig, batch,
+              static_cast<cudaStream_t>(stream));
 }

@@ -14,11 +14,15 @@ stages after sticky as ballots, a nibble window and a sliding max over
 for each K holds the K sticky planes in shared memory; on this card their
 compares bound it (integer operations). Above FIXED_K one wide kernel
 takes K at run time: the keep sets compose by intersection over a window
-of the original table, so it holds only each position's default and
-bucket mask and tests membership in the table in device memory. The
-plain versions run the XLA-form matcher, encode._matcher_xla, on the
-(unpacked) table; the JAX suite proves it bit-identical to both Pallas
-kernels (tests/test_pallas.py:513-583).
+of the original table, and a default is always keep 0 of a position at
+most 60 back, so it holds each position's default with that origin, its
+bucket mask and near bits (one streamed pass over the table answers the
+first two levels' tests), and tests the rest at keep 0 in shared memory
+or by warp-wide scans of the table in device memory. `_wide` runs it at
+any K, the instances' included, for chip_smoke.py and the tests; no
+config reaches it. The plain versions run the XLA-form matcher,
+encode._matcher_xla, on the (unpacked) table; the JAX suite proves it
+bit-identical to both Pallas kernels (tests/test_pallas.py:513-583).
 """
 
 from __future__ import annotations
@@ -86,17 +90,16 @@ def matcher_block_plain(cands: torch.Tensor, n: torch.Tensor, lazy: int = 0,
     return encode._matcher_xla(cands, n, lazy, sticky)
 
 
-def _launch(entry: str, name: str, tables: list, n: torch.Tensor, k: int,
+def _launch(entry: str, name: str, lead: list, n: torch.Tensor, k: int,
             lazy: int, sticky: str):
-    """Run one C entry point on (B, N) outputs; `tables` are its table
-    pointers' tensors."""
+    """Run one C entry point on (B, N) outputs; `lead` are its arguments
+    before the lengths (the tables' pointers)."""
     jump = torch.empty((n.shape[0], N), dtype=torch.int32, device=n.device)
     off = torch.empty_like(jump)
     if n.shape[0]:
         rc = getattr(_build.lib(), entry)(
-            *(t.data_ptr() for t in tables), n.data_ptr(), jump.data_ptr(),
-            off.data_ptr(), k, lazy, int(sticky == "sig"), n.shape[0],
-            _build.stream())
+            *lead, n.data_ptr(), jump.data_ptr(), off.data_ptr(), k, lazy,
+            int(sticky == "sig"), n.shape[0], _build.stream())
         _build.check(rc, name)
     return jump, off
 
@@ -118,7 +121,7 @@ def matcher_block_packed(pref: torch.Tensor, words: torch.Tensor,
     _build.require(n, torch.int32, (batch,), "n")
     _build.require_aligned("matcher_block_packed", pref, words)
     out = _launch("snk_matcher_packed", "matcher_block_packed",
-                  [pref, words], n, k, lazy, sticky)
+                  [pref.data_ptr(), words.data_ptr()], n, k, lazy, sticky)
     if batch:
         matcher_block_packed.launches += 1
     return out
@@ -138,12 +141,46 @@ def matcher_block(cands: torch.Tensor, n: torch.Tensor, lazy: int = 0,
     _build.require(cands, torch.int32, (batch, N, k), "cands")
     _build.require(n, torch.int32, (batch,), "n")
     _build.require_aligned("matcher_block", cands)
-    out = _launch("snk_matcher", "matcher_block", [cands], n, k, lazy,
-                  sticky)
+    out = _launch("snk_matcher", "matcher_block", [cands.data_ptr()], n, k,
+                  lazy, sticky)
     if batch:
         matcher_block.launches += 1
     return out
 
 
+def _wide(table: tuple, n: torch.Tensor, k: int, lazy: int = 0,
+          sticky: str = "exact"):
+    """The wide kernel at any K from MIN_K, the instances' K included, so
+    that chip_smoke.py and the `gpu` tests can hold and time it where the
+    instances run; no config and no public function reaches it. `table` is
+    (pref, words), the packed form, or (cands,), the unpacked one. Returns
+    (jump, off) as the public wrappers; CPU tensors take the plain
+    version."""
+    _check_args(k, sticky)
+    packed = len(table) == 2
+    if _build.on_cpu(*table, n):
+        if packed:
+            return matcher_block_packed_plain(*table, n, k, lazy, sticky)
+        return matcher_block_plain(table[0], n, lazy, sticky)
+    batch = n.shape[0]
+    _build.require(n, torch.int32, (batch,), "n")
+    if packed:
+        pref, words = table
+        _build.require(pref, torch.int32, (batch, N), "pref")
+        _build.require(words, torch.int32, (batch, k // 2, N), "words")
+        _build.require_aligned("_wide", pref, words)
+        lead = [pref.data_ptr(), words.data_ptr(), 1]
+    else:
+        cands, = table
+        _build.require(cands, torch.int32, (batch, N, k), "cands")
+        _build.require_aligned("_wide", cands)
+        lead = [None, cands.data_ptr(), 0]
+    out = _launch("snk_matcher_wide", "_wide", lead, n, k, lazy, sticky)
+    if batch:
+        _wide.launches += 1
+    return out
+
+
 matcher_block_packed.launches = 0
 matcher_block.launches = 0
+_wide.launches = 0
