@@ -17,10 +17,12 @@ checkout's alone), with each turn's bound share and library ratio, the tiled
 resolves, doubling_round, place_block and resolve_block also on each
 call's first 8 rows, the tiled resolves and resolve_block on the period-1
 chain, next_start_block at M 384, 57344, 65536 and 69632 (128 rows and
-1-D), and sweeps the tiles of the two scatters and of place_block's
+1-D), times phase 7's "flagtail" decode_corpus through both trees, and
+sweeps the tiles of the two scatters and of place_block's
 windowed scatter, ffill's chunk, and every tile of the five tiled kernels
 (SWEPT: resolve_tiled, resolve_tiled_dual, resolve_tiled_depth,
-resolve_tiled_flag and local_round, each on its captured call).
+resolve_tiled_flag and local_round, each on its captured call, all but
+resolve_tiled_dual in turns with the parent's).
 
 Phases, each printing its results; any failure raises (non-zero exit):
 
@@ -48,15 +50,15 @@ Phases, each printing its results; any failure raises (non-zero exit):
    they take (128 to 65536) on tests/torch_edges.py's tiled-resolve rows
    at 1, 8, 128 and 133 rows under every `resolved` flag (check 1 and 3,
    every variant), declared depth kind (0, under, over, above the cap,
-   negative) and root-flag kind (exact, over, zero), an illegal tile,
-   check or variant refused; the resolve kernels on the
-   JAX tests' maps, the period-1 chain and a depth-10000 chain among them,
-   with exact, over-approximate and all-zero root flags and partly stable
-   tiles, resolve_block also on the tiled-resolve rows at 1, 8, 128 and
-   133 rows; the windowed gathers in chained rounds on the same maps; the
-   element fields on random, all-zero and all-255 rows at three widths;
-   resolve_tiled_dual with asymmetric `resolved` flags; the two prefix
-   scans at four widths and 1-D, with int32-wrapping sums and
+   negative) and root-flag kind (exact, over, zero, under), an illegal tile,
+   check or variant refused; the resolve kernels on the JAX tests' maps,
+   the period-1 chain and a depth-10000 chain among them, with exact,
+   over-approximate, all-zero, under-approximate and all-one root flags and
+   partly stable tiles, resolve_block also on the tiled-resolve rows at 1,
+   8, 128 and 133 rows; the windowed gathers in chained rounds on the same
+   maps; the element fields on random, all-zero and all-255 rows at three
+   widths; resolve_tiled_dual with asymmetric `resolved` flags; the two
+   prefix scans at four widths and 1-D, with int32-wrapping sums and
    next_start_block at default m, 0 and 100 on all-zero, first-only,
    last-only and all-set flags, and on tests/torch_edges.py's span-edge
    rows (one flag around each span and read-ahead end of the kernel, only
@@ -1078,20 +1080,22 @@ def check_resolve_kernels(rng, t, report: dict) -> None:
           f"chains) and B={TILED_BATCHES} (the tiled-resolve rows): "
           f"max_abs_err={max(errs)}")
 
-    # resolve_tiled_flag: exact, over-approximate, all-zero and all-one
-    # flags.
+    # resolve_tiled_flag: exact, over-approximate, all-zero,
+    # under-approximate and all-one flags.
     hop = torch.gather(src, -1, src.long())
     exact = (hop == src).to(torch.int32)
     over = exact | t((rng.random((BATCH, N)) < 0.5).astype(np.int32))
+    under = exact & t((np.random.default_rng(SEED + 12).random((BATCH, N))
+                       < 0.5).astype(np.int32))
     errs = []
-    for flags in (exact, over, torch.zeros_like(exact),
+    for flags in (exact, over, torch.zeros_like(exact), under,
                   torch.ones_like(exact)):
         errs.append(_exact(tiledres.resolve_tiled_flag(lit, src, flags),
                            tiledres.resolve_tiled_flag_plain(lit, src,
                                                              flags)))
     report["resolve_tiled_flag"] = max(errs + [report["resolve_tiled_flag"]])
     print(f"kernel resolve_tiled_flag B={BATCH} (the maps; flags exact, over, "
-          f"zero, one): max_abs_err={max(errs)}")
+          f"zero, under, one): max_abs_err={max(errs)}")
 
 
 def check_window_kernels(rng, t, report: dict) -> None:
@@ -1964,7 +1968,7 @@ REDESIGNED = ("matcher_block_packed", "matcher_block", "emit_block_single",
 #: does not shrink with the batch, and where a grid of few rows fills less
 #: of the card.
 FIRST_ROWS = ("resolve_tiled", "resolve_tiled_depth", "doubling_round",
-              "place_block", "resolve_block")
+              "place_block", "resolve_block", "resolve_tiled_flag")
 SERVER_ROWS = 8
 
 
@@ -2054,7 +2058,7 @@ def _kernel_split(fn, reps: int = 20) -> str:
 
 
 def compare_parent(dev, captured: dict, stages: dict, parent: str,
-                   card: str) -> None:
+                   card: str) -> dict:
     """With `--parent DIR`: each REDESIGNED kernel of DIR's checkout and of
     this one on every captured main-path call (the scan kernels on the
     captured scan stages' arguments; the FIRST_ROWS kernels also on each
@@ -2066,9 +2070,10 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
     wrapper launches (torch.profiler); the two outputs (every tensor of
     them: the drop counts and flags too) must be equal. Then phase 9's
     worst case for both trees: the tiled resolves and resolve_block on the
-    period-1 chain; and next_start_block at the other widths phase 3
-    runs (128 rows and one 1-D row of seeded flags at M 384, 57344, 65536
-    and 69632)."""
+    period-1 chain (resolve_tiled_flag with its exact flags); and
+    next_start_block at the other widths phase 3 runs (128 rows and one
+    1-D row of seeded flags at M 384, 57344, 65536 and 69632). Returns the
+    parent's wrappers."""
     old = _parent_kernels(parent)
     kernels = _kernel_modules()
     for (name, stage, shapes, scalars), (args, kw) in _with_scans(
@@ -2099,8 +2104,11 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
     lit, chain, deps = _chain_case(dev, captured)
     rng = np.random.default_rng(SEED + 2)
     hint = {"tile": kernels["resolve_tiled_depth"].DEPTH_TILE}
+    roots = (torch.gather(chain, 1, chain.long()) == chain).to(torch.int32)
     extra = [("resolve_tiled", (lit, chain), {}, "the period-1 chain"),
              ("resolve_tiled_depth", (lit, chain, deps), hint,
+              "the period-1 chain"),
+             ("resolve_tiled_flag", (lit, chain, roots), {},
               "the period-1 chain"),
              ("resolve_block", (lit, chain), {}, "the period-1 chain")]
     for m in (384, 57344, 65536, 69632):
@@ -2117,6 +2125,41 @@ def compare_parent(dev, captured: dict, stages: dict, parent: str,
         print(f"parent against this: {name} {shape} on {what}: "
               f"{_in_turns(dev, old[name], new, a, k, bound_ms, None)} "
               f"[{card}]")
+    return old
+
+
+def compare_parent_decode(dev, corpus: tuple, card: str) -> None:
+    """With `--parent DIR`: phase 7's decode_corpus under "flagtail"
+    (resolve_tiled_flag's main path) through the parent's port and this
+    one, after one untimed call of each, in turns (parent, this, this,
+    parent), host clock around each synchronised call; every output must
+    equal the first."""
+    import importlib
+    from tpu_snappy_torch import api
+    from tpu_snappy_torch.ops import decode
+
+    trees = {"parent": importlib.import_module("parent_port.ops.decode"),
+             "this": decode}
+
+    def run(label):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out, _ = trees[label].decode_corpus(*corpus, resolve="flagtail",
+                                            wave=api.API_WAVE)
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    first = run("parent")[0]
+    run("this")
+    turns = []
+    for label in ("parent", "this", "this", "parent"):
+        out, seconds = run(label)
+        if not torch.equal(out, first):
+            raise AssertionError("flagtail decode_corpus: the two trees' "
+                                 "outputs differ")
+        turns.append(f"{label} {seconds} s")
+    print(f"parent against this: decode_corpus under flagtail: "
+          f"{'; '.join(turns)} [{card}]")
 
 
 def tile_sweep(dev, captured: dict, card: str) -> None:
@@ -2181,14 +2224,16 @@ SWEPT = {"resolve_tiled": 4096, "resolve_tiled_dual": 4096,
          "local_round": 4096}
 
 
-def resolve_tile_sweep(dev, captured: dict, card: str) -> None:
+def resolve_tile_sweep(dev, captured: dict, card: str, old: dict) -> None:
     """With `--parent DIR`, the tiled kernels at every tile they take
     (tiledres.TILES), device only (graph_ms), on each one's largest
     captured main-path call (resolve_tiled_dual on the first two rows of
     resolve_tiled's, with its `resolved` flags; resolve_tiled_depth with
     each tile's exact depths of the captured map, tile_depths_plain), each
     output equal to the plain version's at that tile; the main path's tile
-    is marked."""
+    is marked. A kernel with a parent wrapper in `old` (the REDESIGNED
+    ones) is timed in turns with it at every tile (parent, this, this,
+    parent), the parent's output equal to this one's."""
     kernels = _kernel_modules()
     for name, main_tile in SWEPT.items():
         base = "resolve_tiled" if name == "resolve_tiled_dual" else name
@@ -2213,7 +2258,16 @@ def resolve_tile_sweep(dev, captured: dict, card: str) -> None:
             if _exact(fn(), plain(*a, **k)):
                 raise AssertionError(f"{name} at tile {tile} differs")
             mark = " (main path)" if tile == main_tile else ""
-            res.append(f"tile {tile}{mark} {_graph_ms(fn, dev)} ms")
+            if name not in old:
+                res.append(f"tile {tile}{mark} {_graph_ms(fn, dev)} ms")
+                continue
+            was = functools.partial(old[name], *a, **k)
+            if _exact(was(), fn()):
+                raise AssertionError(f"{name} at tile {tile}: the parent's "
+                                     "output differs")
+            turns = [_graph_ms(f, dev) for f in (was, fn, fn, was)]
+            res.append(f"tile {tile}{mark} {turns[1]} / {turns[2]} ms "
+                       f"(parent {turns[0]} / {turns[3]})")
         shapes = tuple(tuple(t.shape) for t in _tensors(args))
         print(f"tile sweep {name} {shapes}, graph_ms: {'; '.join(res)} "
               f"[{card}]")
@@ -3032,9 +3086,10 @@ def main() -> None:
     tree_decompress(data, comp, card)
     report = check_main_path_calls(dev, captured, stages, card)
     if opts.parent:
-        compare_parent(dev, captured, stages, opts.parent, card)
+        old = compare_parent(dev, captured, stages, opts.parent, card)
+        compare_parent_decode(dev, corpus, card)
         tile_sweep(dev, captured, card)
-        resolve_tile_sweep(dev, captured, card)
+        resolve_tile_sweep(dev, captured, card, old)
     parallel_and_surfaces(dev, data, comp, framed, framed_stats, wrappers,
                           card)
     serving_phase(dev, data, framed, wrappers, card)

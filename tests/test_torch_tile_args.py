@@ -9,9 +9,10 @@ of 128: the Pallas kernel keeps its depths in one 128-lane row, so it
 cannot run below 512) on tests/torch_edges.py's
 tiled-resolve rows, with exact, over- and under-declared and zero depths
 (an under-declared depth gives the TPU's own wrong bytes, which depend on
-the tile), exact, over-approximate and zero root flags, and fill masks
-whose gaps lie below, at and above the window `max_gap` gives. The `gpu`
-twins hold the CUDA kernels against the plain versions at every tile.
+the tile), exact, over-approximate, zero and under-approximate root
+flags, and fill masks whose gaps lie below, at and above the window
+`max_gap` gives. The `gpu` twins hold the CUDA kernels against the plain
+versions at every tile.
 """
 
 import numpy as np
@@ -117,10 +118,12 @@ def test_resolve_tiled_flag_matches_pallas(rows, tile):
                              jnp.asarray(flags)))
     assert (got == want).all(), tile
     fixed = np.concatenate([fixed_bytes(lit, src)] * len(FLAG_KINDS))
-    exact = np.split((got == fixed).all(axis=-1), len(FLAG_KINDS))
-    assert exact[0].all() and exact[2].all()  # exact and zero flags
+    exact = dict(zip(FLAG_KINDS,
+                     np.split((got == fixed).all(axis=-1), len(FLAG_KINDS))))
+    for kind in ("exact", "zero", "under"):  # these reach the fixed point
+        assert exact[kind].all(), kind
     if tile < N:  # one tile reaches its fixed point within its rounds
-        assert not exact[1].all()  # over-approximate: stopped early
+        assert not exact["over"].all()  # stopped early
 
 
 @pytest.mark.parametrize("tile", TILES)

@@ -480,9 +480,11 @@ def resolved_flags(kind: str, rows: int):
 
 #: The root flags resolve_tiled_flag is held at: exact (flags[p] = 1 iff
 #: src[p] is a fixed point, what "flagtail" computes), over-approximate
-#: (also 1 on about half the unresolved lanes, which stops tiles early)
-#: and all zero (every round runs).
-FLAG_KINDS = ("exact", "over", "zero")
+#: (also 1 on about half the unresolved lanes, which stops tiles early),
+#: all zero (every round runs) and under-approximate (the exact flags with
+#: about half the set ones cleared: exact bytes after more rounds, in
+#: which some lanes' flags change while their pointers stay).
+FLAG_KINDS = ("exact", "over", "zero", "under")
 
 
 def root_flags(kind: str, src: np.ndarray, seed: int = SEED + 11):
@@ -493,6 +495,9 @@ def root_flags(kind: str, src: np.ndarray, seed: int = SEED + 11):
         exact |= rng.random(src.shape) < 0.5
     elif kind == "zero":
         exact[:] = False
+    elif kind == "under":
+        rng = np.random.default_rng(seed)
+        exact &= rng.random(src.shape) < 0.5
     return exact.astype(np.int32)
 
 

@@ -34,25 +34,36 @@
 //     (tiledres.py:_make_kernel_flag). Exact flags end each tile after its
 //     productive rounds; an over-approximate flag (1 on an unresolved
 //     lane) stops a tile early and gives the TPU's own wrong bytes, and
-//     all-zero flags run every round and stay exact.
+//     all-zero or under-approximate flags run more rounds and stay exact.
 //
-// resolve_tiled and resolve_tiled_depth keep the walk's bytes but not its
-// order: one block of 1024 threads a row, the row's map in shared memory
-// as uint16 (128 KB; 0 <= src[p] <= p < 65536, so 16 bits are exact), then
-// its literal bytes (64 KB; lit holds bytes), 192 KB of dynamic shared
-// memory, and no step that waits for the tile before it:
+// The three kernels keep the walk's bytes but not its order: one block of
+// 1024 threads a row, the row's map in shared memory as uint16 (128 KB;
+// 0 <= src[p] <= p < 65536, so 16 bits are exact), then its literal bytes
+// (64 KB; lit holds bytes), 192 KB of dynamic shared memory, and no step
+// that waits for the tile before it:
 //   1. load the map with 16-byte loads, the whole row at once, and
-//      prefetch lit into L2 behind it;
+//      prefetch lit into L2 behind it (resolve_tiled_flag reads its flags
+//      first, to choose its route, and loads them as bytes, also 16 bytes
+//      a load, into the 64 KB that lit's bytes take only at the write
+//      where its rounds need them);
 //   2. local rounds in every tile at once, synchronous (every lane reads,
 //      a vote, every lane writes): resolve_tiled_depth runs exactly the
 //      declared count, since an under-declared depth must leave the TPU's
 //      state after exactly that many rounds; resolve_tiled runs them until
-//      nothing moves (see below). Up to 1024-tiles a tile runs on one warp
-//      with no barrier shared with another tile (a warp holds 2048 lanes,
-//      so it runs 2048 / tile tiles one after the other); a larger tile
-//      spans tile / 2048 warps, and its rounds take the block barrier
-//      (named barriers, one a tile, would need 16 at the 4096-tile: all
-//      the card has, the block's own among them);
+//      nothing moves (see below); resolve_tiled_flag votes before each
+//      round, on the current state, whether some lane points in-tile at a
+//      non-root, and ends the tile's loop where the TPU's ends, or earlier
+//      at a round that moves no pointer (the pointers' rounds do not read
+//      the flags, so the bytes are the TPU's though its loop would go on).
+//      A tile's rounds read only its own lanes (a pointer left of the tile
+//      never moves, and src[p] <= p keeps every pointer below the tile's
+//      end), so the tiles need no order. Up to 1024-tiles a tile runs on
+//      one warp with no barrier shared with another tile (a warp holds
+//      2048 lanes, so it runs 2048 / tile tiles one after the other); a
+//      larger tile spans tile / 2048 warps, and its rounds take the block
+//      barrier (named barriers, one a tile, would need 16 at the
+//      4096-tile: all the card has, the block's own among them), a tile
+//      whose loop has ended only waiting at the barriers;
 //   3. the absorbs, as merges: a lane is terminal when its pointer v lies
 //      at or right of its tile base (the walk gives it lit[v]); any other
 //      lane's pointer lies in an earlier tile, where the walk gives it
@@ -65,9 +76,13 @@
 //   4. stage lit's bytes from L2 into shared memory, and write out[p] =
 //      lit[s[p]] for a terminal lane, lit[s[s[p]]] for another, as int32,
 //      with 16-byte stores.
-// The tile is a template parameter (kShift, its log2) of both kernels, so
+// The tile is a template parameter (kShift, its log2) of every kernel, so
 // that the merge levels stay unrolled with constant block tests; the
-// entry points pick the instance.
+// entry points pick the instance. resolve_tiled_depth and
+// resolve_tiled_flag merge at the caller's tile: step 3's terminal test
+// is the walk's rule whatever state the rounds left (an under-declared
+// depth's or an over-approximate flag's included), since the rounds keep
+// src[p] <= p.
 // resolve_tiled's route. A `resolved` row runs the walk's absorbs alone:
 // merges of tiles on src, at the caller's tile. In any other row the
 // walk's rounds (at most bit_length(tile) a tile, stopping when none
@@ -78,21 +93,25 @@
 // cheaper route to the same bytes at every tile: rounds until nothing
 // moves in 1024-tiles (at most 11), then merges of 1024-tiles that follow
 // every pointer to its root, out[p] = lit[s[p]].
+// resolve_tiled_flag's route. A flag of 1 on a lane whose pointer is not a
+// root (an over-approximate flag) is what can stop a tile before its local
+// fixed point. One pass over the row looks for one; a row without takes
+// resolve_tiled's route above (a round carries a root's flag to the lane
+// whose pointer it sets to that root, so every flag of 1 stays on a lane at
+// a root, a tile's vote stays open while some in-tile pointer is not at a
+// root, and the walk's bytes are lit[fix(src)] at every tile). A row with
+// one runs the flag rounds of step 2 at the caller's tile, then step 3's
+// merges there. The decoder's flags are exact, so its rows take the first
+// route. The flag rounds cost more a round than the plain rounds: each
+// reads every pair of every live tile with its flags, which ride in
+// registers as bits beside the pointers, and votes twice.
 // Bound on this card: at a 128-row wave, the row's bytes (lit, src, out:
-// 768 KB a row) for the loads and stores, which the L2 prefetch overlaps
+// 768 KB a row; 1 MB with resolve_tiled_flag's flags) for the loads and
+// stores, which the L2 prefetch overlaps
 // with the merges; at the server's 8-row waves, the instructions of the
 // rounds and the merges (each level tests every lane of its right blocks;
 // few move), which keep each thread's pointers in registers and unroll
 // the levels so that block tests are constants.
-//
-// resolve_tiled_flag keeps the tile walk (its flags steer each tile's loop
-// on the state the earlier tiles left): one block per row (one thread a
-// lane up to 1024-tiles, 1024 threads above), the tile's pointers and
-// flags in shared memory (int32 pointers in static shared memory up to
-// 8192-tiles, uint16 ones in dynamic shared memory above: 192 KB at
-// 65536), then the absorb from the row's earlier, final tiles.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -153,7 +172,9 @@ __device__ __forceinline__ void prefetch_lit(const int32_t* __restrict__ L) {
 }
 
 // Before the write: b[p] = lit[p] as a byte (lit holds bytes), 16 bytes a
-// load, from L2 once prefetch_lit has brought the row there.
+// load, from L2 once prefetch_lit has brought the row there. With kFlags,
+// in phase 1: b[p] = flags[p] != 0.
+template <bool kFlags = false>
 __device__ __forceinline__ void load_bytes(const int32_t* __restrict__ L,
                                            uint8_t* b) {
   const int4* L4 = reinterpret_cast<const int4*>(L);
@@ -169,10 +190,14 @@ __device__ __forceinline__ void load_bytes(const int32_t* __restrict__ L,
 #pragma unroll
     for (int j = 0; j < kBatch; ++j)
       b4[threadIdx.x + (h + j) * kThreads] =
-          (static_cast<uint32_t>(y[j].x) & 0xffu) |
-          (static_cast<uint32_t>(y[j].y) & 0xffu) << 8 |
-          (static_cast<uint32_t>(y[j].z) & 0xffu) << 16 |
-          static_cast<uint32_t>(y[j].w) << 24;
+          kFlags ? static_cast<uint32_t>(y[j].x != 0) |
+                       static_cast<uint32_t>(y[j].y != 0) << 8 |
+                       static_cast<uint32_t>(y[j].z != 0) << 16 |
+                       static_cast<uint32_t>(y[j].w != 0) << 24
+                 : (static_cast<uint32_t>(y[j].x) & 0xffu) |
+                       (static_cast<uint32_t>(y[j].y) & 0xffu) << 8 |
+                       (static_cast<uint32_t>(y[j].z) & 0xffu) << 16 |
+                       static_cast<uint32_t>(y[j].w) << 24;
   }
 }
 
@@ -271,6 +296,172 @@ __device__ __forceinline__ void block_rounds(
     for (int j = 0; j < kPairs; ++j)
       if (moved >> j & 1u) s2[threadIdx.x + j * kThreads] = nv[j];
     __syncthreads();
+  }
+}
+
+// The TPU's `open` test on one pair of lanes (pointers v, flags f0 and f1,
+// tile base `base`): some lane points in-tile at a non-root.
+__device__ __forceinline__ bool pair_open(uint32_t v, uint32_t f0,
+                                          uint32_t f1, int base) {
+  return (static_cast<int>(v & 0xffffu) >= base && f0 == 0) ||
+         (static_cast<int>(v >> 16) >= base && f1 == 0);
+}
+
+// resolve_tiled_flag's phase 2 at tiles of up to 1024 positions: the warp
+// form of warp_rounds, with the flags f (bytes, 0 or 1) beside the
+// pointers. A thread keeps its pairs' pointers and their flags (bit 2 j +
+// u: lane u of pair j) in registers across the rounds. Each round is a
+// warp vote on the current state (the TPU's `open`), the round's reads (a
+// lane whose pointer v lies in the tile reads s[v] and f[v]), a vote on
+// whether a pointer moved, and the writes of what changed: the tile's loop
+// ends at the first vote that fails, so a closed tile reads nothing more.
+template <int kTile>
+__device__ __forceinline__ void warp_flag_rounds(uint16_t* s, uint8_t* f,
+                                                 int warp, int lane) {
+  constexpr int kPairs = kTile / 64;
+  constexpr int kCap = bit_length(kTile);
+  constexpr int kWarpTiles = kN / kTile / kWarps;
+  static_assert(2 * kPairs <= 32, "a pair's two flags a bit each");
+  uint32_t* s2 = reinterpret_cast<uint32_t*>(s);
+  uint16_t* f2 = reinterpret_cast<uint16_t*>(f);
+  for (int t = warp * kWarpTiles; t < (warp + 1) * kWarpTiles; ++t) {
+    const int base = t * kTile;
+    uint32_t pr[kPairs];
+    uint32_t fb = 0;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      pr[j] = s2[base / 2 + lane + 32 * j];
+      const uint32_t fl = f2[base / 2 + lane + 32 * j];
+      fb |= ((fl & 1u) | (fl >> 7 & 2u)) << (2 * j);
+    }
+    for (int r = 0; r < kCap; ++r) {
+      bool open = false;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j)
+        open |= pair_open(pr[j], fb >> (2 * j) & 1u, fb >> (2 * j + 1) & 1u,
+                          base);
+      if (!__any_sync(~0u, open)) break;
+      uint32_t nv[kPairs];
+      uint32_t nf = 0;
+      bool moved = false;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const int v0 = pr[j] & 0xffffu, v1 = pr[j] >> 16;
+        const bool in0 = static_cast<unsigned>(v0 - base) < kTile;
+        const bool in1 = static_cast<unsigned>(v1 - base) < kTile;
+        nv[j] = pack2(in0 ? s[v0] : v0, in1 ? s[v1] : v1);
+        const uint32_t g0 = in0 ? f[v0] : fb >> (2 * j) & 1u;
+        const uint32_t g1 = in1 ? f[v1] : fb >> (2 * j + 1) & 1u;
+        nf |= (g0 | g1 << 1) << (2 * j);
+        moved |= nv[j] != pr[j];
+      }
+      // The vote needs every lane's reads done: the round's snapshot.
+      if (!__any_sync(~0u, moved)) break;
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        if (nv[j] != pr[j]) {
+          s2[base / 2 + lane + 32 * j] = nv[j];
+          pr[j] = nv[j];
+        }
+        if ((nf ^ fb) >> (2 * j) & 3u)
+          f2[base / 2 + lane + 32 * j] = static_cast<uint16_t>(
+              (nf >> (2 * j) & 1u) | (nf >> (2 * j + 1) & 1u) << 8);
+      }
+      fb = nf;
+      __syncwarp();
+    }
+  }
+}
+
+// One bit a tile, or'ed over the block into *word: a warp reduction, then
+// one atomic a warp.
+__device__ __forceinline__ void or_vote(uint32_t bits, uint32_t* word) {
+  bits = __reduce_or_sync(~0u, bits);
+  if ((threadIdx.x & 31) == 0 && bits != 0) atomicOr(word, bits);
+}
+
+// resolve_tiled_flag's phase 2 at tiles of 2048 positions and more: a tile
+// spans kTile / 2048 warps, so the rounds are block-synchronous, as in
+// block_rounds (pair j of a thread lies in tile j / (kTile / 2048)), and
+// the votes are one bit a tile in shared memory. `live` holds the tiles
+// whose loop goes on: open before the round, and moved by the rounds so
+// far. A round: every thread reads its live tiles' pairs and their
+// targets, votes `moved`; the barrier; the tiles that moved nothing drop
+// out; every thread writes its live tiles' pairs that changed (pointer or
+// flag), held in registers (the flags as bits, 2 (j % 16) + u of nf[j /
+// 16]), and votes `open` for the next round on those registers; the
+// barrier; the tiles not open drop out. A tile whose loop has ended only
+// waits at the barriers; the loop ends once none is live. Each word
+// alternates by the round's parity, so that thread 0 clears the one the
+// next round writes while the others may still read this round's.
+template <int kTile>
+__device__ __forceinline__ void block_flag_rounds(uint16_t* s, uint8_t* f) {
+  constexpr int kCap = bit_length(kTile);
+  constexpr int kPairs = kN / 2 / kThreads;
+  constexpr int kPerTile = kTile / 2048;  // pairs j of one tile
+  // [r & 1]: the tiles open before round r; the tiles round r moved.
+  __shared__ uint32_t open_votes[2], moved_votes[2];
+  uint32_t* s2 = reinterpret_cast<uint32_t*>(s);
+  uint16_t* f2 = reinterpret_cast<uint16_t*>(f);
+  if (threadIdx.x < 2) open_votes[threadIdx.x] = moved_votes[threadIdx.x] = 0;
+  __syncthreads();
+  uint32_t open = 0;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int t = j / kPerTile;
+    const uint32_t fl = f2[threadIdx.x + j * kThreads];
+    if (pair_open(s2[threadIdx.x + j * kThreads], fl & 1u, fl >> 8,
+                  t * kTile))
+      open |= 1u << t;
+  }
+  or_vote(open, &open_votes[0]);
+  __syncthreads();
+  uint32_t live = open_votes[0];
+  for (int r = 0; r < kCap && live != 0; ++r) {
+    uint32_t nv[kPairs];
+    uint32_t nf[2] = {0, 0};
+    uint32_t moved = 0, changed = 0;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int t = j / kPerTile;
+      if (!(live >> t & 1u)) continue;
+      const int base = t * kTile;
+      const uint32_t pr = s2[threadIdx.x + j * kThreads];
+      const uint32_t fl = f2[threadIdx.x + j * kThreads];
+      const int v0 = pr & 0xffffu, v1 = pr >> 16;
+      const bool in0 = static_cast<unsigned>(v0 - base) < kTile;
+      const bool in1 = static_cast<unsigned>(v1 - base) < kTile;
+      nv[j] = pack2(in0 ? s[v0] : v0, in1 ? s[v1] : v1);
+      const uint32_t g0 = in0 ? f[v0] : fl & 1u;
+      const uint32_t g1 = in1 ? f[v1] : fl >> 8;
+      nf[j / 16] |= (g0 | g1 << 1) << (2 * (j % 16));
+      if (nv[j] != pr) moved |= 1u << t;
+      if (nv[j] != pr || (g0 | g1 << 8) != fl) changed |= 1u << j;
+    }
+    or_vote(moved, &moved_votes[r & 1]);
+    __syncthreads();
+    live &= moved_votes[r & 1];
+    if (live == 0) break;
+    if (threadIdx.x == 0) {
+      open_votes[r & 1] = 0;
+      moved_votes[(r + 1) & 1] = 0;
+    }
+    open = 0;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int t = j / kPerTile;
+      if (!(live >> t & 1u)) continue;
+      const uint32_t g = nf[j / 16] >> (2 * (j % 16));
+      if (changed >> j & 1u) {
+        s2[threadIdx.x + j * kThreads] = nv[j];
+        f2[threadIdx.x + j * kThreads] =
+            static_cast<uint16_t>((g & 1u) | (g & 2u) << 7);
+      }
+      if (pair_open(nv[j], g & 1u, g >> 1 & 1u, t * kTile)) open |= 1u << t;
+    }
+    or_vote(open, &open_votes[(r + 1) & 1]);
+    __syncthreads();
+    live &= open_votes[(r + 1) & 1];
   }
 }
 
@@ -415,110 +606,77 @@ resolve_depth_kernel(const int32_t* __restrict__ lit,
   merge_and_write<kShift, false>(s, b, lit + row, out + row);
 }
 
-// Threads of the flag walk's block at tile kTile: one a lane up to 1024.
-template <int kTile>
-constexpr int kFlagThreads = kTile < kThreads ? kTile : kThreads;
-
-// The flag walk's pointers and flags in shared memory: up to 8192-tiles
-// int32 pointers in static shared memory, as the 4096-tile kernel had
-// them (a form with dynamic shared memory and each pointer packed with its
-// flag in one register ran 14% slower there on an H100); above, uint16
-// pointers (0 <= src[p] <= p < 65536) in dynamic shared memory, kFlagSmem
-// bytes: 192 KB at the 65536-tile.
-template <int kTile>
-constexpr bool kFlagStatic = kTile <= 8192;
-template <int kTile>
-using FlagPtr = std::conditional_t<kFlagStatic<kTile>, int32_t, uint16_t>;
-template <int kTile>
-constexpr int kFlagSmem =
-    kFlagStatic<kTile> ? 0
-                       : kTile * static_cast<int>(sizeof(uint16_t) + 1);
-
-// The flag walk's absorb: lanes left of the tile read final bytes of
-// earlier tiles, the others read lit (what the TPU's byte plane still
-// holds there). Ends with a barrier, so the next tile may overwrite s.
-template <int kTile>
-__device__ __forceinline__ void absorb(const FlagPtr<kTile>* s, int base,
-                                       const int32_t* L, int32_t* O) {
-  constexpr int kT = kFlagThreads<kTile>;
+// Whether some flag of the row is over-approximate: set on a lane whose
+// pointer v is not a root (s[v] != v). The flags come from device memory,
+// 16 bytes a load, eight loads a thread in flight (each covers the four
+// lanes of one of the thread's quads of s); a block vote ends the pass.
+__device__ __forceinline__ bool any_over(const uint16_t* s,
+                                         const int32_t* __restrict__ F) {
+  const uint2* s4 = reinterpret_cast<const uint2*>(s);
+  const int4* F4 = reinterpret_cast<const int4*>(F);
+  constexpr int kPer = kN / 4 / kThreads;
+  constexpr int kBatch = 8;
+  int over = 0;
+#pragma unroll 1
+  for (int h = 0; h < kPer; h += kBatch) {
+    int4 y[kBatch];
 #pragma unroll
-  for (int j = 0; j < kTile / kT; ++j) {
-    const int q = threadIdx.x + j * kT;
-    const int v = s[q];
-    O[base + q] = v >= base ? L[v] : O[v];
+    for (int j = 0; j < kBatch; ++j)
+      y[j] = __ldcs(F4 + threadIdx.x + (h + j) * kThreads);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const uint2 q = s4[threadIdx.x + (h + j) * kThreads];
+      const int v[4] = {static_cast<int>(q.x & 0xffffu),
+                        static_cast<int>(q.x >> 16),
+                        static_cast<int>(q.y & 0xffffu),
+                        static_cast<int>(q.y >> 16)};
+      const int fl[4] = {y[j].x, y[j].y, y[j].z, y[j].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        over |= fl[u] != 0 && s[v[u]] != v[u];
+    }
   }
-  __syncthreads();
+  return __syncthreads_or(over);
 }
 
-// Flag variant at tile kTile: f[q] != 0 says s[q] is a root (a fixed point
-// of the map). flags: (batch, 65536) int32. One block a row walks the
-// tiles; a round reads every lane's pointer and flag, then (after the
-// barrier) writes both.
-template <int kTile>
-__global__ void __launch_bounds__(kFlagThreads<kTile>)
+// resolve_tiled_flag at tile 2^kShift. A row with no over-approximate flag
+// (any_over, which reads the flags) takes resolve_tiled's route: a flag of
+// 1 then always sits on a lane at a root (a round carries a root's flag to
+// a lane whose pointer it sets to that root), so a tile's vote stays open
+// while some in-tile pointer is not at a root, and every tile reaches its
+// local fixed point within its bit_length(tile) rounds; the walk's bytes
+// are then lit[fix(src)] at every tile. Any other row loads its flags as
+// bytes where lit's bytes go at the write, runs every tile's flag rounds
+// at once, then merges of tiles.
+template <int kShift>
+__global__ void __launch_bounds__(kThreads, 1)
 resolve_flag_kernel(const int32_t* __restrict__ lit,
                     const int32_t* __restrict__ src,
-                    const int32_t* __restrict__ flags, int32_t* out) {
-  constexpr int kT = kFlagThreads<kTile>;
-  constexpr int kPer = kTile / kT;
-  constexpr int kCap = bit_length(kTile);
-  constexpr int kTiles = snk::kBlock / kTile;
-  __shared__ int32_t s_static[kFlagStatic<kTile> ? kTile : 1];
-  __shared__ uint8_t f_static[kFlagStatic<kTile> ? kTile : 1];
+                    const int32_t* __restrict__ flags,
+                    int32_t* __restrict__ out) {
+  constexpr int kTile = 1 << kShift;
   extern __shared__ __align__(16) uint8_t smem[];
-  FlagPtr<kTile>* s;
-  uint8_t* f;
-  if constexpr (kFlagStatic<kTile>) {
-    s = s_static;
-    f = f_static;
-  } else {
-    s = reinterpret_cast<uint16_t*>(smem);
-    f = smem + kTile * sizeof(uint16_t);
+  uint16_t* s = reinterpret_cast<uint16_t*>(smem);
+  uint8_t* b = smem + kN * sizeof(uint16_t);
+  const size_t row = static_cast<size_t>(blockIdx.x) * kN;
+  load_map(src + row, s);
+  __syncthreads();
+  if (!any_over(s, flags + row)) {
+    prefetch_lit(lit + row);
+    local_rounds<kHintTile>(s, nullptr, kMaxLocal);
+    __syncthreads();
+    merge_and_write<kHintShift, true>(s, b, lit + row, out + row);
+    return;
   }
-  const size_t row = static_cast<size_t>(blockIdx.x) * snk::kBlock;
-  const int32_t* L = lit + row;
-  const int32_t* S = src + row;
-  const int32_t* F = flags + row;
-  int32_t* O = out + row;
-  for (int t = 0; t < kTiles; ++t) {
-    const int base = t * kTile;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int q = threadIdx.x + j * kT;
-      s[q] = S[base + q];
-      f[q] = F[base + q] != 0;
-    }
-    for (int r = 0; r < kCap; ++r) {
-      // Each lane tests its own lanes, which it wrote last; the barrier
-      // then publishes the state the round reads.
-      int open = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kT;
-        open |= s[q] >= base && !f[q];
-      }
-      if (!__syncthreads_or(open)) break;
-      FlagPtr<kTile> nv[kPer];
-      uint8_t nf[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kT;
-        const int v = s[q];
-        const int d = v - base;
-        const bool in = d >= 0 && d < kTile;
-        nv[j] = in ? s[d] : v;
-        nf[j] = in ? f[d] : f[q];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int q = threadIdx.x + j * kT;
-        s[q] = nv[j];
-        f[q] = nf[j];
-      }
-    }
-    absorb<kTile>(s, base, L, O);  // each lane reads its own lanes of s
-  }
+  load_bytes<true>(flags + row, b);
+  __syncthreads();
+  prefetch_lit(lit + row);
+  if constexpr (kTile <= kHintTile)
+    warp_flag_rounds<kTile>(s, b, threadIdx.x >> 5, threadIdx.x & 31);
+  else
+    block_flag_rounds<kTile>(s, b);
+  __syncthreads();
+  merge_and_write<kShift, false>(s, b, lit + row, out + row);
 }
 
 // A kernel template's instance at tile 2^shift, or null for a shift
@@ -543,28 +701,13 @@ auto depth_kernel(int shift) -> decltype(&resolve_depth_kernel<kMinShift>) {
   }
 }
 
-// Launch the flag walk at tile 2^shift.
 template <int kShift = kMinShift>
-int launch_flag(int shift, const int32_t* lit, const int32_t* src,
-                const int32_t* flags, int32_t* out, int batch,
-                cudaStream_t stream) {
+auto flag_kernel(int shift) -> decltype(&resolve_flag_kernel<kMinShift>) {
   if constexpr (kShift > kMaxShift) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return nullptr;
   } else {
-    if (shift != kShift)
-      return launch_flag<kShift + 1>(shift, lit, src, flags, out, batch,
-                                     stream);
-    constexpr int kTile = 1 << kShift;
-    constexpr int kT = kFlagThreads<kTile>;
-    constexpr int kBytes = kFlagSmem<kTile>;
-    auto* kernel = resolve_flag_kernel<kTile>;
-    if (kBytes > 0) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<batch, kT, kBytes, stream>>>(lit, src, flags, out);
-    return static_cast<int>(cudaGetLastError());
+    return shift == kShift ? resolve_flag_kernel<kShift>
+                           : flag_kernel<kShift + 1>(shift);
   }
 }
 
@@ -607,13 +750,13 @@ SNK_EXPORT int snk_resolve_tiled_depth(const void* lit, const void* src,
       static_cast<const int32_t*>(depths), static_cast<int32_t*>(out));
 }
 
-// lit, src, flags, out: (batch, 65536) int32; tile_shift 7..16.
+// lit, src, flags, out: (batch, 65536) int32, src and flags 16-byte
+// aligned; tile_shift 7..16.
 SNK_EXPORT int snk_resolve_tiled_flag(const void* lit, const void* src,
                                       const void* flags, void* out, int batch,
                                       int tile_shift, void* stream) {
-  return launch_flag(tile_shift, static_cast<const int32_t*>(lit),
-                     static_cast<const int32_t*>(src),
-                     static_cast<const int32_t*>(flags),
-                     static_cast<int32_t*>(out), batch,
-                     static_cast<cudaStream_t>(stream));
+  return launch_row_kernel(
+      flag_kernel(tile_shift), batch, static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(lit), static_cast<const int32_t*>(src),
+      static_cast<const int32_t*>(flags), static_cast<int32_t*>(out));
 }

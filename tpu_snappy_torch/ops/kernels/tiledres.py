@@ -13,16 +13,19 @@ literal plane does.
 
 What the TPU computes is a walk over the tiles, left to right: in-tile
 pointer doubling, then an absorb that reads lit at or right of the tile
-base and the row's own final output left of it. resolve_tiled and
-resolve_tiled_depth give the walk's bytes without walking: one block a
-row keeps the row's map in shared memory, runs every tile's doubling
-rounds at once (exactly the declared count for resolve_tiled_depth;
-until nothing moves, in 1024-tiles, for a resolve_tiled row that is not
-flagged `resolved`, whose walk bytes are lit[fix(src)] at every tile),
-and replaces the chain of absorbs by log2(tiles) levels that merge pairs
-of tile blocks, each lane taking at most one pointer a level. The
-absorb's recursion out[p] = out[v] (v left of p's tile) is exactly what
-the merges follow to a terminal lane. resolve_tiled_flag keeps the walk.
+base and the row's own final output left of it. The kernels give the
+walk's bytes without walking: one block a row keeps the row's map in
+shared memory, runs every tile's doubling rounds at once (exactly the
+declared count for resolve_tiled_depth; until nothing moves, in
+1024-tiles, for a resolve_tiled row that is not flagged `resolved`,
+whose walk bytes are lit[fix(src)] at every tile, and for a
+resolve_tiled_flag row with no over-approximate flag, whose tiles all
+reach their local fixed points; for any other resolve_tiled_flag row
+while the tile's vote before the round finds a lane in-tile with flag 0
+and the round moves a pointer), and replaces the chain of absorbs by
+log2(tiles) levels that merge pairs of tile blocks, each lane taking at
+most one pointer a level. The absorb's recursion out[p] = out[v] (v left
+of p's tile) is exactly what the merges follow to a terminal lane.
 
 The variants: "pair" absorbs two tiles from the byte plane as it stood
 before either, then gives the right tile's lanes that point into the left
@@ -315,7 +318,8 @@ def resolve_tiled_flag(lit: torch.Tensor, src: torch.Tensor,
     unresolved lane) gives wrong bytes, as on the TPU, which depend on the
     tile; all-zero flags run every round and stay exact. lit, src:
     (B, 65536) int32, src[p] <= p. Returns (B, 65536) int32. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel (`src` and
+    `flags` must start 16-byte aligned)."""
     shift = check_tile("resolve_tiled_flag", tile)
     if _build.on_cpu(lit, src, flags):
         return resolve_tiled_flag_plain(lit, src, flags, tile)
@@ -323,6 +327,7 @@ def resolve_tiled_flag(lit: torch.Tensor, src: torch.Tensor,
     _build.require(lit, torch.int32, (batch, N), "lit")
     _build.require(src, torch.int32, (batch, N), "src")
     _build.require(flags, torch.int32, (batch, N), "flags")
+    _build.require_aligned("resolve_tiled_flag", src, flags)
     out = torch.empty_like(lit)
     if batch:
         rc = _build.lib().snk_resolve_tiled_flag(
