@@ -97,6 +97,10 @@ JAX_ONLY_NAMES = {
     ("ops.pallas.fields", "FRAG_CAP"): (
         "the Pallas kernel's input width; ops.decode.FRAG_CAP holds it, and "
         "the port's elem_fields_block takes any multiple of WIDTH_STEP"),
+    ("utils.profiling", "Timer"): (
+        "wall-clock sections that wait for the card at each end; nothing "
+        "read them, and the port's spans (utils.profiling.span under "
+        "tracing()) time the same stages without the wait"),
     ("ops.pallas.place", "SENT"): (
         "the Pallas kernel's inactive-destination sentinel; the port's "
         "place_block drops a destination outside [0, out_cells) and needs "

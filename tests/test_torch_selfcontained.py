@@ -223,15 +223,18 @@ def test_metrics_match_jax():
 
 
 def test_profiling_times_and_traces_torch_work(tmp_path):
-    t = profiling.Timer()
     x = torch.ones((128, 128))
-    with t.section("mul"):
-        y = x * 2
-    with t.section("sum", result=(y, {"s": y.sum()})):
-        y.sum()
-    assert "mul" in t.report() and t.sections["sum"] > 0
+    with profiling.tracing() as rec:
+        with profiling.span("mul"):
+            y = x * 2
+        with profiling.span("sum"):
+            y.sum()
+    assert [s.name for s in rec.spans] == ["mul", "sum"]
+    assert all(s.t1 >= s.t0 and s.parent == -1 for s in rec.spans)
     assert profiling.device_bench(torch.add, x, 1, iters=3, trials=2) > 0
     path = tmp_path / "trace.json"
-    with profiling.trace(str(path)) as p:
-        (x @ x).sum()
+    with profiling.trace(str(path)) as p, profiling.tracing():
+        with profiling.span("matmul"):
+            (x @ x).sum()
     assert p == str(path) and path.stat().st_size > 0
+    assert '"snappy.matmul"' in path.read_text()

@@ -28,6 +28,7 @@ from . import reference_codec
 from .config import CodecConfig, DEFAULT_CONFIG
 from .ops import decode as ops_decode
 from .ops import encode as ops_encode
+from .utils import profiling
 
 #: Blocks (or fragments) per batched device call, chosen for device
 #: memory. The kernels' working set grows linearly with the wave (compress
@@ -114,19 +115,25 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
     if (small_fastpath and len(data) < SMALL_INPUT_BYTES
             and cfg == DEFAULT_CONFIG):
         return _host_compress(data)
-    blocks, lengths = _to_blocks(data, cfg.block_size)
-    nb = len(lengths)
-    # Pad to whole waves with zero-length rows (tpu_snappy/api.py:92),
-    # encode every wave into one tensor, compact on the device and fetch
-    # exactly the payload once.
-    w = min(wave or API_WAVE, nb)
-    pad = -nb % w
-    blocks = torch.from_numpy(np.pad(blocks, ((0, pad), (0, 0))))
-    lengths = torch.from_numpy(np.pad(lengths, (0, pad)))
-    dense, _, total = ops_encode.encode_corpus_compact(
-        blocks.to(device), lengths.to(device), cfg, wave=w)
-    payload = dense[:total].cpu().numpy().tobytes()
-    return fmt.varint_encode(len(data)) + payload
+    with profiling.span("api.compress"):
+        with profiling.span("api.prepare"):
+            blocks, lengths = _to_blocks(data, cfg.block_size)
+            nb = len(lengths)
+            # Pad to whole waves with zero-length rows
+            # (tpu_snappy/api.py:92), encode every wave into one tensor,
+            # compact on the device and fetch exactly the payload once.
+            w = min(wave or API_WAVE, nb)
+            pad = -nb % w
+            blocks = torch.from_numpy(np.pad(blocks, ((0, pad), (0, 0))))
+            lengths = torch.from_numpy(np.pad(lengths, (0, pad)))
+        with profiling.span("api.h2d"):
+            blocks, lengths = blocks.to(device), lengths.to(device)
+        dense, _, total = ops_encode.encode_corpus_compact(
+            blocks, lengths, cfg, wave=w)
+        with profiling.span("api.fetch"):
+            payload = dense[:total].cpu()
+        with profiling.span("api.join"):
+            return fmt.varint_encode(len(data)) + payload.numpy().tobytes()
 
 
 def decompress(comp: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,

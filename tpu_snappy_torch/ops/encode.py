@@ -40,6 +40,7 @@ import torch
 
 from .. import format as fmt
 from ..config import CodecConfig, DEFAULT_CONFIG
+from ..utils import profiling
 from . import scan
 from .kernels import emit as _emit
 from .kernels import matcher as _matcher
@@ -465,13 +466,14 @@ def _match(blocks: torch.Tensor, n: torch.Tensor, cfg: CodecConfig):
         key = _window_keys(blocks, n)
     else:
         key = _window_keys_strided(blocks, n, cfg.stride)
+    packed = cfg.table == "points" and cfg.flatten != "off"
+    with profiling.span("encode.candidates"):
+        cands = _candidate_offsets(key, n, cfg, packed=packed)
     if cfg.table == "intervals":
-        cands = _candidate_offsets(key, n, cfg, packed=False)
         return _matcher_xla(cands, n, cfg.lazy, cfg.sticky, cfg.table)
-    if cfg.flatten == "off":
-        cands = _candidate_offsets(key, n, cfg, packed=False)
+    if not packed:
         return _matcher.matcher_block(cands, n, cfg.lazy, cfg.sticky)
-    pref, words = _candidate_offsets(key, n, cfg)
+    pref, words = cands
     return _matcher.matcher_block_packed(pref, words, n, cfg.candidates,
                                          cfg.lazy, cfg.sticky)
 
@@ -589,11 +591,19 @@ def encode_blocks(blocks: torch.Tensor, lengths: torch.Tensor,
     if placement not in PLACEMENTS:
         raise ValueError(f"placement {placement!r}: one of {PLACEMENTS}")
     n = lengths.to(torch.int32)
-    cap = cfg.block_capacity
-    jump, off = _match(blocks, n, cfg)
-    committed = scan.commit_bounded(jump) & (_iota(blocks.device)
-                                             < n[:, None])
-    cj = torch.where(committed, jump, -1)
+    with profiling.span("encode.match"):
+        jump, off = _match(blocks, n, cfg)
+    with profiling.span("encode.commit"):
+        committed = scan.commit_bounded(jump) & (_iota(blocks.device)
+                                                 < n[:, None])
+    with profiling.span("encode.emit"):
+        return _emit_placed(blocks, n, torch.where(committed, jump, -1), off,
+                            cfg.block_capacity, placement)
+
+
+def _emit_placed(blocks, n, cj, off, cap: int, placement: str):
+    """Emission and placement of the committed parse cj on `placement`'s
+    route (module docstring)."""
     if placement in ("auto", "winplace"):
         return _emit_winplace(blocks, n, cj, off, cap)
     if placement == "single":
@@ -660,12 +670,14 @@ def encode_corpus(blocks: torch.Tensor, lengths: torch.Tensor,
                          f"the wave {wave}; pad with zero-length rows")
     out = lens = None
     for s in range(0, nb, wave):
-        rows, row_lens = encode_blocks(blocks[s:s + wave],
-                                       lengths[s:s + wave], cfg, placement)
-        if out is None:  # the placement decides the row width
-            out = rows.new_empty((nb, rows.shape[1]))
-            lens = row_lens.new_empty(nb)
-        out[s:s + wave], lens[s:s + wave] = rows, row_lens
+        with profiling.span("encode.wave"):
+            rows, row_lens = encode_blocks(blocks[s:s + wave],
+                                           lengths[s:s + wave], cfg,
+                                           placement)
+            if out is None:  # the placement decides the row width
+                out = rows.new_empty((nb, rows.shape[1]))
+                lens = row_lens.new_empty(nb)
+            out[s:s + wave], lens[s:s + wave] = rows, row_lens
     return out, lens
 
 
@@ -675,6 +687,8 @@ def encode_corpus_compact(blocks: torch.Tensor, lengths: torch.Tensor,
     """encode_corpus, then compact_blocks (encode.py:959): returns (dense
     (NB * cap,) uint8 with the stream first, out_lens (NB,) int32, total),
     so that the host fetches dense[:total] once."""
-    out, lens = encode_corpus(blocks, lengths, cfg, placement, wave)
-    dense, total = compact_blocks(out, lens)
+    with profiling.span("encode.corpus"):
+        out, lens = encode_corpus(blocks, lengths, cfg, placement, wave)
+        with profiling.span("encode.compact"):
+            dense, total = compact_blocks(out, lens)
     return dense, lens, total

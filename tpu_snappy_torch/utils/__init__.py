@@ -1,2 +1,3 @@
 """Framework-free helpers of the port: corpus access and synthesis, the
-results-CSV schema, and timers and traces on the card."""
+results-CSV schema, and the codec's spans, timings and traces on the
+card."""

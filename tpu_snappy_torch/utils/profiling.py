@@ -3,10 +3,12 @@ tpu_snappy/utils/profiling.py).
 
   * `trace(path)`    — a torch.profiler trace of the CPU and the card,
                        written as a Chrome trace (open it in Perfetto).
+  * `tracing()`      — record the codec's spans (`span(name)`) for the
+                       block: each span's host start and end, never
+                       waiting for the card, and under a profiler a
+                       `snappy.<name>` range beside the card's work.
   * `sync` / `sync1` — wait for the card behind every tensor of a tree,
                        or behind its first one only.
-  * `Timer`          — named wall-clock sections, each synchronised with
-                       the card at its end.
   * `device_bench()` — seconds a call on the card, from CUDA events
                        around a batch of calls (best of several trials);
                        on the CPU, the host clock around the same batch.
@@ -14,13 +16,117 @@ tpu_snappy/utils/profiling.py).
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import dataclasses
 import os
 import tempfile
+import threading
 import time
 
 import torch
+
+#: Prefix of a span's range in a profiler trace.
+RANGE_PREFIX = "snappy."
+
+#: One closed span. `index` numbers the spans in the order they opened;
+#: `parent` is the index of the span open around it on its thread (-1
+#: for none); `call` is the call id, new at each span opened with no
+#: parent (`api.compress` opens one a call) and shared by what opens
+#: inside it; `t0` and `t1` are `time.perf_counter_ns()` readings.
+Span = collections.namedtuple(
+    "Span", "index name call parent thread t0 t1")
+
+
+class Recorder:
+    """The spans of one `tracing()` block: `spans` lists each closed span
+    in the order it closed (a span still open is not there yet)."""
+
+    def __init__(self, ranges: bool = True):
+        self.ranges = ranges
+        self.spans: list = []
+        self._opened = 0
+        self._calls = 0
+        self._stacks: dict = {}  # thread id -> its open spans, innermost last
+        self._lock = threading.Lock()
+
+
+class _Open:
+    """A span while it is open (recording on)."""
+
+    __slots__ = ("rec", "name", "index", "call", "parent", "thread", "t0",
+                 "range")
+
+    def __init__(self, rec: Recorder, name: str):
+        self.rec, self.name, self.range = rec, name, None
+
+    def __enter__(self):
+        rec, self.thread = self.rec, threading.get_ident()
+        with rec._lock:
+            stack = rec._stacks.setdefault(self.thread, [])
+            self.index = rec._opened
+            rec._opened += 1
+            if stack:
+                self.parent, self.call = stack[-1].index, stack[-1].call
+            else:
+                self.parent, self.call = -1, rec._calls
+                rec._calls += 1
+            stack.append(self)
+        if rec.ranges:
+            self.range = torch.profiler.record_function(RANGE_PREFIX
+                                                        + self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        rec = self.rec
+        with rec._lock:
+            rec._stacks[self.thread].pop()
+            rec.spans.append(Span(self.index, self.name, self.call,
+                                  self.parent, self.thread, self.t0, t1))
+        return False
+
+
+#: The recorder of the innermost open `tracing()` block, None while
+#: recording is off.
+_recorder: Recorder | None = None
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager around one stage of the codec. With recording
+    off it is a shared no-op; with it on, the stage's host start and end
+    are kept and a `snappy.<name>` profiler range covers it. It never
+    waits for the card: the card's share of a stage is the trace's."""
+    rec = _recorder
+    if rec is None:
+        return _OFF
+    return _Open(rec, name)
+
+
+def recorder() -> Recorder | None:
+    """The recorder of the innermost open `tracing()` block, None while
+    recording is off."""
+    return _recorder
+
+
+@contextlib.contextmanager
+def tracing(ranges: bool = True):
+    """Record every `span` opened in the block, on any thread, into a new
+    Recorder, which it yields; the recording that was on before (if any)
+    resumes after the block. ranges=False keeps the host clock alone: no
+    span opens a profiler range (for a profiled run whose reduction takes
+    every range it does not know for the card's work)."""
+    global _recorder
+    outer, rec = _recorder, Recorder(ranges)
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = outer
 
 
 def _default_trace_path() -> str:
@@ -30,7 +136,9 @@ def _default_trace_path() -> str:
 @contextlib.contextmanager
 def trace(path: str | None = None):
     """torch.profiler over the block (CPU and, where visible, CUDA
-    activity); the Chrome trace goes to `path` on exit. Yields the path."""
+    activity); the Chrome trace goes to `path` on exit. Yields the path.
+    Spans recorded under `tracing()` inside it show there as
+    `snappy.<name>` ranges above the kernels they launched."""
     path = path or _default_trace_path()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -67,27 +175,6 @@ def sync1(tree) -> None:
     leaf = next(_tensors(tree), None)
     if leaf is not None and leaf.is_cuda:
         torch.cuda.synchronize(leaf.device)
-
-
-@dataclasses.dataclass
-class Timer:
-    """Named wall-clock sections with device sync at section end."""
-    sections: dict = dataclasses.field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def section(self, name: str, result=None):
-        t0 = time.perf_counter_ns()
-        yield
-        if result is not None:
-            sync(result)
-        self.sections[name] = self.sections.get(name, 0) + \
-            time.perf_counter_ns() - t0
-
-    def report(self) -> str:
-        total = sum(self.sections.values())
-        lines = [f"{k:24s} {v/1e6:9.2f} ms ({100*v/max(1,total):4.1f}%)"
-                 for k, v in self.sections.items()]
-        return "\n".join(lines)
 
 
 def device_bench(fn, *args, iters: int = 30, trials: int = 3,
