@@ -19,6 +19,7 @@ wave at a time.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -57,11 +58,23 @@ class DecodeStats:
     dense_rounds: list = dataclasses.field(default_factory=list)
 
 
+def _block_count(n: int, block_size: int) -> int:
+    """Blocks of `block_size` bytes that hold `n` bytes (one for none)."""
+    return max(1, -(-n // block_size))
+
+
+def _block_lengths(n: int, block_size: int, rows: int) -> np.ndarray:
+    """(rows,) int32: the bytes of `n` in each block of `block_size`,
+    zero in rows past the input."""
+    return np.minimum(np.maximum(n - np.arange(rows) * block_size, 0),
+                      block_size).astype(np.int32)
+
+
 def _to_blocks(data: bytes, block_size: int = fmt.BLOCK_SIZE):
     """Split input into blocks of `block_size` bytes, each zero-padded to a
     (65536,) row, with a length vector."""
     n = len(data)
-    nblocks = max(1, -(-n // block_size))
+    nblocks = _block_count(n, block_size)
     arr = np.zeros((nblocks, fmt.BLOCK_SIZE), dtype=np.uint8)
     flat = np.frombuffer(data, dtype=np.uint8)
     if block_size == fmt.BLOCK_SIZE:
@@ -70,9 +83,18 @@ def _to_blocks(data: bytes, block_size: int = fmt.BLOCK_SIZE):
         for i in range(nblocks):
             chunk = flat[i * block_size:(i + 1) * block_size]
             arr[i, :len(chunk)] = chunk
-    lengths = np.minimum(np.maximum(n - np.arange(nblocks) * block_size, 0),
-                         block_size).astype(np.int32)
-    return arr, lengths
+    return arr, _block_lengths(n, block_size, nblocks)
+
+
+def _byte_view(data) -> torch.Tensor:
+    """A 1-D uint8 CPU tensor over the caller's bytes, without a copy; it
+    is only ever read, as a copy's source. torch warns that it cannot mark
+    a tensor over a read-only buffer (bytes) read-only; that warning is
+    kept from the caller."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given buffer is not writable",
+                                UserWarning)
+        return torch.frombuffer(data, dtype=torch.uint8)
 
 
 def _device(device) -> torch.device:
@@ -117,17 +139,27 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, *,
         return _host_compress(data)
     with profiling.span("api.compress"):
         with profiling.span("api.prepare"):
-            blocks, lengths = _to_blocks(data, cfg.block_size)
-            nb = len(lengths)
+            n, bs = len(data), cfg.block_size
+            nb = _block_count(n, bs)
             # Pad to whole waves with zero-length rows
             # (tpu_snappy/api.py:92), encode every wave into one tensor,
             # compact on the device and fetch exactly the payload once.
             w = min(wave or API_WAVE, nb)
-            pad = -nb % w
-            blocks = torch.from_numpy(np.pad(blocks, ((0, pad), (0, 0))))
-            lengths = torch.from_numpy(np.pad(lengths, (0, pad)))
+            rows = nb + -nb % w
+            # The rows are zeroed on the device and take the input in one
+            # copy from the caller's bytes: no host copy of the input.
+            src = _byte_view(data) if n else None
+            blocks = torch.zeros((rows, fmt.BLOCK_SIZE), dtype=torch.uint8,
+                                 device=device)
+            lengths = torch.from_numpy(_block_lengths(n, bs, rows))
         with profiling.span("api.h2d"):
-            blocks, lengths = blocks.to(device), lengths.to(device)
+            if n and bs == fmt.BLOCK_SIZE:
+                blocks.view(-1)[:n].copy_(src)
+            elif n:
+                # One copy to the device, then a device copy into the rows.
+                blocks[:nb, :bs].copy_(torch.nn.functional.pad(
+                    src.to(device), (0, nb * bs - n)).view(nb, bs))
+            lengths = lengths.to(device)
         dense, _, total = ops_encode.encode_corpus_compact(
             blocks, lengths, cfg, wave=w)
         with profiling.span("api.fetch"):
