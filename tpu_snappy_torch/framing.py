@@ -42,6 +42,7 @@ from .config import CodecConfig, DEFAULT_CONFIG
 from .ops import decode as ops_decode
 from .parallel import mesh as meshlib
 from .parallel import shard
+from .utils import profiling
 
 #: Chunk types (framing_format.txt section 4).
 CHUNK_STREAM_ID = 0xFF
@@ -165,27 +166,58 @@ def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray, mesh,
     return _split(*shard.encode_rows(blocks, lengths, mesh, cfg))
 
 
-def _chunks(raw: bytes, lengths, elems_list, crcs, policy: str) -> bytes:
-    """The data chunks (each with its sidecar) of consecutive blocks."""
+def _block_crcs(raw: bytes, lengths, crcs) -> list:
+    """Every block's CRC-32C: `crcs` holds the full blocks'; a short block
+    (the last) needs its own over just its bytes."""
+    out, pos = [], 0
+    for i, blen in enumerate(int(n) for n in lengths):
+        out.append(int(crcs[i]) if blen == MAX_CHUNK
+                   else crc32c(raw[pos:pos + blen]))
+        pos += blen
+    return out
+
+
+def _sidecars(lengths, elems_list, policy: str) -> list:
+    """Every block's sidecar chunk bytes (b"" where the policy declines),
+    or None for a block stored uncompressed: one whose compressed payload
+    (varint length and elements) would not be shorter than the block."""
+    return [None if len(fmt.varint_encode(blen)) + len(elems) >= blen
+            else _sidecar_chunk(elems, blen, policy)
+            for elems, blen in zip(elems_list, (int(n) for n in lengths))]
+
+
+def _assemble(raw: bytes, lengths, elems_list, crcs, sidecars) -> bytes:
+    """The data chunks of consecutive blocks, each compressed one after
+    its sidecar: headers, masked CRCs and the join."""
     parts = []
     pos = 0
-    for i, blen in enumerate(int(n) for n in lengths):
-        # A short final block needs its own CRC over just blen bytes.
-        crc = (int(crcs[i]) if blen == MAX_CHUNK
-               else crc32c(raw[pos:pos + blen]))
-        elems = elems_list[i]
-        payload = fmt.varint_encode(blen) + elems
-        if len(payload) < blen:
-            parts.append(_sidecar_chunk(elems, blen, policy))
-            body = mask(crc).to_bytes(4, "little") + payload
-            parts.append(bytes([CHUNK_COMPRESSED])
-                         + len(body).to_bytes(3, "little") + body)
-        else:
+    for blen, elems, crc, side in zip((int(n) for n in lengths),
+                                      elems_list, crcs, sidecars):
+        if side is None:
             body = mask(crc).to_bytes(4, "little") + raw[pos:pos + blen]
             parts.append(bytes([CHUNK_UNCOMPRESSED])
                          + len(body).to_bytes(3, "little") + body)
+        else:
+            parts.append(side)
+            body = (mask(crc).to_bytes(4, "little")
+                    + fmt.varint_encode(blen) + elems)
+            parts.append(bytes([CHUNK_COMPRESSED])
+                         + len(body).to_bytes(3, "little") + body)
         pos += blen
     return b"".join(parts)
+
+
+def _chunks(raw: bytes, lengths, elems_list, crcs, policy: str) -> bytes:
+    """The data chunks (each with its sidecar) of consecutive blocks, in
+    three stages, each in its span: the CRCs, the sidecars, the assembly.
+    `crcs` holds the full blocks' CRC-32C, or is a function that computes
+    them, called inside the CRC stage's span."""
+    with profiling.span("framing.crc"):
+        crcs = _block_crcs(raw, lengths, crcs() if callable(crcs) else crcs)
+    with profiling.span("framing.sidecar"):
+        sides = _sidecars(lengths, elems_list, policy)
+    with profiling.span("framing.assemble"):
+        return _assemble(raw, lengths, elems_list, crcs, sides)
 
 
 def _check_policy(policy: str) -> None:
@@ -230,13 +262,15 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, mesh=None,
     (see _sidecar_chunk). The arguments take the JAX package's order."""
     _check_kinds(cfg, mesh)
     _check_policy(sidecar)
-    mesh = _mesh(device, mesh)
-    if not data:
-        return STREAM_ID
-    blocks, lengths = api._to_blocks(data)
-    elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
-    crcs = crc32c_batch(blocks)  # a short last block is redone in _chunks
-    return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
+    with profiling.span("framing.compress"):
+        mesh = _mesh(device, mesh)
+        if not data:
+            return STREAM_ID
+        with profiling.span("framing.encode"):
+            blocks, lengths = api._to_blocks(data)
+            elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
+        return STREAM_ID + _chunks(data, lengths, elems_list,
+                                   lambda: crc32c_batch(blocks), sidecar)
 
 
 def compress_stream(src, dst, total_len: int, mesh=None,
@@ -256,11 +290,9 @@ def compress_stream(src, dst, total_len: int, mesh=None,
     written = len(STREAM_ID)
     remaining = total_len
 
-    def assemble(raw, elems_list, lengths):
-        crcs = crc32c_batch(
-            np.frombuffer(raw.ljust(len(lengths) * MAX_CHUNK, b"\0"),
-                          np.uint8).reshape(len(lengths), MAX_CHUNK))
-        blob = _chunks(raw, lengths, elems_list, crcs, sidecar)
+    def assemble(raw, blocks, elems_list, lengths):
+        blob = _chunks(raw, lengths, elems_list,
+                       lambda: crc32c_batch(blocks), sidecar)
         dst.write(blob)
         return len(blob)
 
@@ -276,7 +308,7 @@ def compress_stream(src, dst, total_len: int, mesh=None,
             elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
             if fut is not None:
                 written += fut.result()
-            fut = pool.submit(assemble, raw, elems_list, lengths)
+            fut = pool.submit(assemble, raw, blocks, elems_list, lengths)
         if fut is not None:
             written += fut.result()
     return written
