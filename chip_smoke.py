@@ -29,7 +29,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every kernel compiled from ops/kernels/csrc/ with nvcc (one
    process per source file, all started together);
-3. kernel against plain: each of the twenty-two kernels equals its plain
+3. kernel against plain: each of the twenty-three kernels equals its plain
    PyTorch version exactly (all integer, drop counts included) on random
    inputs and edge cases at the main path's shapes (the matchers at K 3,
    8, 14 and 15, sticky "exact" and "sig", stride 1 and 2, and on a row
@@ -83,7 +83,11 @@ Phases, each printing its results; any failure raises (non-zero exit):
    empty and full, at every chunk size, and with max_gap 1 to 4096; and
    with 5, 6, 8 and 9 payloads (a fill launch for each four) on those
    masks at B 2 and 128, every chunk, without max_gap and at 100 and
-   1025);
+   1025); crc32c_rows (no TPU counterpart: the JAX package's CRC-32C
+   runs on the host) at row lengths 0 to 65536 on both sides of every
+   load and segment edge, with random, all-0xFF and all-zero bytes past
+   each length, and at 1,100 rows of random lengths (clamped below 0 and
+   past the row), also against framing.crc32c on the host;
 4. round trip: 16 MiB of seeded mixed data through api.compress and
    api.decompress (resolve "tiledtail") on the card, checked against the
    host goldens, with the launch counters showing that the raw path ran
@@ -92,8 +96,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
    "auto" and "always", each stream decoded by the C++ golden and by
    framing.decompress with and without its sidecars, with the chunks each
    decode path took, no hinted chunk re-decoded after a CRC miss, and the
-   launch counters showing resolve_tiled_depth and the sidecar's 1-limb
-   gather; compress / decompress GB/s per policy;
+   launch counters showing resolve_tiled_depth, the sidecar's 1-limb
+   gather and one crc32c_rows a compress; compress / decompress GB/s per
+   policy;
 6. presets: the same 16 MiB through api.compress / api.decompress under
    FAST, TURBO, ULTRA and flatten "off", each stream checked against the
    host goldens and, on its first 4 blocks, against the port's CPU
@@ -115,7 +120,9 @@ Phases, each printing its results; any failure raises (non-zero exit):
    compress's peak device memory at 16 MiB and 1 GiB (the same data 64
    times, its stream checked by the C++ golden), and the bytes of device
    memory per input byte between the two; then traced raw and framed
-   round trips, plus FAST, TURBO and flatten "off" compresses (FAST for
+   round trips, a framed "auto" compress of the 16 MiB four times over
+   (1,024 rows, the last short, as in the framed cell's 64 MiB call:
+   crc32c_rows at its shape; checked by the C++ golden), plus FAST, TURBO and flatten "off" compresses (FAST for
    the packed matcher at K=8 "exact" among the captured calls) and
    compresses of the first WIDE_BLOCKS blocks at K 17 "exact" and K 18
    "sig" (the matchers above K 16) and at K 32 and 64, "exact" and "sig"
@@ -157,7 +164,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    decompress_stream with the one-card mesh under each sidecar policy,
    each stream equal to phase 4's or 5's and each framed decode taking
    the same chunks down each path as phase 5's, with the launch counters
-   (their own line) showing that the ten kernels of the raw and framed
+   (their own line) showing that the eleven kernels of the raw and framed
    paths ran under the sharded paths; then two processes on cuda:0 over
    gloo running multihost.compress_dp_global and compress_multihost
    (tests/torch_multiproc.py, with a timeout, workers reaped on failure),
@@ -177,7 +184,7 @@ Phases, each printing its results; any failure raises (non-zero exit):
    each decode equal to its slice, every wave kind (encode, decode, root
    map, depth hints) dispatched; wall seconds and GB/s of each stage,
    ServerStats, depth 1 against depth 2, and the launch counters (their
-   own line) showing the ten kernels of the raw and framed paths.
+   own line) showing the eleven kernels of the raw and framed paths.
 
 The second-to-last lines are a JSON object of per-kernel results (its
 `launches` count phases 4 to 7, each path run with the counters set to
@@ -220,6 +227,9 @@ from torch_edges import (CORRUPT_STREAM, DEPTH_KINDS,  # noqa: E402
                          synthetic_parse, tiled_resolve_rows)
 
 ROUND_TRIP_BYTES = 16 << 20
+#: Copies of the round-trip data phase 8 compresses framed: 1,024 rows,
+#: as in the framed cell's 64 MiB call (portbench's write mix).
+FRAMED_COPIES = 4
 BATCH = 8  # rows for the kernel-against-plain checks
 N = 1 << 16
 
@@ -358,6 +368,7 @@ def check_kernels(dev) -> None:
     check_resolve_kernels(rng, t, report)
     check_window_kernels(rng, t, report)
     check_scan_kernels(rng, t, report)
+    check_crc_kernel(rng, t, report)
     if any(report.values()):
         raise AssertionError(f"kernel disagrees with plain: {report}")
 
@@ -1215,13 +1226,59 @@ def check_scan_kernels(rng, t, report: dict) -> None:
           f"max_abs_err={max(edge_errs)}")
 
 
+#: Row lengths phase 3 runs crc32c_rows at: both sides of a byte, a word,
+#: a 16-byte load, the plain version's 64-byte and the kernel's 256-byte
+#: segment, a page and the row.
+CRC_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 255, 256, 257, 4095,
+               4096, 65535, 65536)
+
+
+def check_crc_kernel(rng, t, report: dict) -> None:
+    """Phase 3, continued: crc32c_rows against its plain version and
+    framing.crc32c (the host's CRC-32C of each row's first n bytes) at
+    every CRC_LENGTHS, with random, all-0xFF and all-zero bytes past each
+    length; at 1,100 rows of random lengths, past the kernel's grid of
+    1,056 CTAs; and on lengths below 0 and past the row (clamped)."""
+    from tpu_snappy_torch import framing
+    from tpu_snappy_torch.ops.kernels import crc
+
+    errs = []
+    for fill in ("random", "ones", "zeros"):
+        rows = (rng.integers(0, 256, (len(CRC_LENGTHS), N), dtype=np.uint8)
+                if fill == "random" else
+                np.full((len(CRC_LENGTHS), N), 0xFF if fill == "ones" else 0,
+                        np.uint8))
+        for i, n in enumerate(CRC_LENGTHS):
+            rows[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+        lengths = np.asarray(CRC_LENGTHS, np.int32)
+        got = crc.crc32c_rows(t(rows), t(lengths))
+        errs.append(_exact(got, crc.crc32c_rows_plain(t(rows), t(lengths))))
+        host = [framing.crc32c(rows[i, :n].tobytes())
+                for i, n in enumerate(CRC_LENGTHS)]
+        errs.append(_exact(got.cpu(), torch.tensor(host)))
+    rows = rng.integers(0, 256, (1100, N), dtype=np.uint8)
+    lengths = rng.integers(0, N + 1, 1100).astype(np.int32)
+    lengths[:3] = (-7, N + 5, N)
+    got = crc.crc32c_rows(t(rows), t(lengths))
+    errs.append(_exact(got, crc.crc32c_rows_plain(t(rows), t(lengths))))
+    host = [framing.crc32c(rows[i, :min(max(int(n), 0), N)].tobytes())
+            for i, n in enumerate(lengths)]
+    errs.append(_exact(got.cpu(), torch.tensor(host)))
+    report["crc32c_rows"] = max(errs)
+    print(f"kernel crc32c_rows  B={len(CRC_LENGTHS)} lengths "
+          f"{CRC_LENGTHS}, random / 0xFF / zero bytes past each; B=1100 "
+          f"random lengths, clamped -7 and N+5: against plain and "
+          f"framing.crc32c max_abs_err={max(errs)}")
+
+
 def _kernel_modules() -> dict:
     """Every ported kernel: wrapper name -> module."""
-    from tpu_snappy_torch.ops.kernels import (doubling, emit, ffill, fields,
-                                              gather, gatherw, gatherwin,
-                                              localround, matcher, place,
-                                              resolve, scans, scatter,
-                                              tiledres, windows)
+    from tpu_snappy_torch.ops.kernels import (crc, doubling, emit, ffill,
+                                              fields, gather, gatherw,
+                                              gatherwin, localround,
+                                              matcher, place, resolve,
+                                              scans, scatter, tiledres,
+                                              windows)
     return {"window_keys": windows, "ffill": ffill,
             "scatter_windowed": scatter, "resolve_tiled": tiledres,
             "matcher_block_packed": matcher, "emit_block_single": emit,
@@ -1233,7 +1290,8 @@ def _kernel_modules() -> dict:
             "gather_window_block": gatherw,
             "gather_window_anchored": gatherwin,
             "elem_fields_block": fields, "resolve_tiled_dual": tiledres,
-            "cumsum_block": scans, "next_start_block": scans}
+            "cumsum_block": scans, "next_start_block": scans,
+            "crc32c_rows": crc}
 
 
 #: The kernel each resolve-mode run adds to the decode (phase 7), by
@@ -1258,15 +1316,19 @@ CAPTURED_STAGES = ("commit_bounded", "commit_general", "exclusive_cumsum",
                    "next_element_start")
 
 #: Kernels the raw DEFAULT round trip does not run: the framed sidecar
-#: decodes', flatten "off"'s, the "emit" placement's and the other resolve
-#: modes' and fields'.
-NOT_RAW = ("resolve_tiled_depth", "matcher_block", "emit_block",
-           *MODE_KERNEL.values(), *OFF_PATH)
+#: decodes', the framed encoder's CRC-32C, flatten "off"'s, the "emit"
+#: placement's and the other resolve modes' and fields'.
+NOT_RAW = ("resolve_tiled_depth", "crc32c_rows", "matcher_block",
+           "emit_block", *MODE_KERNEL.values(), *OFF_PATH)
 
 
 def _replaces(mod, name: str) -> str:
-    return mod.REPLACES[name] if isinstance(mod.REPLACES, dict) \
-        else mod.REPLACES
+    """The TPU kernel a wrapper replaces; a module without REPLACES
+    (crc.py) replaces none, the JAX package's work being on the host."""
+    rep = getattr(mod, "REPLACES", None)
+    if rep is None:
+        return "none (host CRC-32C in the JAX package)"
+    return rep[name] if isinstance(rep, dict) else rep
 
 
 def _public_stages() -> dict:
@@ -1393,6 +1455,11 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         backs = [framing.decompress(framed[p], device="cuda")
                  for p in ("auto", "always")]
         t3 = time.perf_counter()
+        # 1,024 rows on one shard, as in the framed cell's 64 MiB call, so
+        # crc32c_rows is captured at the shape the cell runs it at.
+        framed_big = framing.compress(data * FRAMED_COPIES, sidecar="auto",
+                                      device="cuda")
+        t_big = time.perf_counter()
         api.compress(data, config.FAST_CONFIG, device="cuda")
         api.compress(data, config.TURBO_CONFIG, device="cuda")
         api.compress(data, _flat_off(), device="cuda")
@@ -1417,6 +1484,11 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
             setattr(mod, attr, saved[name])
     if back != data or any(b != data for b in backs):
         raise AssertionError("the traced round trip changed the data")
+    if decode.native_golden().uncompress_framed(
+            framed_big, max_out=len(data) * FRAMED_COPIES + 16) \
+            != data * FRAMED_COPIES:
+        raise AssertionError("the traced 1,024-block framed stream does "
+                             "not decode under the C++ golden")
     if any(api.decompress(w, device="cuda") != head for w in wide):
         raise AssertionError("a stream above K 16 does not decode")
     if any(api.decompress(w, device="cuda") != wave_data
@@ -1428,12 +1500,14 @@ def traced_round_trip(dev, data: bytes, framed: dict, corpus: tuple,
         raise AssertionError("the traced resolve modes disagree")
     print(f"traced round trip (synchronised around every wrapped call), "
           f"compress {(t1 - t0) * 1e3} ms, decompress {(t2 - t1) * 1e3} ms,"
-          f" framed decompress auto + always {(t3 - t2) * 1e3} ms, FAST, "
+          f" framed decompress auto + always {(t3 - t2) * 1e3} ms, framed "
+          f"compress \"auto\" of {len(data) * FRAMED_COPIES} bytes "
+          f"{(t_big - t3) * 1e3} ms, FAST, "
           f"TURBO and flatten off compresses, {WIDE_BLOCKS} blocks at each "
           f"of {[(c.candidates, c.sticky) for c in _wide_k()]}, "
           f"{api.API_WAVE} blocks at each (K, sticky, flatten) of "
           f"{WIDE_WAVE} + an emit and a sort wave "
-          f"{(t4 - t3) * 1e3} ms, "
+          f"{(t4 - t_big) * 1e3} ms, "
           f"decode_corpus under {list(MODE_KERNEL)} {(t5 - t4) * 1e3} ms; "
           f"host-clock ms per stage over all waves; load average "
           f"{os.getloadavg()} [{card}]:")
@@ -1603,7 +1677,8 @@ _OPS = {"window_keys": 8, "ffill": 3, "scatter_windowed": 12,
         "emit_block": 60, "resolve_tiled_flag": 3, "local_round": 3,
         "doubling_round": 3, "gather_window_block": 5,
         "gather_window_anchored": 6, "elem_fields_block": 40,
-        "resolve_tiled_dual": 2, "cumsum_block": 1, "next_start_block": 2}
+        "resolve_tiled_dual": 2, "cumsum_block": 1, "next_start_block": 2,
+        "crc32c_rows": 2}
 
 
 def _doubling_rounds(src: torch.Tensor) -> int:
@@ -2385,6 +2460,9 @@ def preset_round_trips(dev, data: bytes, wrappers: dict, card: str):
         raise AssertionError(f"framed ULTRA auto: {st}")
     if st.hinted and not launches["resolve_tiled_depth"]:
         raise AssertionError(f"framed ULTRA: no hinted resolve {launches}")
+    if launches["crc32c_rows"] != 1:
+        raise AssertionError(f"framed ULTRA: crc32c_rows launched "
+                             f"{launches['crc32c_rows']} times, not once")
     print(f"framed ULTRA auto: {len(fr)} bytes; compress {t1 - t0} s, "
           f"decompress {t2 - t1} s; {st} [{card}]")
     for k, v in launches.items():
@@ -2626,6 +2704,10 @@ def framed_round_trips(data: bytes, wrappers: dict, card: str):
                   f"{len(data) / (t1 - t0) / 1e9} GB/s; {st} [{card}]")
     launches = _launches(wrappers)
     print(f"framed path launches: {launches}")
+    if launches["crc32c_rows"] != len(streams):
+        raise AssertionError(f"crc32c_rows launched {launches['crc32c_rows']}"
+                             f" times for {len(streams)} framed compresses "
+                             "on one shard")
     auto, always = stats["auto", True][0], stats["always", True]
     if not auto.hinted or not always[0].root_map:
         raise AssertionError("no hinted chunk under auto or no root-map "
@@ -2705,7 +2787,7 @@ def check_goldens(data: bytes, comp: bytes, cfg=None,
 SHARDED_PATH_KERNELS = ("window_keys", "ffill", "scatter_windowed",
                         "resolve_tiled", "matcher_block_packed",
                         "emit_block_single", "place_block", "scatter_block",
-                        "gather_block", "resolve_tiled_depth")
+                        "gather_block", "resolve_tiled_depth", "crc32c_rows")
 
 
 def _rate(nbytes: int, seconds: float) -> str:
@@ -2954,7 +3036,7 @@ def serving_phase(dev, data: bytes, framed: dict, wrappers: dict,
     last slice), each decode equal to its request, the corrupt stream's
     future failing with ValueError and no other, every wave kind
     dispatched, and the launch counters (set to 0 after the reference
-    streams, read after the last server) showing the ten kernels of the
+    streams, read after the last server) showing the eleven kernels of the
     raw and framed paths."""
     from tpu_snappy_torch import api, framing
 

@@ -67,6 +67,8 @@ POLICIES = ("off", "auto", "always")
 
 
 # ---- CRC-32C (Castagnoli): numpy slice-by-8, batched across chunks ----
+# (the decoder's checks; the encoder's run on the shards' devices,
+# ops/kernels/crc.py)
 
 def _make_tables() -> np.ndarray:
     t = np.zeros((8, 256), dtype=np.uint32)
@@ -159,22 +161,14 @@ def _split(buf: bytes, lens) -> list[bytes]:
 
 
 def _encode_blocks(blocks: np.ndarray, lengths: np.ndarray, mesh,
-                   cfg: CodecConfig) -> list[bytes]:
+                   cfg: CodecConfig, *, crcs: bool = True):
     """Element bytes of every block, encoded at `cfg` sharded over `mesh`
     (shard.encode_rows: waves of api.API_WAVE blocks a shard, compacted on
-    the device, so the host fetches dense payload)."""
-    return _split(*shard.encode_rows(blocks, lengths, mesh, cfg))
-
-
-def _block_crcs(raw: bytes, lengths, crcs) -> list:
-    """Every block's CRC-32C: `crcs` holds the full blocks'; a short block
-    (the last) needs its own over just its bytes."""
-    out, pos = [], 0
-    for i, blen in enumerate(int(n) for n in lengths):
-        out.append(int(crcs[i]) if blen == MAX_CHUNK
-                   else crc32c(raw[pos:pos + blen]))
-        pos += blen
-    return out
+    the device, so the host fetches dense payload), and every block's
+    CRC-32C, computed on the shards' devices from the same rows (None
+    where the caller needs no CRC: a server wave of raw requests only)."""
+    out = shard.encode_rows(blocks, lengths, mesh, cfg, crcs=crcs)
+    return _split(*out[:2]), (out[2] if crcs else None)
 
 
 def _sidecars(lengths, elems_list, policy: str) -> list:
@@ -209,11 +203,11 @@ def _assemble(raw: bytes, lengths, elems_list, crcs, sidecars) -> bytes:
 
 def _chunks(raw: bytes, lengths, elems_list, crcs, policy: str) -> bytes:
     """The data chunks (each with its sidecar) of consecutive blocks, in
-    three stages, each in its span: the CRCs, the sidecars, the assembly.
-    `crcs` holds the full blocks' CRC-32C, or is a function that computes
-    them, called inside the CRC stage's span."""
+    three stages, each in its span: the CRCs (what is left of them on the
+    host: `crcs`, every block's CRC-32C, taken as ints), the sidecars, the
+    assembly."""
     with profiling.span("framing.crc"):
-        crcs = _block_crcs(raw, lengths, crcs() if callable(crcs) else crcs)
+        crcs = [int(c) for c in crcs]
     with profiling.span("framing.sidecar"):
         sides = _sidecars(lengths, elems_list, policy)
     with profiling.span("framing.assemble"):
@@ -268,9 +262,8 @@ def compress(data: bytes, cfg: CodecConfig = DEFAULT_CONFIG, mesh=None,
             return STREAM_ID
         with profiling.span("framing.encode"):
             blocks, lengths = api._to_blocks(data)
-            elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
-        return STREAM_ID + _chunks(data, lengths, elems_list,
-                                   lambda: crc32c_batch(blocks), sidecar)
+            elems_list, crcs = _encode_blocks(blocks, lengths, mesh, cfg)
+        return STREAM_ID + _chunks(data, lengths, elems_list, crcs, sidecar)
 
 
 def compress_stream(src, dst, total_len: int, mesh=None,
@@ -290,9 +283,8 @@ def compress_stream(src, dst, total_len: int, mesh=None,
     written = len(STREAM_ID)
     remaining = total_len
 
-    def assemble(raw, blocks, elems_list, lengths):
-        blob = _chunks(raw, lengths, elems_list,
-                       lambda: crc32c_batch(blocks), sidecar)
+    def assemble(raw, elems_list, crcs, lengths):
+        blob = _chunks(raw, lengths, elems_list, crcs, sidecar)
         dst.write(blob)
         return len(blob)
 
@@ -305,10 +297,10 @@ def compress_stream(src, dst, total_len: int, mesh=None,
                 raise IOError("short read from source")
             remaining -= take
             blocks, lengths = api._to_blocks(raw)
-            elems_list = _encode_blocks(blocks, lengths, mesh, cfg)
+            elems_list, crcs = _encode_blocks(blocks, lengths, mesh, cfg)
             if fut is not None:
                 written += fut.result()
-            fut = pool.submit(assemble, raw, blocks, elems_list, lengths)
+            fut = pool.submit(assemble, raw, elems_list, crcs, lengths)
         if fut is not None:
             written += fut.result()
     return written

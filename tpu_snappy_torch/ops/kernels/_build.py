@@ -56,6 +56,7 @@ SIGNATURES = {
     "snk_gather_window_anchored": [P, P, P, P, I, P],
     "snk_cumsum": [P, P, I, I, P],
     "snk_next_start": [P, P, I, I, I, P],
+    "snk_crc32c_rows": [P, P, P, P, I, P],
 }
 
 #: The H100's streaming multiprocessors, and the shared memory one block

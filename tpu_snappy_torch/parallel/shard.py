@@ -34,6 +34,7 @@ from .. import sidecar as sc
 from ..config import CodecConfig, DEFAULT_CONFIG
 from ..ops import decode as ops_decode
 from ..ops import encode as ops_encode
+from ..ops.kernels import crc as kcrc
 from . import mesh as meshlib
 
 
@@ -141,17 +142,23 @@ def _current(dev: torch.device):
 
 
 def encode_local(mesh: meshlib.Mesh, blocks, lengths,
-                 cfg: CodecConfig, wave: int) -> list:
+                 cfg: CodecConfig, wave: int, *, crcs: bool = False):
     """Encode this process's shards of (padded) blocks and lengths, each on
-    its device through encode_corpus_compact at `wave`. Returns, per local
-    shard, (dense payload tensor, out_lens tensor, total). Nothing is
-    gathered here (see gather_manifest and assemble_compact)."""
-    shards = []
+    its device through encode_corpus_compact at `wave`. Returns (per local
+    shard (dense payload tensor, out_lens tensor, total), per local shard
+    the CRC-32C tensor of its rows). Nothing is gathered here (see
+    gather_manifest and assemble_compact). The CRCs are computed only
+    where the caller asks for them (crcs=True, the framed container's
+    encode): crc32c_rows on each shard's rows before its encode, on the
+    same stream; otherwise the second list is empty."""
+    shards, sums = [], []
     for b, l in _on_shards(mesh, (blocks, lengths)):
         with _current(b.device):
+            if crcs:
+                sums.append(kcrc.crc32c_rows(b, l))
             shards.append(ops_encode.encode_corpus_compact(b, l, cfg,
                                                            wave=wave))
-    return shards
+    return shards, sums
 
 
 def gather_manifest(shards: list, mesh: meshlib.Mesh) -> np.ndarray:
@@ -184,18 +191,27 @@ def assemble_compact(dense: list, lens_np: np.ndarray, nblocks: int,
 
 
 def encode_rows(blocks: np.ndarray, lengths: np.ndarray,
-                mesh: meshlib.Mesh, cfg: CodecConfig = DEFAULT_CONFIG):
+                mesh: meshlib.Mesh, cfg: CodecConfig = DEFAULT_CONFIG, *,
+                crcs: bool = False):
     """Encode nb block rows sharded over `mesh`, padded to `layout`.
-    Returns (payload bytes in block order, encoded lengths (nb,))."""
+    Returns (payload bytes in block order, encoded lengths (nb,)); with
+    crcs=True also the CRC-32C of each block's bytes (nb,) int64, computed
+    on the shards' devices from the rows they encode."""
     nb = len(lengths)
     wave, padded = layout(nb, mesh.size)
     if padded != nb:
         blocks = np.pad(blocks, ((0, padded - nb), (0, 0)))
         lengths = np.pad(lengths, (0, padded - nb))
-    shards = encode_local(mesh, blocks, lengths, cfg, wave)
+    shards, sums = encode_local(mesh, blocks, lengths, cfg, wave,
+                                crcs=crcs)
     lens_np = gather_manifest(shards, mesh)
-    return (b"".join(assemble_compact(shards, lens_np, nb, mesh)),
-            lens_np[:nb])
+    payload = b"".join(assemble_compact(shards, lens_np, nb, mesh))
+    if not crcs:
+        return payload, lens_np[:nb]
+    # One fetch a shard, then the cross-process all-gather, as the
+    # manifest's.
+    local = np.concatenate([s.cpu().numpy() for s in sums])
+    return payload, lens_np[:nb], fetch_global(local, mesh)[:nb]
 
 
 def encode_dp(data: bytes, mesh: meshlib.Mesh,

@@ -95,7 +95,7 @@ def compress_stream(src: BinaryIO, dst: BinaryIO, total_len: int, mesh=None,
             stage = staging[k % 2]
             _, lengths, nblocks = shard.blocks_of(
                 buf, cfg.block_size, blocks_per_wave, out=stage.numpy())
-            shards = shard.encode_local(mesh, stage, lengths, cfg, jwave)
+            shards, _ = shard.encode_local(mesh, stage, lengths, cfg, jwave)
             if fut is not None:
                 fut.result()  # surface drain errors before queueing more
             fut = pool.submit(_drain, (shards, nblocks, take), dst, stats,

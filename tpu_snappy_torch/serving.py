@@ -118,7 +118,8 @@ class _Request:
         self.clens = None
         self.ulens = None
         self.oks = [True] * n  # decode: per-unit device validation
-        self.raw = None      # framed encode: original bytes (CRCs, stores)
+        self.raw = None      # framed encode: original bytes (stores)
+        self.crcs = None     # framed encode: each block's CRC-32C
         self.lengths = None  # framed encode: per-block uncompressed sizes
         self.sidecar = "off"  # framed encode: sidecar emission policy
         self.chunks = None   # framed decode: (type, body) data chunks
@@ -224,9 +225,10 @@ class CodecServer:
     def compress_framed(self, data: bytes, sidecar: str = "off") -> cf.Future:
         """Future[bytes]: framed container stream (framing_format.txt:
         chunked, per-chunk CRC-32C). Blocks ride the same encode waves as
-        raw requests; container assembly (CRCs, the compressed-or-stored
-        choice, the decode sidecars of `sidecar` as in framing.compress)
-        happens at completion."""
+        raw requests, whose encode also gives each block's CRC-32C on the
+        card; container assembly (the compressed-or-stored choice, the
+        decode sidecars of `sidecar` as in framing.compress) happens at
+        completion."""
         self._note_request()
         if not data:
             fut: cf.Future = cf.Future()
@@ -235,6 +237,7 @@ class CodecServer:
         blocks, lengths = api._to_blocks(data, framing.MAX_CHUNK)
         req = _Request("encf", len(lengths), len(data))
         req.raw, req.lengths, req.sidecar = data, lengths, sidecar
+        req.crcs = [None] * len(lengths)
         self._enqueue(req, "enc", [(i, int(lengths[i]), blocks[i])
                                    for i in range(len(lengths))])
         return req.future
@@ -470,7 +473,7 @@ class CodecServer:
         kind, units, fut = pending.popleft()
         try:
             if kind == "enc":
-                self._complete_encode(units, fut.result())
+                self._complete_encode(units, *fut.result())
             else:
                 self._complete_decode(units, *fut.result())
         except Exception as e:  # noqa: BLE001 - the wave's futures get it
@@ -478,8 +481,10 @@ class CodecServer:
                 if not req.future.done():
                     self._resolve(req, exc=e)
 
-    def _complete_encode(self, units, parts):
-        for (req, i, *_), part in zip(units, parts):
+    def _complete_encode(self, units, parts, crcs):
+        for j, ((req, i, *_), part) in enumerate(zip(units, parts)):
+            if req.kind == "encf":
+                req.crcs[i] = int(crcs[j])
             if req.deliver(i, part):
                 if req.kind == "encf":
                     self._resolve(req, self._assemble_framed_enc(req))
@@ -522,8 +527,9 @@ class CodecServer:
 
     def _run_wave(self, kind: str, units):
         """One wave, whole: host packing, the sharded codec on the card
-        and the copy back. Returns the element bytes of each block
-        ("enc"), or numpy (out (n, 65536) uint8, ok (n,) bool)."""
+        and the copy back. Returns the element bytes of each block and
+        their CRC-32C ("enc"), or numpy (out (n, 65536) uint8, ok (n,)
+        bool)."""
         with self._on_worker_stream():
             if kind == "enc":
                 return self._encode_wave(units)
@@ -532,10 +538,14 @@ class CodecServer:
             return self._fragment_wave(units, hinted=kind == "dcd")
 
     def _encode_wave(self, units):
+        """The element bytes of each block and, where the wave carries a
+        framed request's block, each block's CRC-32C from the card (None
+        in a wave of raw requests alone)."""
         blocks = np.stack([u[3] for u in units])
         lengths = np.asarray([u[2] for u in units], np.int32)
+        framed = any(u[0].kind == "encf" for u in units)
         return framing._encode_blocks(blocks, lengths, self._mesh,
-                                      self._cfg)
+                                      self._cfg, crcs=framed)
 
     def _fragment_wave(self, units, hinted: bool):
         """The fragment decoder on a wave of fragments or framed chunks;
@@ -574,10 +584,8 @@ class CodecServer:
     def _assemble_framed_enc(self, req: _Request) -> bytes:
         """Framed container from the wave-encoded element bytes (the
         chunks framing.compress writes)."""
-        crcs = [framing.crc32c(req.raw[p:p + framing.MAX_CHUNK])
-                for p in range(0, len(req.raw), framing.MAX_CHUNK)]
         return framing.STREAM_ID + framing._chunks(
-            req.raw, req.lengths, req.parts, crcs, req.sidecar)
+            req.raw, req.lengths, req.parts, req.crcs, req.sidecar)
 
     def _settle_framed(self, req: _Request) -> None:
         try:
